@@ -1,0 +1,139 @@
+"""Synthetic temporal bipartite datasets; the port's copy of
+`synthetic_dataset` from `sagnn_tpu/data/synthetic.py`.
+
+The generator draws from one numpy `Generator` in the same order as the
+JAX package's, so the same seed gives a byte-equal bundle (a test holds
+them equal).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import scipy.sparse as sp
+
+from sagnn_tpu_torch.data.graph import build_user_item_csr
+from sagnn_tpu_torch.data.io import DatasetBundle
+
+
+def _zipf_item_probs(num_items: int, alpha: float, rng: np.random.Generator):
+    ranks = np.arange(1, num_items + 1, dtype=np.float64)
+    p = ranks ** (-alpha)
+    rng.shuffle(p)
+    return p / p.sum()
+
+
+def synthetic_dataset(
+    num_users: int = 64,
+    num_items: int = 128,
+    graph_num: int = 3,
+    seq_len_range: tuple[int, int] = (6, 30),
+    test_size: int = 20,
+    alpha: float = 1.05,
+    seed: int = 0,
+    num_clusters: int = 8,
+    cluster_strength: float = 0.8,
+) -> DatasetBundle:
+    """Generate a DatasetBundle with the reference's data invariants:
+
+    - per-user time-ordered sequences (last item = test target,
+      leave-one-out as in preprocess_to_trnmat.ipynb cells 3-4)
+    - interval matrices cover TRAIN interactions split into `graph_num`
+      equal time spans
+    - `test_dict` holds `test_size - 1` negatives, 1-indexed (SURVEY.md Q8)
+
+    Interactions follow a latent-cluster preference model (each user belongs
+    to a cluster drawing `cluster_strength` of its items from the cluster's
+    item block, zipf-popularity within block) so that ranking the held-out
+    positive against popularity-sampled negatives is LEARNABLE — pure
+    popularity sampling would make HR@K equal to chance.
+    """
+    rng = np.random.default_rng(seed)
+    probs = _zipf_item_probs(num_items, alpha, rng)
+    # cluster-conditional item distributions
+    item_cluster = rng.integers(0, num_clusters, size=num_items)
+    cluster_probs = []
+    for c in range(num_clusters):
+        inb = item_cluster == c
+        p = probs * np.where(inb, cluster_strength / max(probs[inb].sum(),
+                                                         1e-12),
+                             (1 - cluster_strength)
+                             / max(probs[~inb].sum(), 1e-12))
+        cluster_probs.append(p / p.sum())
+
+    sequences: List[List[int]] = []
+    times: List[np.ndarray] = []
+    user_cluster = rng.integers(0, num_clusters, size=num_users)
+    log_ps = [np.log(np.maximum(p, 1e-30)) for p in cluster_probs]
+    for u in range(num_users):
+        n = int(rng.integers(seq_len_range[0], seq_len_range[1] + 1))
+        n = min(n, num_items - 1)
+        # Gumbel top-k: exact weighted sampling WITHOUT replacement in one
+        # pass (np's choice(replace=False, p=...) rejection-samples and
+        # livelocks when n approaches num_items under a skewed p)
+        keys = log_ps[user_cluster[u]] + rng.gumbel(size=num_items)
+        items = np.argpartition(-keys, n)[:n]
+        rng.shuffle(items)
+        t = np.sort(rng.integers(0, 10_000, size=n))
+        sequences.append(items.tolist())
+        times.append(t)
+
+    tst_int = np.empty(num_users, dtype=object)
+    test_dict = {}
+    train_seqs: List[List[int]] = []
+    rows, cols, vals = [], [], []
+    t_min = min(int(t[0]) for t in times)
+    t_max = max(int(t[-1]) for t in times)
+    span = max(1, t_max - t_min + 1)
+
+    for u, (items, t) in enumerate(zip(sequences, times)):
+        tst_int[u] = items[-1]
+        train_items, train_t = items[:-1], t[:-1]
+        train_seqs.append(list(train_items))
+        rows.extend([u] * len(train_items))
+        cols.extend(train_items)
+        vals.extend(train_t.tolist())
+        # negatives exclude the user's full history (vectorized rejection)
+        seen = np.zeros(num_items, dtype=bool)
+        seen[items] = True
+        need = test_size - 1
+        negs: List[int] = []
+        while len(negs) < need:
+            cands = rng.choice(num_items, size=2 * need, p=probs)
+            good = cands[~seen[cands]]
+            negs.extend((good[: need - len(negs)] + 1).tolist())  # 1-indexed
+        test_dict[u + 1] = negs
+
+    full = sp.csr_matrix(
+        (np.array(vals, dtype=np.int64) + 1,
+         (np.array(rows), np.array(cols))),
+        shape=(num_users, num_items))
+
+    sub_mats = []
+    rows_a = np.array(rows)
+    cols_a = np.array(cols)
+    vals_a = np.array(vals, dtype=np.int64)
+    for k in range(graph_num):
+        lo = t_min + k * span // graph_num
+        hi = t_min + (k + 1) * span // graph_num
+        m = (vals_a >= lo) & (vals_a < hi)
+        sub = sp.csr_matrix(
+            (vals_a[m] + 1, (rows_a[m], cols_a[m])),
+            shape=(num_users, num_items))
+        sub_mats.append(sub)
+
+    # NOTE: sequences in the bundle are the TRAIN sequences; the reference's
+    # `sequence` pickle holds training interactions only (test item held out,
+    # preprocess_to_sequence.ipynb cells 3-7) and tstInt holds the target.
+    trn_mat = build_user_item_csr(train_seqs, num_users, num_items)
+    return DatasetBundle(
+        num_users=num_users,
+        num_items=num_items,
+        trn_mat=trn_mat,
+        sub_mats=sub_mats,
+        time_mat=full.copy(),
+        sequences=train_seqs,
+        tst_int=tst_int,
+        test_dict=test_dict,
+    )

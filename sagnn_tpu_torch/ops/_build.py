@@ -1,0 +1,100 @@
+"""Build and bind the port's CUDA kernels; no JAX counterpart (Pallas
+kernels are compiled by JAX itself).
+
+The sources under `sagnn_tpu_torch/csrc/` are compiled by `nvcc` into one
+shared library with a plain C interface and loaded with `ctypes` (seconds
+to build, where a PyTorch C++ extension takes minutes). The library goes
+into `sagnn_tpu_torch/build/`, named by a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one is reused. A failed
+build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: str          # the shared library
+    seconds: float     # nvcc wall time in this process (0.0 if reused)
+    log: str           # nvcc's output (ptxas register/spill report)
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libsagnn_kernels-{h.hexdigest()[:16]}.so")
+
+
+@functools.cache
+def build() -> BuildInfo:
+    """Compile the kernels unless a library for these sources exists."""
+    path = library_path()
+    log_path = path + ".log"
+    if os.path.isfile(path):
+        log = ""
+        if os.path.isfile(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        return BuildInfo(path, 0.0, log)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, path)  # atomic: concurrent builders never see half a file
+    return BuildInfo(path, seconds, log)
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The built library with every C entry point's signature declared."""
+    lib = ctypes.CDLL(build().path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in ("sagnn_segsum_f32", "sagnn_segsum_bf16"):
+        fn = getattr(lib, name)
+        # x, src, ptr, out, num_tgt, d, device, stream
+        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fn.restype = i
+    lib.sagnn_error_string.argtypes = [i]
+    lib.sagnn_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,50 @@
+"""LSTM over the interval axis with TF1 BasicLSTMCell semantics; the port
+of `sagnn_tpu/ops/lstm.py`.
+
+Reference (model.py:135-146): one `BasicLSTMCell(latdim)` in a
+`DropoutWrapper(output_keep_prob=keepRate)`, run over the graph_num axis.
+The same cell serves users and items (Q4).
+
+    gates = [x, h] @ kernel + bias            kernel: [D+H, 4H]
+    i, j, f, o = split(gates, 4)              (input, cell, forget, output)
+    c' = c * sigmoid(f + forget_bias) + sigmoid(i) * tanh(j)   forget_bias=1
+    h' = sigmoid(o) * tanh(c')
+
+Output dropout (a fresh mask per timestep, scaled by 1/keep) applies only
+in training, when a generator is given; inference passes none.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+
+def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              forget_bias: float = 1.0, keep_rate: float = 1.0,
+              dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x: [N, T, D] -> outputs [N, T, H] (all h_t, like dynamic_rnn)."""
+    N, T, D = x.shape
+    kernel, bias = params["kernel"], params["bias"]
+    H = kernel.shape[1] // 4
+    # split concat([x, h]) @ kernel into an x part (one matmul for all
+    # timesteps) and an h part per step
+    w_x, w_h = kernel[:D], kernel[D:]
+    x_gates = (x.reshape(N * T, D) @ w_x + bias).reshape(N, T, 4 * H)
+    c = torch.zeros((N, H), dtype=x.dtype, device=x.device)
+    h = torch.zeros((N, H), dtype=x.dtype, device=x.device)
+    hs = []
+    for t in range(T):
+        gates = x_gates[:, t] + h @ w_h
+        i, j, f, o = torch.split(gates, H, dim=-1)
+        c = c * torch.sigmoid(f + forget_bias) + \
+            torch.sigmoid(i) * torch.tanh(j)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    out = torch.stack(hs, dim=1)
+    if dropout_gen is not None and keep_rate < 1.0:
+        keep = torch.rand(out.shape, generator=dropout_gen,
+                          device=dropout_gen.device).to(out.device) < keep_rate
+        out = torch.where(keep, out / keep_rate, torch.zeros_like(out))
+    return out

@@ -1,0 +1,180 @@
+"""Serving and evaluation entry point; the port of `scripts/recommend.py`
+(top-k over the full catalog) and of the single-process candidate
+evaluation in `Trainer.test_epoch` (`sagnn_tpu/train/trainer.py`).
+
+    python -m sagnn_tpu_torch.serve --data synthetic --preset gowalla \\
+        --users 0 1 2 --k 10 [--params file.npz] [--device cpu]
+
+prints one JSON line per user: {"user", "items", "scores"}. Without
+--params the weights are random, drawn from the preset's train seed. It
+propagates through the CUDA segment-sum kernel on the card and through its
+plain version on the CPU. The graph is encoded
+once per `Recommender`; recommendations and evaluation reuse it (eval is
+deterministic, keepRate=1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sagnn_tpu_torch.config import PRESETS, Config
+from sagnn_tpu_torch.data.graph import compile_interval_graphs
+from sagnn_tpu_torch.data.io import DatasetBundle
+from sagnn_tpu_torch.data.sampler import test_batch, user_sequences
+from sagnn_tpu_torch.device import resolve_device
+from sagnn_tpu_torch.models.selfgnn import (Params, SelfGNN,
+                                            graphs_to_device, param_shapes)
+from sagnn_tpu_torch.train.metrics import topk_metrics
+
+
+class Recommender:
+    """One model, its parameters and its dataset's graphs on one device."""
+
+    def __init__(self, cfg: Config, bundle: DatasetBundle,
+                 params: Optional[Params] = None,
+                 device: torch.device | str = "cuda"):
+        """params: the port's flat dict (`convert.py`); None draws random
+        weights from a CPU `torch.Generator` seeded with cfg.train.seed, so
+        every device gets the same weights."""
+        self.device = resolve_device(device)
+        if bundle.graph_num != cfg.model.graph_num:
+            raise ValueError(f"dataset has {bundle.graph_num} interval "
+                             f"graphs, config says {cfg.model.graph_num}")
+        self.cfg = cfg
+        self.bundle = bundle
+        self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items)
+        self.graphs = graphs_to_device(
+            compile_interval_graphs(bundle.sub_mats), self.device)
+        if params is None:
+            gen = torch.Generator().manual_seed(cfg.train.seed)
+            params = self.model.init(gen, device=self.device)
+        want = param_shapes(cfg.model, bundle.num_users, bundle.num_items)
+        got = {k: tuple(v.shape) for k, v in params.items()}
+        if got != want:
+            diff = sorted(set(want.items()) ^ set(got.items()))
+            raise ValueError(f"params do not fit the config: {diff[:6]}")
+        self.params = {k: v.to(self.device, torch.float32)
+                       for k, v in params.items()}
+        self._encodings: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Encode the whole graph; returns (final_user, final_item)."""
+        final_user, final_item, _, _ = self.model.encode(self.params,
+                                                         self.graphs)
+        self._encodings = (final_user, final_item)
+        return self._encodings
+
+    @property
+    def encodings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._encodings if self._encodings is not None \
+            else self.encode()
+
+    def recommend(self, users: Sequence[int], k: int = 10,
+                  exclude_seen: bool = True, chunk_rows: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k (scores [B, k], item ids [B, k]) for `users`, on the
+        device, from each user's whole train sequence."""
+        users = np.asarray(users, np.int64)
+        seq, mask = user_sequences(self.bundle, users,
+                                   self.cfg.model.pos_length)
+        return self.model.recommend_top_k(
+            self.params, self.graphs,
+            torch.from_numpy(users).to(self.device),
+            torch.from_numpy(seq).to(self.device),
+            torch.from_numpy(mask).to(self.device), k=k,
+            exclude_seen=exclude_seen, chunk_rows=chunk_rows,
+            encodings=self.encodings)
+
+    def evaluate(self, max_users: Optional[int] = None,
+                 ks=(1, 5, 10, 15, 20)) -> Dict[str, float]:
+        """HR/NDCG@ks under the reference's candidate protocol (test_size-1
+        precomputed negatives + the positive), averaged over the test users
+        (the first `max_users` of them when given). "HR"/"NDCG" repeat the
+        values at cfg.train.shoot, like `Trainer.test_epoch`."""
+        tc = self.cfg.train
+        ids = np.asarray(self.bundle.tst_usrs)
+        if max_users is not None:
+            ids = ids[:max_users]
+        final_user, final_item = self.encodings
+        totals: Dict[str, torch.Tensor] = {}
+        for s in range(0, len(ids), tc.batch):
+            user_ids, cand, _pos, seq, seq_mask, valid = test_batch(
+                self.bundle, ids[s:s + tc.batch], tc.test_size,
+                self.cfg.model.pos_length, test_mode=tc.test_mode)
+
+            def dev(a):
+                return torch.from_numpy(a).to(self.device)
+
+            scores = self.model.score_with_encodings(
+                self.params, final_user, final_item, dev(user_ids),
+                dev(cand), dev(seq), dev(seq_mask))
+            mets = topk_metrics(scores, ks=ks, valid=dev(valid))
+            for key, v in mets.items():
+                totals[key] = totals[key] + v if key in totals else v
+        out = {key: float(v) / max(1, len(ids)) for key, v in totals.items()}
+        if f"HR@{tc.shoot}" in out:
+            out["HR"] = out[f"HR@{tc.shoot}"]
+            out["NDCG"] = out[f"NDCG@{tc.shoot}"]
+        return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--data", default="synthetic")
+    ap.add_argument("--data_dir", default="./Datasets")
+    ap.add_argument("--preset", default="gowalla", choices=sorted(PRESETS))
+    ap.add_argument("--users", type=int, nargs="+", required=True)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--include_seen", action="store_true")
+    ap.add_argument("--catalog_chunk", type=int, default=0,
+                    help="stream the catalog in chunks of this many items "
+                         "(0 = auto: dense up to 131k items)")
+    ap.add_argument("--params", default=None,
+                    help="weights as an .npz in the flat layout of "
+                         "sagnn_tpu_torch.convert (default: random)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--synth_users", type=int, default=2048,
+                    help="--data synthetic: number of users")
+    ap.add_argument("--synth_items", type=int, default=4096,
+                    help="--data synthetic: number of items")
+    args = ap.parse_args(argv)
+
+    cfg = PRESETS[args.preset]
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, spmm_backend="pallas"))
+    if args.data == "synthetic":
+        from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+        bundle = synthetic_dataset(num_users=args.synth_users,
+                                   num_items=args.synth_items,
+                                   graph_num=cfg.model.graph_num,
+                                   test_size=cfg.train.test_size,
+                                   seed=cfg.train.seed)
+    else:
+        from sagnn_tpu_torch.data.io import load_dataset
+        bundle = load_dataset(f"{args.data_dir}/{args.data}")
+        if bundle.graph_num != cfg.model.graph_num:
+            cfg = cfg.replace(model=dataclasses.replace(
+                cfg.model, graph_num=bundle.graph_num))
+    params = None
+    if args.params:
+        from sagnn_tpu_torch.convert import load_npz
+        params = load_npz(args.params)
+    rec = Recommender(cfg, bundle, params, device=args.device)
+    scores, items = rec.recommend(args.users, k=args.k,
+                                  exclude_seen=not args.include_seen,
+                                  chunk_rows=args.catalog_chunk)
+    scores, items = scores.cpu().numpy(), items.cpu().numpy()
+    for i, u in enumerate(args.users):
+        print(json.dumps({"user": int(u), "items": items[i].tolist(),
+                          "scores": [round(float(s), 4)
+                                     for s in scores[i]]}))
+
+
+if __name__ == "__main__":
+    main()
