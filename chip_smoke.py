@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -12,9 +13,11 @@ result line then):
                and CSR plans, and seeded random weights (timed).
   4. kernels — the segment-sum kernel (f32 and bf16 tables) on interval 0
                in both directions, an empty graph and a graph with empty
-               rows, each held against its plain PyTorch version; kernel,
-               plain and library (torch.sparse.mm) times with CUDA events.
-  5. main path — the gowalla preset at full width (latdim 64, 16 heads,
+               rows, each held against its plain PyTorch version; then its
+               backward (`SpmmFunction`, the kernel on the transpose plan)
+               against the plain transpose sum; kernel, plain and library
+               (torch.sparse.mm) times with CUDA events.
+  5. serving — the gowalla preset at full width (latdim 64, 16 heads,
                g=3, gnn_layer 2, att_layer 1, pos_length 200, 1000
                candidates) through `Recommender`: encode through the
                kernel (launch counts read just after), held against the
@@ -22,7 +25,23 @@ result line then):
                256 users, HR/NDCG over up to 4,096 test users; then the
                bf16-table encode as a second path, held hop by hop
                against the plain version on the inputs it gave each hop.
-Prints a `kernels` JSON line, then as the last line
+  6. train step check — one full-width training step (keep_rate 1,
+               batch 512) on the kernel path against the plain backend with
+               its propagation summed in f64: preLoss, sslloss and every
+               parameter's gradient; 12 forward and 12 backward launches;
+               the same step on the bf16 table (12 + 12 of its launches);
+               the device time of the step and of its parts.
+  7. training — `Trainer(...).run()` with the unchanged gowalla preset
+               (keepRate 0.5) for one epoch of ceil(trn_num / batch) = 20
+               steps, its evaluation over every test user and its
+               best-NDCG checkpoint; a timed evaluation and save; a second
+               `Trainer` restoring the checkpoint (epoch, step, params);
+               one more step on each from the same batch and dropout state,
+               held against each other; a torch.profiler pass over 3 steps
+               on that batch (device busy share, top kernels).
+Each phase prints its time. Prints a `main_path` line, a `train` JSON line,
+the card's name and power limit, and a `kernels` JSON line, then as the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -34,6 +53,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -53,6 +73,19 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 KERNEL_SOURCE = "sagnn_tpu_torch/csrc/segsum.cu"
 KERNEL_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:218"   # _segsum_kernel
+BWD_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:485"      # _spmm_bwd
+# the training step check: losses at rtol 1e-5; each gradient at rtol 1e-4
+# and atol 1e-5 x the largest |g| over all parameters
+LOSS_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL_SHARE = 1e-4, 1e-5
+# the bf16-table step's losses against the exact step's: the table keeps
+# ~3 decimal digits
+BF16_LOSS_RTOL = 1e-2
+# a resumed step against the uninterrupted one: same params, batch and
+# dropout masks; only the order of atomic adds may differ
+RESUME_RTOL = 1e-5
+# the profiler pass over trainer steps on one batch
+PROFILE_STEPS, PROFILE_TOP = 3, 10
 
 
 def log(*a):
@@ -95,21 +128,36 @@ def seg_tol(ptr) -> tuple[float, float]:
     return 1e-5, 1e-5 * math.sqrt(max(1, deg))
 
 
+def expect_launches(got: dict, what: str, **want) -> None:
+    """Fails unless the launch counts are `want` (every other kernel 0)."""
+    full = {name: want.get(name, 0) for name in got}
+    check(got == full, f"{what}: launches {got}, expected {full}")
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def tolerance_used(got, want, rtol, atol) -> tuple[float, float]:
+    """(max abs error, largest share of the tolerance atol + rtol * |want|
+    used); the share is inf where got is not finite."""
+    import torch
+    got, want = got.double(), want.double()
+    if not got.numel():
+        return 0.0, 0.0
+    if not bool(torch.isfinite(got).all()):
+        return math.inf, math.inf
+    diff = (got - want).abs()
+    return (float(diff.max()),
+            float((diff / (atol + rtol * want.abs())).max()))
 
 
 def check_close(got, want, rtol, atol, what) -> float:
     """Fails unless |got - want| <= atol + rtol * |want| everywhere and got
     is finite; logs the largest share of the tolerance used. Returns the
     max abs error."""
-    import torch
-    got, want = got.double(), want.double()
-    diff = (got - want).abs()
-    err = float(diff.max()) if diff.numel() else 0.0
-    used = float((diff / (atol + rtol * want.abs())).max()) \
-        if diff.numel() else 0.0
-    check(used <= 1.0 and bool(torch.isfinite(got).all()),
+    err, used = tolerance_used(got, want, rtol, atol)
+    check(used <= 1.0,
           f"{what}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e})")
     log(f"  {what}: max abs err {err:.3e}, {used:.2f} of the tolerance")
     return err
@@ -218,6 +266,90 @@ def kernel_phase(graphs, device) -> dict:
     return records
 
 
+def backward_phase(graphs, device) -> dict:
+    """K1's backward (`SpmmFunction`: the kernel on the transpose plan) on
+    interval 0, both directions, exact and bf16: dx of a seeded random
+    cotangent through `torch.autograd.grad` against the plain transpose
+    sum in f64. Times the backward's launch alone (`spmm_apply` on the
+    transpose plan, the launch the backward makes), the whole autograd
+    backward, the plain version and the library call. Returns per-kernel
+    records."""
+    import torch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    D = 64
+    records = {}
+    for exact, name in ((True, "segsum_f32_bwd"),
+                        (False, "segsum_bf16_bwd")):
+        rec = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+               "replaces": BWD_REPLACES, "mode": "backward, dx = A^T g on "
+               "the transpose plan; " + ("exact f32 cotangent" if exact
+                                         else "cotangent cast to bf16, "
+                                         "f32 accumulation"),
+               "per_direction": {}, "max_abs_err": 0.0}
+        totals = dict(ms=0.0, autograd_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      bound_ms=0.0)
+        for d in ("u", "i"):
+            o = "i" if d == "u" else "u"
+            fsrc, fptr = graphs[f"{d}_src"][0], graphs[f"{d}_ptr"][0]
+            bsrc, bptr = graphs[f"{o}_src"][0], graphs[f"{o}_ptr"][0]
+            n_x, n_g = bptr.numel() - 1, fptr.numel() - 1
+            n_edges = int(bptr[-1])
+            x = torch.randn((n_x, D), generator=gen, device=device,
+                            requires_grad=True)
+            g = torch.randn((n_g, D), generator=gen, device=device)
+            out = sc.spmm(x, fsrc, fptr, bsrc, bptr, exact)
+            dx, = torch.autograd.grad(out, x, g, retain_graph=True)
+            want = sc.spmm_apply_plain(g.double(), bsrc, bptr, exact)
+            torch.cuda.synchronize()
+            rtol, atol = seg_tol(bptr)
+            err = check_close(dx, want, rtol, atol, f"{name}[{d}-hop dx]")
+            ms = cuda_ms(lambda: sc.spmm_apply(g, bsrc, bptr, exact))
+            autograd_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, x, g, retain_graph=True))
+            plain_ms = cuda_ms(lambda: sc.spmm_apply_plain(g, bsrc, bptr,
+                                                           exact))
+            # library yardstick: cuSPARSE on the transposed unit CSR, built
+            # outside the timed region
+            at = torch.sparse_csr_tensor(
+                bptr.long(), bsrc[:n_edges].long(),
+                torch.ones(n_edges, device=device), size=(n_x, n_g),
+                check_invariants=False)
+            gl = g if exact else g.to(torch.bfloat16).float()
+            check_close(torch.sparse.mm(at, gl), want, rtol, atol,
+                        f"library[{d}-hop dx]")
+            library_ms = cuda_ms(lambda: torch.sparse.mm(at, gl))
+            elem = 4 if exact else 2
+            # the forward's bytes with the roles swapped: the cotangent
+            # table once, the transpose plan's ids and row pointers once,
+            # the f32 dx once
+            nbytes = (n_g * D * elem + n_edges * 4 + (n_x + 1) * 4
+                      + n_x * D * 4)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           n_edges * D / F32_FLOPS) * 1e3
+            rec["per_direction"][d] = dict(
+                plan=o, num_tgt=n_x, num_src=n_g, edges=n_edges, d=D,
+                max_degree=int((bptr[1:] - bptr[:-1]).max()), ms=ms,
+                autograd_ms=autograd_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
+                unique_bytes=nbytes, max_abs_err=err)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            for key in totals:
+                totals[key] += rec["per_direction"][d][key]
+        rec.update(totals)
+        rec["bound_by"] = "bytes"
+        rec["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree of the "
+                            "transpose plan)")
+        records[name] = rec
+        log(f"{name}: u-hop dx {rec['per_direction']['u']['ms']:.4f} ms, "
+            f"i-hop dx {rec['per_direction']['i']['ms']:.4f} ms; autograd "
+            f"{rec['autograd_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; "
+            f"library {rec['library_ms']:.4f} ms; bound "
+            f"{rec['bound_ms']:.4f} ms; max abs err {rec['max_abs_err']:.3e}")
+    return records
+
+
 def bf16_propagation_reference(params, graphs, mc, num_users, num_items):
     """The bf16-table propagation, held hop by hop. A first pass runs the
     kernel path and keeps each hop's input and output; a second pass
@@ -233,12 +365,12 @@ def bf16_propagation_reference(params, graphs, mc, num_users, num_items):
 
     hops = []
 
-    def record(x, src, ptr, exact):
-        out = sc.spmm_apply(x, src, ptr, exact)
+    def record(x, src, ptr, bwd_src, bwd_ptr, exact):
+        out = kernel(x, src, ptr, bwd_src, bwd_ptr, exact)
         hops.append((x, out))
         return out
 
-    def replay(_x, src, ptr, exact):
+    def replay(_x, src, ptr, _bwd_src, _bwd_ptr, exact):
         x, got = hops[len(done)]
         want = sc.spmm_apply_plain(x.double(), src, ptr, exact)
         done.append(check_close(got, want, *seg_tol(ptr),
@@ -249,19 +381,368 @@ def bf16_propagation_reference(params, graphs, mc, num_users, num_items):
     p64 = dict(params)
     for key in ("reg/u_embed", "reg/i_embed"):
         p64[key] = p64[key].double()
-    kernel = selfgnn.spmm_apply
+    kernel = selfgnn.spmm
     try:
-        selfgnn.spmm_apply = record
+        selfgnn.spmm = record
         selfgnn._interval_propagation(params, graphs, mc, num_users,
                                       num_items)
-        selfgnn.spmm_apply = replay
+        selfgnn.spmm = replay
         ref = selfgnn._interval_propagation(p64, graphs, mc, num_users,
                                             num_items)
     finally:
-        selfgnn.spmm_apply = kernel
+        selfgnn.spmm = kernel
     check(len(done) == len(hops) == mc.graph_num * mc.gnn_layer * 2,
           "bf16 reference: every hop replayed")
     return ref
+
+
+def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
+    """One full-width training step at keep_rate 1 through
+    `SelfGNN.train_losses`: the kernel path against the plain backend with
+    its propagation summed in f64 (losses and every parameter's gradient),
+    with the launch counts read around it; the same step on the bf16
+    table; then the device time of the step and of its parts."""
+    import torch
+    from sagnn_tpu_torch.data.sampler import Sampler
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.train.optim import TF1Adam
+
+    tc = cfg.train
+    mc = dataclasses.replace(cfg.model, keep_rate=1.0)
+    nu, ni = bundle.num_users, bundle.num_items
+    hops = mc.graph_num * mc.gnn_layer * 2
+    sampler = Sampler(bundle, batch=tc.batch, samp_num=tc.samp_num,
+                      ssl_num=tc.ssl_num, pred_num=tc.pred_num,
+                      pos_length=mc.pos_length, test_size=tc.test_size,
+                      seed=tc.seed)
+    ids = sampler.epoch_user_ids(tc.trn_num)
+    t0 = time.perf_counter()
+    host_batch = sampler.train_batch(ids[:tc.batch])
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    batch = host_batch.to(device)
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    keys = sorted(leaves)
+
+    def loss_and_grads(model):
+        pre, ssl, _ = model.train_losses(leaves, graphs, batch)
+        loss = pre + tc.reg * selfgnn.reg_loss(leaves) + tc.ssl_reg * ssl
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
+                                    allow_unused=True)
+        return pre.detach(), ssl.detach(), {
+            k: torch.zeros_like(leaves[k]) if g is None else g
+            for k, g in zip(keys, grads)}
+
+    kernel = selfgnn.SelfGNN(mc, nu, ni)
+    sc.reset_launches()
+    pre_k, ssl_k, g_k = loss_and_grads(kernel)
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    log(f"train step launches: {launches}")
+    expect_launches(launches, "train step", segsum_f32=hops,
+                    segsum_f32_bwd=hops)
+
+    # the reference: the plain ("xla") backend, its propagation summed in
+    # f64 (the embedding tables cast to f64 on the way in, the node states
+    # back to f32 on the way out), everything else in f32
+    plain = selfgnn.SelfGNN(dataclasses.replace(mc, spmm_backend="xla"),
+                            nu, ni)
+    propagation = selfgnn._interval_propagation
+
+    def f64_propagation(p, graphs_, cfg_, nu_, ni_):
+        p64 = dict(p)
+        for key in ("reg/u_embed", "reg/i_embed"):
+            p64[key] = p[key].double()
+        uv, iv = propagation(p64, graphs_, cfg_, nu_, ni_)
+        return uv.float(), iv.float()
+
+    try:
+        selfgnn._interval_propagation = f64_propagation
+        pre_r, ssl_r, g_r = loss_and_grads(plain)
+    finally:
+        selfgnn._interval_propagation = propagation
+    torch.cuda.synchronize()
+    check_close(pre_k.reshape(1), pre_r.reshape(1), LOSS_RTOL, 0.0,
+                "train step preLoss kernel vs plain f64")
+    check_close(ssl_k.reshape(1), ssl_r.reshape(1), LOSS_RTOL, 0.0,
+                "train step sslloss kernel vs plain f64")
+    g_max = max(float(g.abs().max()) for g in g_r.values())
+    grad_atol = GRAD_ATOL_SHARE * g_max
+    used = {k: tolerance_used(g_k[k], g_r[k], GRAD_RTOL, grad_atol)
+            for k in keys}
+    worst = sorted(used.items(), key=lambda kv: -kv[1][1])
+    log(f"  gradients kernel vs plain f64 (rtol {GRAD_RTOL}, atol "
+        f"{grad_atol:.3e} = {GRAD_ATOL_SHARE} x max|g| {g_max:.3e}); "
+        "largest shares of the tolerance: " + ", ".join(
+            f"{k} {s:.2f} (err {e:.2e})" for k, (e, s) in worst[:4]))
+    check(worst[0][1][1] <= 1.0,
+          f"gradient {worst[0][0]}: {worst[0][1][1]:.2f} of the tolerance")
+    grad_share = worst[0][1][1]
+
+    # the same step on the bf16 table: its kernels on the path, losses
+    # near the exact path's (the table rounds to bf16, ~3 decimal digits)
+    bf16 = selfgnn.SelfGNN(dataclasses.replace(mc, spmm_exact=False), nu, ni)
+    sc.reset_launches()
+    pre_b, ssl_b, g_b = loss_and_grads(bf16)
+    torch.cuda.synchronize()
+    launches_bf16 = dict(sc.LAUNCHES)
+    log(f"bf16 train step launches: {launches_bf16}")
+    expect_launches(launches_bf16, "bf16 train step", segsum_bf16=hops,
+                    segsum_bf16_bwd=hops)
+    check_close(pre_b.reshape(1), pre_k.reshape(1), BF16_LOSS_RTOL, 0.0,
+                "bf16 train step preLoss vs exact")
+    check_close(ssl_b.reshape(1), ssl_k.reshape(1), BF16_LOSS_RTOL, 0.0,
+                "bf16 train step sslloss vs exact")
+    check(all(bool(torch.isfinite(g).all()) for g in g_b.values()),
+          "bf16 train step gradients finite")
+    bf16_grad_dev = max(max_err(g_b[k], g_k[k]) for k in keys) / g_max
+    log(f"  bf16 step gradients: max abs deviation from the exact step "
+        f"{bf16_grad_dev:.3e} x max|g|")
+
+    # device time of the step (forward + backward of the whole loss) and
+    # of its parts, with CUDA events, on the kernel path
+    step_ms = cuda_ms(lambda: loss_and_grads(kernel), iters=5, warmup=1)
+    uk, ik = leaves["reg/u_embed"], leaves["reg/i_embed"]
+
+    def prop():
+        return selfgnn._interval_propagation(leaves, graphs, mc, nu, ni)
+
+    uv, iv = prop()
+    cu, ci = torch.randn_like(uv), torch.randn_like(iv)
+    prop_fwd_ms = cuda_ms(prop, iters=5, warmup=1)
+    prop_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+        list(prop()), [uk, ik], [cu, ci]), iters=5, warmup=1)
+    uvd, ivd = uv.detach().requires_grad_(), iv.detach().requires_grad_()
+
+    def fusion():
+        return selfgnn._temporal_fusion(leaves, uvd, ivd, mc)
+
+    fu, fi = fusion()
+    cfu, cfi = torch.randn_like(fu), torch.randn_like(fi)
+    fusion_fwd_ms = cuda_ms(fusion, iters=5, warmup=1)
+    fusion_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+        list(fusion()), [uvd, ivd] + [leaves[k] for k in keys], [cfu, cfi],
+        allow_unused=True), iters=5, warmup=1)
+    # K1 alone: the step's 12 forward and 12 backward launches on their
+    # plans (random tables; a segment-sum's time does not depend on values)
+    gen = torch.Generator(device=device).manual_seed(3)
+    tables = {"u": torch.randn((nu, 64), generator=gen, device=device),
+              "i": torch.randn((ni, 64), generator=gen, device=device)}
+
+    def k1(backward):
+        for k in range(mc.graph_num):
+            for _ in range(mc.gnn_layer):
+                for d, o in (("u", "i"), ("i", "u")):
+                    plan, table = (o, d) if backward else (d, o)
+                    sc.spmm_apply(tables[table], graphs[f"{plan}_src"][k],
+                                  graphs[f"{plan}_ptr"][k])
+
+    k1_fwd_ms = cuda_ms(lambda: k1(False), iters=5, warmup=1)
+    k1_bwd_ms = cuda_ms(lambda: k1(True), iters=5, warmup=1)
+    opt = TF1Adam(tc.lr, tc.decay, tc.decay_step)
+    opt_params = {k: v.detach().clone() for k, v in leaves.items()}
+    opt_state = opt.init(opt_params)
+    optimizer_ms = cuda_ms(lambda: opt.step(opt_params, g_k, opt_state),
+                           iters=10, warmup=2)
+    out = {
+        "launches_per_step": {k: v for k, v in launches.items() if v},
+        "launches_per_bf16_step": {k: v for k, v in launches_bf16.items()
+                                   if v},
+        "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+        "grad_atol": grad_atol, "grad_check_share": grad_share,
+        "grad_check_worst": worst[0][0],
+        "bf16_grad_dev_over_max_g": bf16_grad_dev,
+        "step_ms": step_ms, "propagation_fwd_ms": prop_fwd_ms,
+        "propagation_bwd_ms": prop_fb_ms - prop_fwd_ms,
+        "fusion_fwd_ms": fusion_fwd_ms,
+        "fusion_bwd_ms": fusion_fb_ms - fusion_fwd_ms,
+        "rest_ms": step_ms - prop_fb_ms - fusion_fb_ms,
+        "k1_fwd_ms": k1_fwd_ms, "k1_bwd_ms": k1_bwd_ms,
+        "optimizer_ms": optimizer_ms, "host_sample_ms_one_batch": sample_ms,
+    }
+    log(f"train step {step_ms:.3f} ms (forward + backward): propagation "
+        f"{prop_fwd_ms:.3f} + {out['propagation_bwd_ms']:.3f} ms, of which "
+        f"K1 {k1_fwd_ms:.3f} + {k1_bwd_ms:.3f} ms; fusion "
+        f"{fusion_fwd_ms:.3f} + {out['fusion_bwd_ms']:.3f} ms; rest "
+        f"{out['rest_ms']:.3f} ms; optimizer {optimizer_ms:.3f} ms; host "
+        f"sampling of one batch {sample_ms:.1f} ms")
+    return out
+
+
+def profile_steps(step, n: int = PROFILE_STEPS) -> dict:
+    """torch.profiler over `n` calls of `step` (after one unprofiled
+    call): the device's busy share of the window's wall time (the sum of
+    the kernels' and copies' device times; the profiler's own host cost
+    lengthens the window, so the share is a lower bound) and the top
+    kernels by device time, in ms per step. Without device events (a
+    profiler that cannot trace the card) it records that and no share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("profile: no device events in the trace; busy share not "
+            "measured")
+        return {"steps": n, "wall_ms_per_step": wall_ms / n,
+                "busy_share": None}
+
+    def device_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / n
+
+    busy = sum(device_ms(e) for e in kernels)
+    top = sorted(kernels, key=device_ms, reverse=True)[:PROFILE_TOP]
+    out = {"steps": n, "wall_ms_per_step": wall_ms / n,
+           "device_ms_per_step": busy, "busy_share": busy * n / wall_ms,
+           "top_ms_per_step": {e.key[:100]: device_ms(e) for e in top}}
+    log(f"profile of {n} train steps: wall {out['wall_ms_per_step']:.2f} "
+        f"ms, device {busy:.2f} ms per step (busy "
+        f"{out['busy_share']:.2f}); top kernels by device time per step:")
+    for k, v in out["top_ms_per_step"].items():
+        log(f"  {v:.3f} ms  {k}")
+    return out
+
+
+def training_phase(cfg, bundle, device) -> dict:
+    """`Trainer.run()` for one epoch (trn_num / batch steps, keepRate as
+    the preset has it) with its evaluation and best-NDCG checkpoint; a
+    timed evaluation and save; a second `Trainer` that restores the
+    checkpoint; one more step on each, on the same batch and dropout
+    state."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch.models.selfgnn import TrainBatch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.train.trainer import Trainer
+    from sagnn_tpu_torch.utils.profiling import StepTimer
+
+    tc, mc = cfg.train, cfg.model
+    hops = mc.graph_num * mc.gnn_layer * 2
+    steps = -(-tc.trn_num // tc.batch)
+    run_cfg = cfg.replace(train=dataclasses.replace(
+        tc, epoch=1, tst_epoch=1, save_path="smoke"))
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        trainer = Trainer(run_cfg, bundle, ckpt_root=root, device=device)
+        out["trainer_init_s"] = time.perf_counter() - t0
+        epoch_s = []
+        train_epoch = trainer.train_epoch
+
+        def timed_epoch(*a, **kw):
+            t = time.perf_counter()
+            res = train_epoch(*a, **kw)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t)
+            return res
+
+        trainer.train_epoch = timed_epoch
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        best = trainer.run()
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        launches = dict(sc.LAUNCHES)
+        log(f"training run launches: {launches}")
+        check(trainer.state["step"] == steps == len(trainer.step_stats),
+              f"one epoch of {steps} steps")
+        # 12 forward + 12 backward per step; 12 forward per evaluation (the
+        # epoch's and the final one)
+        expect_launches(launches, "training run", segsum_f32=hops * (steps + 2),
+                        segsum_f32_bwd=hops * steps)
+        stats = trainer.step_stats
+        check(all(math.isfinite(s[k]) for s in stats for k in s),
+              "every training loss finite")
+        for k, v in best.items():
+            check(math.isfinite(v) and 0.0 <= v <= 1.0, f"metric {k}={v}")
+        check(os.path.exists(os.path.join(root, "smoke", "state")),
+              "best-NDCG checkpoint written")
+        times = StepTimer(times=trainer.step_timer.times[1:])
+        samples = trainer.sample_timer.times
+        out.update(
+            steps=steps, epoch_s=epoch_s[0], step_ms_mean=times.mean * 1e3,
+            step_ms_p50=times.percentile(50) * 1e3,
+            step_ms_p95=times.percentile(95) * 1e3,
+            host_sample_ms=sum(samples) / len(samples) * 1e3,
+            first_preloss=stats[0]["preLoss"],
+            last_preloss=stats[-1]["preLoss"],
+            launches_run=launches)
+
+        t0 = time.perf_counter()
+        metrics = trainer.test_epoch()
+        torch.cuda.synchronize()
+        out["evaluate_s"] = time.perf_counter() - t0
+        out["evaluate_users"] = len(bundle.tst_usrs)
+        out["metrics"] = {k: metrics[k] for k in ("HR@10", "NDCG@10")}
+        for k, v in metrics.items():
+            check(math.isfinite(v) and 0.0 <= v <= 1.0, f"metric {k}={v}")
+        log(f"evaluate over {len(bundle.tst_usrs)} users: "
+            f"{out['evaluate_s']:.2f} s, HR@10 {metrics['HR@10']:.4f} "
+            f"NDCG@10 {metrics['NDCG@10']:.4f} (one epoch from random "
+            f"weights)")
+        t0 = time.perf_counter()
+        trainer.ckpt.save(trainer.state, trainer.history, trainer.cfg,
+                          rng_state=trainer.capture_rng_state(1))
+        out["checkpoint_save_s"] = time.perf_counter() - t0
+
+        resumed = Trainer(run_cfg.replace(train=dataclasses.replace(
+            run_cfg.train, epoch=2, load_model="smoke")), bundle,
+            ckpt_root=root, device=device)
+        t0 = time.perf_counter()
+        epoch = resumed.restore_checkpoint()
+        torch.cuda.synchronize()
+        out["checkpoint_restore_s"] = time.perf_counter() - t0
+        check(epoch == 1 and resumed.state["step"] == steps
+              and resumed.state["opt_state"].count == steps,
+              f"restored epoch {epoch}, step {resumed.state['step']}")
+        for k, v in trainer.state["params"].items():
+            check(torch.equal(resumed.state["params"][k], v),
+                  f"restored param {k}")
+
+        def next_batch(tr):
+            ids = tr.sampler.epoch_user_ids(tc.trn_num)
+            return tr.sampler.train_batch(ids[:tc.batch])
+
+        b_run, b_res = next_batch(trainer), next_batch(resumed)
+        for f in dataclasses.fields(TrainBatch):
+            check(np.array_equal(getattr(b_run, f.name),
+                                 getattr(b_res, f.name)),
+                  f"resumed sampler draws the same {f.name}")
+        s_run = trainer.train_step(b_run.to(device))
+        sc.reset_launches()
+        s_res = resumed.train_step(b_res.to(device))
+        torch.cuda.synchronize()
+        resumed_launches = dict(sc.LAUNCHES)
+        expect_launches(resumed_launches, "resumed step", segsum_f32=hops,
+                        segsum_f32_bwd=hops)
+        for k in s_run:
+            check_close(s_res[k].reshape(1), s_run[k].reshape(1),
+                        RESUME_RTOL, 0.0, f"resumed step {k} vs uninterrupted")
+        out["resumed_step_losses"] = {k: float(v) for k, v in s_res.items()}
+        out["launches_resumed_step"] = {k: v for k, v in
+                                        resumed_launches.items() if v}
+        batch = b_res.to(device)
+        out["profile"] = profile_steps(lambda: resumed.train_step(batch))
+    log(f"training: epoch of {steps} steps {out['epoch_s']:.2f} s, step "
+        f"{out['step_ms_mean']:.2f} ms mean (p50 {out['step_ms_p50']:.2f}, "
+        f"p95 {out['step_ms_p95']:.2f}) after the first, host sampling "
+        f"{out['host_sample_ms']:.1f} ms per batch; preLoss "
+        f"{out['first_preloss']:.4f} -> {out['last_preloss']:.4f}; save "
+        f"{out['checkpoint_save_s']:.2f} s, restore "
+        f"{out['checkpoint_restore_s']:.2f} s")
+    return out
 
 
 def main() -> None:
@@ -318,18 +799,24 @@ def main() -> None:
     log(f"set-up: bundle {t_bundle:.1f} s, total {t_setup:.1f} s; "
         f"{NUM_USERS} users x {NUM_ITEMS} items, interval edges {edges}")
 
-    # 4. kernels against their plain versions
-    records = kernel_phase(rec.graphs, device)
+    phase_s = {"build": info.seconds, "set-up": t_setup}
 
-    # 5. main path: encode through the kernel, counts read just after
+    # 4. kernels against their plain versions, forward and backward
+    t0 = time.perf_counter()
+    records = kernel_phase(rec.graphs, device)
+    records.update(backward_phase(rec.graphs, device))
+    phase_s["kernels"] = time.perf_counter() - t0
+    log(f"phase kernels: {phase_s['kernels']:.1f} s")
+
+    # 5. serving: encode through the kernel, counts read just after
+    t0 = time.perf_counter()
     sc.reset_launches()
     fu, fi = rec.encode()
     torch.cuda.synchronize()
     launches_exact = dict(sc.LAUNCHES)
     hops = mc.graph_num * mc.gnn_layer * 2
     log(f"encode launches: {launches_exact}")
-    check(launches_exact == {"segsum_f32": hops, "segsum_bf16": 0},
-          f"encode must launch segsum_f32 {hops} times")
+    expect_launches(launches_exact, "encode", segsum_f32=hops)
     check(fu.shape == (NUM_USERS, 64) and fi.shape == (NUM_ITEMS, 64),
           "encoding shapes")
     # the reference: the plain ("xla") backend's propagation summed in f64,
@@ -356,6 +843,12 @@ def main() -> None:
         f"item {err_i:.3e}; f32 plain backend vs the same reference: user "
         f"{max_err(pu, ru):.3e}, item {max_err(pi, ri):.3e}")
     encode_ms = cuda_ms(rec.encode, iters=5, warmup=1)
+    # the last of those encodes against the first: the kernel path has no
+    # atomics, so any difference is logged (not checked) as a finding
+    fu_last, fi_last = rec.encodings
+    encode_repeat_diff = max(max_err(fu_last, fu), max_err(fi_last, fi))
+    log(f"encode repeated 6 times: max abs diff from the first "
+        f"{encode_repeat_diff:.3e}")
     # breakdown: the 12 propagation hops (kernel + leaky-relu + residual
     # adds) alone; the rest of the encode is the fusion stack
     propagation_ms = cuda_ms(
@@ -398,8 +891,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches_bf16 = dict(sc.LAUNCHES)
     log(f"bf16 encode launches: {launches_bf16}")
-    check(launches_bf16 == {"segsum_f32": 0, "segsum_bf16": hops},
-          f"bf16 encode must launch segsum_bf16 {hops} times")
+    expect_launches(launches_bf16, "bf16 encode", segsum_bf16=hops)
     # the reference: the plain version on the bf16-rounded hop inputs,
     # summed in f64, then the same fusion stack in f32
     uv16, iv16 = _interval_propagation(rec_bf16.params, rec_bf16.graphs,
@@ -423,26 +915,71 @@ def main() -> None:
         f"item {err16_i:.3e}; max abs deviation from the exact encode "
         f"{bf16_dev:.3e}")
 
-    records["segsum_f32"]["launches"] = launches_exact["segsum_f32"]
-    records["segsum_bf16"]["launches"] = launches_bf16["segsum_bf16"]
+    phase_s["serving"] = time.perf_counter() - t0
+    log(f"phase serving: {phase_s['serving']:.1f} s")
+
+    # 6. one training step, kernel path against the plain path
+    t0 = time.perf_counter()
+    step = train_step_phase(cfg, bundle, rec.params, rec.graphs, device)
+    phase_s["train step check"] = time.perf_counter() - t0
+    log(f"phase train step check: {phase_s['train step check']:.1f} s")
+
+    # 7. training through the Trainer: one epoch, evaluation, checkpoint,
+    # resume
+    t0 = time.perf_counter()
+    training = training_phase(cfg, bundle, device)
+    phase_s["training"] = time.perf_counter() - t0
+    log(f"phase training: {phase_s['training']:.1f} s")
+
+    # `launches`: the count on the path each kernel belongs to, read just
+    # after it (the serving encode for the forward kernels, the training
+    # run for the f32 backward, the bf16-table train step for the bf16
+    # backward); the other paths' counts beside it
+    steps = training["steps"]
+    run = training["launches_run"]
+    records["segsum_f32"].update(
+        launches=launches_exact["segsum_f32"],
+        launches_per_encode=launches_exact["segsum_f32"],
+        launches_per_train_step=step["launches_per_step"]["segsum_f32"],
+        launches_training_run=run["segsum_f32"])
+    records["segsum_bf16"].update(
+        launches=launches_bf16["segsum_bf16"],
+        launches_per_encode=launches_bf16["segsum_bf16"],
+        launches_per_train_step=step["launches_per_bf16_step"]["segsum_bf16"])
+    records["segsum_f32_bwd"].update(
+        launches=run["segsum_f32_bwd"],
+        launches_per_train_step=step["launches_per_step"]["segsum_f32_bwd"],
+        launches_training_run=run["segsum_f32_bwd"])
+    records["segsum_bf16_bwd"].update(
+        launches=step["launches_per_bf16_step"]["segsum_bf16_bwd"],
+        launches_per_train_step=step["launches_per_bf16_step"][
+            "segsum_bf16_bwd"])
     kernels = []
     for r in records.values():
         r["kernel_ms"] = r["ms"]
-        r["launches_per_encode"] = r["launches"]
         r["ok"] = True
         r["timed"] = ("ms/plain_ms/library_ms/bound_ms: one user-target "
-                      "plus one item-target hop on interval 0")
+                      "plus one item-target hop on interval 0 (the "
+                      "backward: the dx of each)")
         kernels.append(r)
     main_path = {
         "card": card, "setup_s": t_setup, "bundle_s": t_bundle,
         "build_s": info.seconds, "encode_ms": encode_ms,
+        "encode_repeat_max_diff": encode_repeat_diff,
         "propagation_ms": propagation_ms,
         "plain_encode_ms": plain_encode_ms, "bf16_encode_ms": bf16_encode_ms,
         "recommend_ms": recommend_ms, "recommend_users": len(users),
         "evaluate_s": evaluate_s, "evaluate_users": min(
             EVAL_USERS, len(bundle.tst_usrs)), "metrics": metrics,
-        "interval_edges": edges, "total_s": time.perf_counter() - t_start}
+        "interval_edges": edges}
     log("main_path " + json.dumps(main_path))
+    train = {"card": card, "steps_per_epoch": steps,
+             **{k: v for k, v in training.items()
+                if k not in ("steps", "launches_run")},
+             "launches_training_run": {k: v for k, v in run.items() if v},
+             "step_check": step, "phase_s": phase_s,
+             "total_s": time.perf_counter() - t_start}
+    log(json.dumps({"train": train}))
     log(card)   # nvidia-smi's name,power.limit line
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -69,11 +69,12 @@ class ModelConfig:
     # ported yet.
     edge_attention: bool = False
     # recompute propagation activations in the backward pass (training
-    # only; no effect on the port's forward-only path)
+    # only; the port's training refuses it so far)
     remat_propagation: bool = False
     # run the temporal-fusion node axis in blocks of this many rows (the
     # stack is row-parallel per node): bounds the live LSTM/attention
-    # temporaries at huge node counts. 0 = unchunked.
+    # temporaries at huge node counts. 0 = unchunked. Serving only in the
+    # port so far.
     fusion_chunk_rows: int = 0
     # compute dtype for the temporal-fusion + sequence-attention stack:
     # "f32" | "bf16". Parity needs f32 (Q5's raw-exp attention overflows

@@ -6,7 +6,9 @@ The JAX model keeps its parameters as a nested pytree
 one flat dict whose keys are that tree's paths joined by "/"
 ("reg/u_embed", "free/seq_mhsa/0/wq"). `params_from_numpy` flattens a tree
 of numpy arrays (for example a JAX pytree after `np.asarray` on every
-leaf) into the port's dict; `save_npz`/`load_npz` store the flat layout.
+leaf) into the port's dict; `save_npz`/`load_npz` store the flat layout;
+`opt_state_from_numpy` carries Adam's moments over in the same layout
+(the layout of the optimizer state in `sagnn_tpu/train/trainer.py:332-394`).
 """
 
 from __future__ import annotations
@@ -48,3 +50,13 @@ def load_npz(path: str, device: torch.device | str = "cpu"
     with np.load(path, allow_pickle=False) as z:
         return {k: torch.from_numpy(z[k].astype(np.float32)).to(device)
                 for k in z.files}
+
+
+def opt_state_from_numpy(mu: Any, nu: Any, count: int,
+                         device: torch.device | str = "cpu"):
+    """A JAX `ScaleByAdamState`'s moments (param trees of arrays, e.g. after
+    `np.asarray` on every leaf) and count -> the port's `AdamState` in the
+    flat layout, so both optimizers can continue from the same moments."""
+    from sagnn_tpu_torch.train.optim import AdamState
+    return AdamState(mu=params_from_numpy(mu, device),
+                     nu=params_from_numpy(nu, device), count=int(count))

@@ -1,2 +1,2 @@
 """Host data layer; the port of `sagnn_tpu/data/` (graph blocks, pickle
-loading, the synthetic bundle, eval batches)."""
+loading, the synthetic bundle, train and eval batches)."""

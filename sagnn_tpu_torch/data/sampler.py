@@ -1,22 +1,43 @@
-"""Evaluation batches; the eval side of `sagnn_tpu/data/sampler.py`
-(ref: model.py:286-294, 384-428).
+"""Host-side batch samplers; the port of the numpy path of
+`sagnn_tpu/data/sampler.py` (ref: model.py:252-339, 384-428;
+DataHandler.py:28-41).
 
-Test batches (ref sampleTestBatch): candidates = testSize-1 precomputed
-1-indexed negatives (minus 1) + the positive appended LAST. Eval sampling
-draws no random numbers, so the arrays equal the JAX Sampler's for the
-same bundle. The training side (BPR and SSL batches) is not ported yet.
+The sampling semantics are the reference's; the arrays are fixed-shape
+and padded, with masks:
+
+  * Train (ref sampleTrainBatch): per user, target = sequence[-choose]
+    with choose ~ randint(1, max(min(pred_num+1, len(posset)-3), 1)),
+    repeated sampNum = min(samp_num, len(posset)) times; negatives are
+    rejection-sampled uniformly over items, excluding the user's train
+    row, the last sequence item and the test item (negSamp,
+    DataHandler.py:28-41). Users with an empty posset contribute no pairs.
+  * SSL (ref sampleSslBatch): per interval and user, min(ssl_num,
+    |row|//2) pairs of interacted items drawn WITH replacement; the
+    reference interleaves the draws and pairs entry j with entry j+len/2
+    in the loss (model.py:186-196), and that split (Q7) happens here so
+    the device gets aligned (A, B) halves.
+  * Test (ref sampleTestBatch): candidates = testSize-1 precomputed
+    1-indexed negatives (minus 1) + the positive appended LAST. Eval
+    sampling draws no random numbers.
+
+Random draws follow the JAX Sampler's numpy path exactly (one
+`default_rng(seed)` for epoch permutations and per-batch seeds, one
+`default_rng((seed, user))` per user), so the same seed and call sequence
+give byte-equal arrays. The JAX package's native C++ sampler draws other
+numbers; its port is ROADMAP Queue A2.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from sagnn_tpu_torch.data.io import DatasetBundle
+from sagnn_tpu_torch.models.selfgnn import TrainBatch
 
 
-def _fill_sequence(row_items: List[int], pos_length: int
+def _fill_sequence(row_items: Sequence[int], pos_length: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Right-aligned, zero-padded sequence + mask (model.py:286-294)."""
     seq = np.zeros(pos_length, dtype=np.int32)
@@ -74,3 +95,163 @@ def test_batch(bundle: DatasetBundle, bat_ids: np.ndarray, test_size: int,
         seq[i], seq_mask[i] = _fill_sequence(posset, pos_length)
         valid[i] = 1.0
     return user_ids, cand, pos_items, seq, seq_mask, valid
+
+
+def neg_sample(rng: np.random.Generator, seen: np.ndarray, samp_size: int,
+               num_items: int, excluded: Tuple) -> np.ndarray:
+    """Uniform rejection sampling (DataHandler.py:28-41): reject items the
+    user interacted with (seen[item] True) and items in `excluded`."""
+    out = np.empty(samp_size, dtype=np.int32)
+    cur = 0
+    while cur < samp_size:
+        n_draw = max(8, 2 * (samp_size - cur))
+        cands = rng.integers(0, num_items, size=n_draw)
+        ok = ~seen[cands]
+        for ex in excluded:
+            if ex is not None:
+                ok &= cands != ex
+        good = cands[ok]
+        take = min(len(good), samp_size - cur)
+        out[cur:cur + take] = good[:take]
+        cur += take
+    return out
+
+
+class Sampler:
+    """Stateful host sampler over one DatasetBundle (JAX `Sampler` with
+    backend="numpy")."""
+
+    def __init__(self, bundle: DatasetBundle, batch: int, samp_num: int,
+                 ssl_num: int, pred_num: int, pos_length: int,
+                 test_size: int, seed: int = 100):
+        self.bundle = bundle
+        self.batch = batch
+        self.samp_num = samp_num
+        self.ssl_num = ssl_num
+        self.pred_num = pred_num
+        self.pos_length = pos_length
+        self.test_size = test_size
+        self.rng = np.random.default_rng(seed)
+        self._trn_csr = bundle.trn_mat.tocsr()
+        self._sub_csrs = [m.tocsr() for m in bundle.sub_mats]
+        # one user's train row as a boolean item mask, set and cleared per
+        # user: the JAX sampler's `label_row != 0` test without building a
+        # dense [batch, num_items] block per batch
+        self._seen = np.zeros(bundle.num_items, dtype=bool)
+
+    # -- train ------------------------------------------------------------
+
+    def epoch_user_ids(self, trn_num: int) -> np.ndarray:
+        """np.random.permutation(num_users)[:trnNum] (model.py:343)."""
+        return self.rng.permutation(self.bundle.num_users)[:trn_num]
+
+    def train_batch(self, bat_ids: np.ndarray) -> TrainBatch:
+        """One train batch (numpy arrays) for `bat_ids`, sized for
+        `self.batch` users; rows past len(bat_ids) are padding with mask 0.
+        Per-user draws come from default_rng((batch_seed, user)), the JAX
+        sampler's determinism contract."""
+        batch_seed = int(self.rng.integers(0, 2 ** 63))
+        ssl = self.ssl_batch(bat_ids)
+        b = self.bundle
+        B, P = self.batch, self.batch * self.samp_num
+        uids = np.zeros(P, dtype=np.int32)
+        pos_iids = np.zeros(P, dtype=np.int32)
+        neg_iids = np.zeros(P, dtype=np.int32)
+        useq_row = np.zeros(P, dtype=np.int32)
+        pair_mask = np.zeros(P, dtype=np.float32)
+        seq = np.zeros((B, self.pos_length), dtype=np.int32)
+        seq_mask = np.zeros((B, self.pos_length), dtype=np.float32)
+
+        csr = self._trn_csr
+        for i, u in enumerate(bat_ids):
+            rng_u = np.random.default_rng((batch_seed, int(u)))
+            full_seq = b.sequences[u]
+            posset = full_seq[:-1]
+            samp = min(self.samp_num, len(posset))
+            choose = 1
+            if samp > 0:
+                cur = i * self.samp_num
+                hi = max(min(self.pred_num + 1, len(posset) - 3), 1)
+                choose = int(rng_u.integers(1, hi + 1))  # randint incl.
+                pos = posset[-choose]
+                lo_, hi_ = csr.indptr[u], csr.indptr[u + 1]
+                row = csr.indices[lo_:hi_][csr.data[lo_:hi_] != 0]
+                self._seen[row] = True
+                try:
+                    negs = neg_sample(rng_u, self._seen, samp, b.num_items,
+                                      (full_seq[-1], b.tst_int[u]))
+                finally:
+                    self._seen[row] = False
+                uids[cur:cur + samp] = u
+                useq_row[cur:cur + samp] = i
+                pos_iids[cur:cur + samp] = pos
+                neg_iids[cur:cur + samp] = negs
+                pair_mask[cur:cur + samp] = 1.0
+            seq[i], seq_mask[i] = _fill_sequence(posset[:-choose] if choose
+                                                 else posset, self.pos_length)
+        return TrainBatch(uids=uids, pos_iids=pos_iids, neg_iids=neg_iids,
+                          useq_row=useq_row, pair_mask=pair_mask, seq=seq,
+                          seq_mask=seq_mask, **ssl)
+
+    # -- ssl ---------------------------------------------------------------
+
+    def ssl_batch(self, bat_ids: np.ndarray) -> dict:
+        """SSL pair arrays [g, batch * ssl_num].
+
+        Reference layout (model.py:186-196 + 328-338): interleaved
+        (u, pos_j)(u, neg_j) draws flattened across the batch, split at the
+        global half, so pair column j pairs flat entry j with entry
+        half + j. One seed per interval from self.rng; per-user draws from
+        default_rng((interval_seed, user))."""
+        g = self.bundle.graph_num
+        size = self.batch * self.ssl_num
+        seeds = [int(self.rng.integers(0, 2 ** 63)) for _ in range(g)]
+        out = {k: np.zeros((g, size),
+                           np.float32 if k == "ssl_mask" else np.int32)
+               for k in ("ssl_u_a", "ssl_i_a", "ssl_u_b", "ssl_i_b",
+                         "ssl_mask")}
+        for k in range(g):
+            self._ssl_interval(k, bat_ids, seeds[k], size, out)
+        return out
+
+    def _ssl_interval(self, k: int, bat_ids: np.ndarray, seed: int,
+                      size: int, out: dict) -> None:
+        """Interval k's pairs into row k of `out` (JAX
+        `_ssl_interval_numpy` over the whole column range)."""
+        csr = self._sub_csrs[k]
+        ids = np.asarray(bat_ids, dtype=np.int64)
+        deg = csr.indptr[ids + 1] - csr.indptr[ids]
+        counts = 2 * np.minimum(self.ssl_num, deg // 2).astype(np.int64)
+        total = int(counts.sum())
+        half = total // 2
+        flat_u = np.empty(total, np.int32)
+        flat_i = np.empty(total, np.int32)
+        p0 = 0
+        for u, c in zip(ids, counts):
+            if c == 0:
+                continue
+            rng_u = np.random.default_rng((seed, int(u)))
+            row = csr.indices[csr.indptr[u]:csr.indptr[u + 1]]
+            n = int(c) // 2
+            draws = rng_u.choice(row, int(c))      # with replacement
+            flat_u[p0:p0 + c] = u
+            flat_i[p0:p0 + c:2] = draws[:n]
+            flat_i[p0 + 1:p0 + c:2] = draws[n:]
+            p0 += int(c)
+        a = min(half, size)
+        out["ssl_u_a"][k, :a] = flat_u[:a]
+        out["ssl_i_a"][k, :a] = flat_i[:a]
+        b = min(total - half, size)
+        out["ssl_u_b"][k, :b] = flat_u[half:half + b]
+        out["ssl_i_b"][k, :b] = flat_i[half:half + b]
+        out["ssl_mask"][k, :a] = 1.0
+
+    # -- test ---------------------------------------------------------------
+
+    def test_batch(self, bat_ids: np.ndarray, test_mode: bool = True,
+                   batch_cap: Optional[int] = None):
+        """`test_batch` for this sampler's sizes (batch_cap defaults to
+        self.batch)."""
+        return test_batch(self.bundle, bat_ids, self.test_size,
+                          self.pos_length, test_mode,
+                          batch_cap or self.batch)

@@ -1,0 +1,143 @@
+"""Training CLI; the port of the repo-root `main.py` (ref: main.py +
+Params.py).
+
+    python -m sagnn_tpu_torch.main --data gowalla --spmm_backend pallas
+    python -m sagnn_tpu_torch.main --data synthetic --device cpu --epoch 2
+
+The flags keep `main.py`'s names and destinations: a dataset preset plus
+overrides. `--device` (default cuda) picks the card or, when asked, the
+CPU. Flags of features the port does not carry yet are left out (mesh,
+supervisor, TF1 import, profiler trace, the large synthetic generator,
+`--bf16`); config options it does not carry raise NotImplementedError
+naming the ROADMAP item that will.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional, Sequence
+
+from sagnn_tpu_torch.config import (Config, DataConfig, ModelConfig, PRESETS,
+                                    TrainConfig)
+from sagnn_tpu_torch.utils.logger import log
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="sagnn_tpu_torch trainer")
+    p.add_argument("--data", default="yelp")
+    p.add_argument("--data_dir", default="./Datasets")
+    p.add_argument("--lr", type=float)
+    p.add_argument("--batch", type=int)
+    p.add_argument("--reg", type=float)
+    p.add_argument("--epoch", type=int)
+    p.add_argument("--graphNum", type=int, dest="graph_num")
+    p.add_argument("--decay", type=float)
+    p.add_argument("--save_path")
+    p.add_argument("--latdim", type=int)
+    p.add_argument("--ssldim", type=int)
+    p.add_argument("--sampNum", type=int, dest="samp_num")
+    p.add_argument("--testSize", type=int, dest="test_size")
+    p.add_argument("--sslNum", type=int, dest="ssl_num")
+    p.add_argument("--num_attention_heads", type=int, dest="num_heads")
+    p.add_argument("--gnn_layer", type=int)
+    p.add_argument("--trnNum", type=int, dest="trn_num")
+    p.add_argument("--load_model")
+    p.add_argument("--shoot", type=int)
+    p.add_argument("--keepRate", type=float, dest="keep_rate")
+    p.add_argument("--tstEpoch", type=int, dest="tst_epoch")
+    p.add_argument("--leaky", type=float)
+    p.add_argument("--ssl_reg", type=float)
+    p.add_argument("--percent", type=float, default=0.0)
+    p.add_argument("--pos_length", type=int)
+    p.add_argument("--att_layer", type=int)
+    p.add_argument("--pred_num", type=int)
+    p.add_argument("--test", type=lambda s: s.lower() != "false",
+                   dest="test_mode", default=None)
+    p.add_argument("--seed", type=int)
+    p.add_argument("--ckpt_root", default="./Models")
+    p.add_argument("--uid", type=int, default=-1,
+                   help="dump this test-batch row's candidate scores "
+                   "(reference --uid debug mode, model.py:460-461)")
+    p.add_argument("--spmm_backend", choices=["xla", "pallas", "ring"],
+                   help="propagation: xla = plain PyTorch gather + "
+                        "index_add_, pallas = the CUDA segment-sum kernel "
+                        "(its plain version on the CPU); ring is not "
+                        "ported yet")
+    p.add_argument("--spmm_chunk_size", type=int,
+                   help="accepted for the JAX package's flag set; the "
+                        "port's CSR plan has no chunks")
+    p.add_argument("--spmm_fold_gather", action="store_true", default=None,
+                   help="accepted; changes no value in the port")
+    p.add_argument("--spmm_src_shard_rows", type=int)
+    p.add_argument("--edge_norm", choices=["sym_sqrt", "mean"])
+    p.add_argument("--edge_dropout_keep", type=float)
+    p.add_argument("--edge_attention", action="store_true", default=None)
+    p.add_argument("--per_token_seq_attention", action="store_true",
+                   default=None)
+    p.add_argument("--seq_parallel", action="store_true", default=None)
+    p.add_argument("--full_sort", action="store_true", default=None)
+    p.add_argument("--fusion_dtype", choices=["f32", "bf16"])
+    p.add_argument("--fusion_chunk_rows", type=int)
+    p.add_argument("--remat", action="store_true", default=None,
+                   dest="remat_propagation")
+    p.add_argument("--time_budget_h", type=float,
+                   help="stop cleanly at an epoch boundary when the next "
+                        "epoch (predicted from the measured mean) would "
+                        "exceed this wall-clock budget")
+    p.add_argument("--synth_users", type=int, default=2048,
+                   help="--data synthetic: number of users")
+    p.add_argument("--synth_items", type=int, default=4096,
+                   help="--data synthetic: number of items")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+MODEL_KEYS = {f.name for f in dataclasses.fields(ModelConfig)}
+TRAIN_KEYS = {f.name for f in dataclasses.fields(TrainConfig)}
+
+
+def build_config(ns: argparse.Namespace) -> Config:
+    """The dataset's preset (the default Config for others) with every
+    given flag as an override."""
+    cfg = PRESETS.get(ns.data, Config())
+    m_over = {k: v for k, v in vars(ns).items()
+              if k in MODEL_KEYS and v is not None}
+    t_over = {k: v for k, v in vars(ns).items()
+              if k in TRAIN_KEYS and v is not None}
+    return Config(
+        model=dataclasses.replace(cfg.model, **m_over),
+        train=dataclasses.replace(cfg.train, **t_over),
+        data=DataConfig(data=ns.data, data_dir=ns.data_dir,
+                        noise_percent=ns.percent),
+    )
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ns = parse_args(argv)
+    cfg = build_config(ns)
+    log("Start")
+    if ns.data == "synthetic":
+        from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+        bundle = synthetic_dataset(num_users=ns.synth_users,
+                                   num_items=ns.synth_items,
+                                   graph_num=cfg.model.graph_num,
+                                   test_size=cfg.train.test_size,
+                                   seed=cfg.train.seed)
+    else:
+        from sagnn_tpu_torch.data.io import load_dataset
+        bundle = load_dataset(cfg.data.predir, cfg.data.noise_percent)
+    log(f"Load Data: USER {bundle.num_users} ITEM {bundle.num_items}")
+    if bundle.graph_num != cfg.model.graph_num:
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, graph_num=bundle.graph_num))
+    from sagnn_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg, bundle, ckpt_root=ns.ckpt_root, device=ns.device)
+    trainer.debug_uid = ns.uid
+    log("Model Prepared")
+    trainer.run(resume=cfg.train.load_model is not None)
+
+
+if __name__ == "__main__":
+    main()

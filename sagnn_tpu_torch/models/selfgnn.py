@@ -1,5 +1,5 @@
-"""SelfGNN inference (encode, score, top-k); the port of the forward and
-serving parts of `sagnn_tpu/models/selfgnn.py`.
+"""SelfGNN: training losses, encode, score and top-k; the port of
+`sagnn_tpu/models/selfgnn.py` (its single-device paths).
 
 Parameters are one flat dict of tensors keyed by the JAX param pytree's
 paths ("reg/u_embed", "free/seq_mhsa/0/wq", ...), so a JAX pytree, an
@@ -18,21 +18,63 @@ off on the card (`device.resolve_device`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from sagnn_tpu_torch.config import ModelConfig
 from sagnn_tpu_torch.data.graph import IntervalGraphs
-from sagnn_tpu_torch.models.layers import leaky_relu, tf_glorot_uniform
+from sagnn_tpu_torch.models.layers import l2_sum, leaky_relu, tf_glorot_uniform
 from sagnn_tpu_torch.ops.attention import (layer_norm,
                                            multi_head_self_attention)
 from sagnn_tpu_torch.ops.chunking import auto_chunk_rows, scatter_local_mask
 from sagnn_tpu_torch.ops.lstm import lstm_scan
 from sagnn_tpu_torch.ops.segment import propagate
-from sagnn_tpu_torch.ops.spmm_cuda import build_stacked_plans, spmm_apply
+from sagnn_tpu_torch.ops.spmm_cuda import build_stacked_plans, spmm
 
 Params = Dict[str, torch.Tensor]
+
+
+@dataclass
+class TrainBatch:
+    """One training step's host-sampled inputs (ref model.py:252-339); the
+    JAX `TrainBatch`, field for field and in the same order. The sampler
+    fills it with numpy arrays; `to(device)` gives the tensors the model
+    reads.
+
+    P = batch * samp_num BPR pairs; Pssl = batch * ssl_num SSL pairs. The
+    SSL pairs are the reference's interleaved layout already split into
+    aligned (A, B) halves (model.py:186-202; see the sampler)."""
+
+    uids: Any        # [P] user id per BPR pair
+    pos_iids: Any    # [P] positive item
+    neg_iids: Any    # [P] negative item
+    useq_row: Any    # [P] row into seq/seq_mask for this pair's user
+    pair_mask: Any   # [P] 1.0 for real pairs
+    seq: Any         # [B, L] right-aligned item sequence (pad 0)
+    seq_mask: Any    # [B, L]
+    ssl_u_a: Any     # [g, Pssl]
+    ssl_i_a: Any     # [g, Pssl]
+    ssl_u_b: Any     # [g, Pssl]
+    ssl_i_b: Any     # [g, Pssl]
+    ssl_mask: Any    # [g, Pssl]
+
+    def to(self, device: torch.device | str) -> "TrainBatch":
+        """The same batch as tensors on `device`. A copy to a card goes
+        through pinned memory and does not block the host."""
+        dev = torch.device(device)
+
+        def move(a):
+            t = torch.as_tensor(a)
+            if dev.type == "cuda":
+                return t.pin_memory().to(dev, non_blocking=True)
+            return t.to(dev)
+
+        return TrainBatch(*(move(getattr(self, f.name))
+                            for f in dataclasses.fields(self)))
 
 
 def sub(params: Params, prefix: str) -> Params:
@@ -71,6 +113,13 @@ def param_shapes(cfg: ModelConfig, num_users: int, num_items: int,
     shapes["free/meta2_b"] = (cfg.ssldim,)
     shapes["free/meta3_b"] = (1,)
     return shapes
+
+
+def reg_loss(params: Params) -> torch.Tensor:
+    """Σ ||p||² over the reg/* leaves; args.reg * this is the weight-decay
+    part of regLoss (model.py:245)."""
+    return l2_sum(v for k, v in sorted(params.items())
+                  if k.startswith("reg/"))
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, num_users: int,
@@ -159,13 +208,19 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
     """LightGCN-style propagation per interval (model.py:118-129); JAX
     `_interval_propagation` for the "xla" and unweighted "pallas" backends.
     Returns user_vec [g, U, D], item_vec [g, I, D], the layer-summed
-    per-interval node states."""
+    per-interval node states. Both backends carry gradients: "xla" through
+    autograd of the gather + index_add_, "pallas" through `spmm`, whose
+    backward is the kernel on the other direction's plan of the same
+    interval (A_i = A_uᵀ, as JAX pairs fu/fi, selfgnn.py:503-506)."""
     def hop(x, side, k, num_tgt):
         """One hop of interval k into the `side` ("u" or "i") targets."""
         if cfg.spmm_backend == "pallas":
-            return leaky_relu(spmm_apply(x, graphs[f"{side}_src"][k],
-                                         graphs[f"{side}_ptr"][k],
-                                         cfg.spmm_exact), cfg.leaky)
+            other = "i" if side == "u" else "u"
+            return leaky_relu(spmm(x, graphs[f"{side}_src"][k],
+                                   graphs[f"{side}_ptr"][k],
+                                   graphs[f"{other}_src"][k],
+                                   graphs[f"{other}_ptr"][k],
+                                   cfg.spmm_exact), cfg.leaky)
         return propagate(x, graphs[f"{side}_src"][k],
                          graphs[f"{side}_tgt"][k], num_tgt, cfg.leaky)
 
@@ -184,19 +239,26 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
 
 
 def _temporal_fusion(params: Params, user_vec: torch.Tensor,
-                     item_vec: torch.Tensor, cfg: ModelConfig
+                     item_vec: torch.Tensor, cfg: ModelConfig,
+                     gen: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shared LSTM + interval MHSA + mean (model.py:131-155), inference.
+    """Shared LSTM + interval MHSA + mean (model.py:131-155).
     Returns final_user [U, D], final_item [I, D].
+
+    gen: training only. With keep_rate < 1 the LSTM's output dropout draws
+    one mask for the users, then one for the items, from `gen` (JAX splits
+    its key into ku/ki); None is inference.
 
     fusion_chunk_rows > 0 runs the node axis in blocks of that many rows:
     the stack is row-parallel per node, so only one block's LSTM/attention
-    temporaries are live at a time. The values equal the unchunked ones."""
+    temporaries are live at a time. The values equal the unchunked ones.
+    Training refuses it (`check_ported`)."""
     lstm_p = sub(params, "free/lstm")
 
     def stream(x_t, mhsa_p, ln_p):
         """[n, g, D] -> [n, D]"""
-        x_t = lstm_scan(lstm_p, x_t)
+        x_t = lstm_scan(lstm_p, x_t, keep_rate=cfg.keep_rate,
+                        dropout_gen=gen)
         m = multi_head_self_attention(
             mhsa_p, layer_norm(x_t, ln_p["scale"], ln_p["shift"]),
             cfg.num_heads, stable=cfg.stable_softmax)
@@ -224,7 +286,7 @@ def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
     """Pooled sequence branch, quirk Q3 (model.py:158-167): the mask-matmul
     collapses the sequence to ONE token [B, 1, D] before the attention
     stack. Returns att_user [B, D]."""
-    seq_emb = item_att_emb[seq.long()]                          # [B, L, D]
+    seq_emb = rows(item_att_emb, seq)                           # [B, L, D]
     pos_embed = params["reg/pos_embed"]
     pooled_items = torch.einsum("bl,bld->bd", seq_mask, seq_emb)[:, None]
     pooled_pos = torch.einsum("bl,ld->bd", seq_mask, pos_embed)[:, None]
@@ -242,35 +304,119 @@ def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
     return torch.sum(x, dim=1)  # [B, D] (model.py:167)
 
 
+def rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids] for a [N, D] table and integer ids of any shape, as an
+    embedding lookup. Its backward sums the rows of a repeated id in
+    parallel; advanced indexing's backward walks them one after another,
+    and a training batch repeats the pad id 0 tens of thousands of times
+    (padded sequence slots, SSL pairs past a user's row)."""
+    return F.embedding(ids.long(), table)
+
+
+def _hinge(x: torch.Tensor) -> torch.Tensor:
+    """max(0, x) with JAX's gradient: half on each side of a tie."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def _ssl_loss(params: Params, batch: TrainBatch, final_user: torch.Tensor,
+              final_item: torch.Tensor, user_vec: torch.Tensor,
+              item_vec: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Personalized self-augmented loss (model.py:185-204), JAX `_ssl_loss`.
+
+    For each interval k and pair j, with (uA, iA) and (uB, iB) the two
+    halves of the reference's interleaved layout:
+        S_final = w(uA)·sg(score_long(uA,iA)) − w(uB)·sg(score_long(uB,iB))
+        loss   += Σ max(0, 1 − S_final·(score_short_A − score_short_B))
+    where score(u,i) = Σ leakyRelu(u_emb ⊙ i_emb), sg is `.detach()` (JAX's
+    stop_gradient) and w is the meta-net weight (model.py:178-184),
+    computed at the sampled users only (row-wise ops commute with the
+    gather, so the values are the reference's). All intervals at once:
+    the [g, Pssl] pair arrays index the [g * N, D] tables flattened, at
+    row k * N + id for interval k."""
+    leaky = cfg.leaky
+    g, num_users, d = user_vec.shape
+    num_items = item_vec.shape[1]
+    k = torch.arange(g, device=user_vec.device)[:, None]
+    uv_flat, iv_flat = user_vec.reshape(-1, d), item_vec.reshape(-1, d)
+    fu_sg, fi_sg = final_user.detach(), final_item.detach()
+
+    def short_u(u):                                   # user_vec[k, u]
+        return rows(uv_flat, k * num_users + u)
+
+    def short_i(i):                                   # item_vec[k, i]
+        return rows(iv_flat, k * num_items + i)
+
+    def meta_w(u):                                    # [g, P] -> [g, P]
+        fu, uv = rows(final_user, u), short_u(u)
+        m1 = torch.cat([fu * uv, fu, uv], dim=-1)
+        m2 = leaky_relu(m1 @ params["reg/meta2_w"] + params["free/meta2_b"],
+                        leaky)
+        return torch.sigmoid(m2 @ params["reg/meta3_w"]
+                             + params["free/meta3_b"]).squeeze(-1)
+
+    def score(pu, pi):
+        return torch.sum(leaky_relu(pu * pi, leaky), dim=-1)
+
+    ua, ia = batch.ssl_u_a.long(), batch.ssl_i_a.long()
+    ub, ib = batch.ssl_u_b.long(), batch.ssl_i_b.long()
+    s_final = (meta_w(ua) * score(rows(fu_sg, ua), rows(fi_sg, ia))
+               - meta_w(ub) * score(rows(fu_sg, ub), rows(fi_sg, ib)))
+    s_short_a = score(short_u(ua), short_i(ia))
+    s_short_b = score(short_u(ub), short_i(ib))
+    hinge = _hinge(1.0 - s_final * (s_short_a - s_short_b))
+    return torch.sum(torch.sum(hinge * batch.ssl_mask, dim=1))
+
+
 _NOT_PORTED = (
     ("spmm_backend", lambda c: c.spmm_backend not in ("xla", "pallas"),
-     "only 'xla' and 'pallas' are ported ('ring' is multi-device)"),
+     "only 'xla' and 'pallas' are ported ('ring' is multi-device): ROADMAP "
+     "Queue A6"),
     ("edge_norm", lambda c: c.edge_norm is not None,
-     "weighted propagation is not ported yet"),
+     "weighted propagation (K2) is not ported yet: ROADMAP Queue A5"),
     ("edge_attention", lambda c: c.edge_attention,
-     "edge attention (SDDMM) is not ported yet"),
+     "edge attention (K2 + SDDMM, K5) is not ported yet: ROADMAP Queue A5"),
     ("per_token_seq_attention", lambda c: c.per_token_seq_attention,
-     "per-token sequence attention is not ported yet"),
+     "per-token sequence attention is not ported yet: ROADMAP Queue A5"),
     ("seq_parallel", lambda c: c.seq_parallel,
-     "sequence-parallel attention is not ported yet"),
+     "sequence-parallel attention is not ported yet: ROADMAP Queue A6"),
     ("spmm_src_shard_rows", lambda c: c.spmm_src_shard_rows > 0,
-     "source-sharded propagation is not ported yet"),
+     "source-sharded propagation (K3) is not ported yet: ROADMAP Queue A5"),
     ("fusion_dtype", lambda c: c.fusion_dtype != "f32",
-     "the port runs the fusion stack in f32 only"),
+     "the port runs the fusion stack in f32 only: ROADMAP Queue A5"),
 )
+# options that change only training
+_NOT_PORTED_IN_TRAINING = (
+    ("edge_dropout_keep", lambda c: c.edge_dropout_keep < 1.0,
+     "edge dropout needs the weighted segment-sum (K2), not ported yet: "
+     "ROADMAP Queue A5"),
+    ("fusion_chunk_rows", lambda c: c.fusion_chunk_rows > 0,
+     "the chunked fusion stack's per-block checkpointing in training is "
+     "not ported yet: ROADMAP Queue A5"),
+    ("remat_propagation", lambda c: c.remat_propagation,
+     "recomputing propagation in the backward is not ported yet: ROADMAP "
+     "Queue A5"),
+)
+
+
+def check_ported(cfg: ModelConfig, train: bool = False) -> None:
+    """Raise NotImplementedError for an option the port does not carry
+    (for serving, or with train=True for training)."""
+    checks = _NOT_PORTED + (_NOT_PORTED_IN_TRAINING if train else ())
+    for name, bad, why in checks:
+        if bad(cfg):
+            raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: "
+                                      f"{why}")
 
 
 class SelfGNN:
     """Model facade binding a config and graph sizes (JAX `SelfGNN`).
 
-    Graphs are a dict from `graphs_to_device`. Inference only: dropout is
-    inactive, as in the JAX package's `encode(train=False)`."""
+    Graphs are a dict from `graphs_to_device`. Serving and scoring run
+    under no_grad with dropout off, as the JAX package's
+    `encode(train=False)`; `train_losses` carries gradients."""
 
     def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
-        for name, bad, why in _NOT_PORTED:
-            if bad(cfg):
-                raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: "
-                                          f"{why}")
+        check_ported(cfg)
         self.cfg = cfg
         self.num_users = num_users
         self.num_items = num_items
@@ -280,15 +426,55 @@ class SelfGNN:
         return init_params(gen, self.cfg, self.num_users, self.num_items,
                            device=device)
 
-    @torch.no_grad()
-    def encode(self, params: Params, graphs: Dict):
-        """Full-graph encoding. Returns (final_user [U,D], final_item [I,D],
-        user_vec [g,U,D], item_vec [g,I,D])."""
+    def encode(self, params: Params, graphs: Dict, train: bool = False,
+               gen: Optional[torch.Generator] = None):
+        """Full-graph encoding shared by training and serving. Returns
+        (final_user [U,D], final_item [I,D], user_vec [g,U,D],
+        item_vec [g,I,D]).
+
+        train=False: inference under no_grad, dropout off. train=True: with
+        autograd; with keep_rate < 1 the LSTM output dropout draws from
+        `gen` (a generator on the params' device; None = no dropout)."""
+        if not train:
+            with torch.no_grad():
+                return self._encode(params, graphs, None)
+        check_ported(self.cfg, train=True)
+        return self._encode(params, graphs, gen)
+
+    def _encode(self, params, graphs, gen):
         user_vec, item_vec = _interval_propagation(
             params, graphs, self.cfg, self.num_users, self.num_items)
         final_user, final_item = _temporal_fusion(params, user_vec, item_vec,
-                                                  self.cfg)
+                                                  self.cfg, gen)
         return final_user, final_item, user_vec, item_vec
+
+    def train_losses(self, params: Params, graphs: Dict, batch: TrainBatch,
+                     gen: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        """(preLoss, sslloss, aux{pos_pred, neg_pred}) for one step
+        (model.py:241-246), with autograd. `batch` holds tensors on the
+        params' device; `gen` as in `encode`."""
+        cfg = self.cfg
+        final_user, final_item, user_vec, item_vec = self.encode(
+            params, graphs, train=True, gen=gen)
+        att_user = _sequence_branch(params, final_item, batch.seq,
+                                    batch.seq_mask, cfg)
+        pu = rows(final_user, batch.uids)
+        au = leaky_relu(rows(att_user, batch.useq_row), cfg.leaky)
+
+        def preds(iids):                              # model.py:169-173
+            pi = rows(final_item, iids)               # iEmbed_att == final_item
+            return torch.sum(pu * pi, dim=-1) + torch.sum(au * pi, dim=-1)
+
+        pos = preds(batch.pos_iids)
+        neg = preds(batch.neg_iids)
+        hinge = _hinge(1.0 - (pos - neg)) * batch.pair_mask
+        # the reference's reduce_mean over the real pairs (model.py:244)
+        pre_loss = torch.sum(hinge) / torch.clamp_min(
+            torch.sum(batch.pair_mask), 1.0)
+        ssl = _ssl_loss(params, batch, final_user, final_item, user_vec,
+                        item_vec, cfg)
+        return pre_loss, ssl, {"pos_pred": pos, "neg_pred": neg}
 
     @torch.no_grad()
     def serving_queries(self, params: Params, final_user: torch.Tensor,

@@ -11,7 +11,8 @@ The same cell serves users and items (Q4).
     h' = sigmoid(o) * tanh(c')
 
 Output dropout (a fresh mask per timestep, scaled by 1/keep) applies only
-in training, when a generator is given; inference passes none.
+in training, when a generator is given; inference passes none. The mask
+is drawn on the output's device, from a generator on that device.
 """
 
 from __future__ import annotations
@@ -45,6 +46,6 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     out = torch.stack(hs, dim=1)
     if dropout_gen is not None and keep_rate < 1.0:
         keep = torch.rand(out.shape, generator=dropout_gen,
-                          device=dropout_gen.device).to(out.device) < keep_rate
+                          device=out.device) < keep_rate
         out = torch.where(keep, out / keep_rate, torch.zeros_like(out))
     return out

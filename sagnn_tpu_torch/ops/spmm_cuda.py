@@ -1,6 +1,6 @@
 """Segment-sum SpMM through the hand-written CUDA kernel; the port of the
-forward path of `sagnn_tpu/ops/spmm_pallas.py` (`plan_spmm`,
-`spmm_apply`, `build_stacked_plans`).
+unweighted path of `sagnn_tpu/ops/spmm_pallas.py` (`plan_spmm`,
+`spmm_apply`, `build_stacked_plans`, and the differentiable `spmm`).
 
 The plan is CSR row pointers over the target-sorted COO that
 `data.graph.compile_interval_graphs` emits: `ptr = searchsorted(tgt,
@@ -13,9 +13,14 @@ in f32. On a CUDA tensor it launches `csrc/segsum.cu` (exact: the f32
 table; bf16 mode: the table cast once to bf16, accumulated in f32) or
 raises; on a CPU tensor it runs the plain PyTorch version,
 `spmm_apply_plain`, which the tests and `chip_smoke.py` hold the kernel
-against. It is forward-only: the backward (the same kernel on the
-transpose plan) is not ported yet, so it refuses tensors that need a
-gradient.
+against.
+
+`spmm(x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact)` is A @ x with a
+gradient (`SpmmFunction`, JAX's `jax.custom_vjp` `spmm`): the forward runs
+the kernel on A's plan, the backward runs the same kernel on the transpose
+plan, dx = Aᵀ g. For a bipartite interval graph the transpose plan is the
+other direction's CSR of the same interval (the u-direction's targets are
+the i-direction's sources), so no second kernel is needed.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import torch
 
 from sagnn_tpu_torch.ops.segment import gather_segment_sum
 
-# Kernel launches per kernel name, incremented only where a launch happens.
-LAUNCHES = {"segsum_f32": 0, "segsum_bf16": 0}
+# Kernel launches per kernel name, incremented only where a launch happens;
+# the "_bwd" names count the launches made by SpmmFunction's backward.
+LAUNCHES = {"segsum_f32": 0, "segsum_bf16": 0, "segsum_f32_bwd": 0,
+            "segsum_bf16_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -99,22 +106,27 @@ def _check_cuda_args(x: torch.Tensor, src: torch.Tensor,
         raise ValueError(f"ptr has {ptr.numel()} entries")
     if x.shape[0] >= 2 ** 31:
         raise ValueError("the kernel indexes source rows with int32")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("spmm_apply is forward-only: its backward (the "
-                           "transpose plan) is not ported yet")
 
 
 def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
                exact: bool = True) -> torch.Tensor:
     """out [num_tgt, D] f32 = Σ over each CSR row of x[src] (see module
     docstring). CUDA: launches the kernel on the current stream without
-    synchronising; CPU: the plain version.
+    synchronising; CPU: the plain version. No gradient flows through it:
+    `spmm` is the differentiable form.
 
     `ptr`/`src` must be a plan as `build_stacked_plans` makes and checks
     it: ptr non-decreasing from 0, ptr[-1] <= len(src), every id in
     src[:ptr[-1]] a row of x. The CPU path checks the length; the kernel
     checks none of it (that would cost a read of ptr back to the host on
     every launch) and reads out of bounds on a malformed plan."""
+    return _segsum(x, src, ptr, exact, backward=False)
+
+
+def _segsum(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
+            exact: bool, backward: bool) -> torch.Tensor:
+    """`spmm_apply`, counting a CUDA launch under the forward or the
+    backward name."""
     if x.device.type == "cpu":
         return spmm_apply_plain(x, src, ptr, exact)
     if x.device.type != "cuda":
@@ -140,5 +152,41 @@ def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.sagnn_error_string(err).decode()}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + ("_bwd" if backward else "")] += 1
     return out
+
+
+class SpmmFunction(torch.autograd.Function):
+    """A @ x with dx = Aᵀ g; JAX `spmm`/`_spmm_fwd`/`_spmm_bwd`
+    (`sagnn_tpu/ops/spmm_pallas.py:459-492`). The plans get no gradient.
+    In bf16 mode the backward casts the cotangent to bf16 before the
+    gather, as `_spmm_bwd` does through `spmm_apply(g, ..., exact)`."""
+
+    @staticmethod
+    def forward(ctx, x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact):
+        if bwd_ptr.numel() - 1 != x.shape[0]:
+            raise ValueError(f"the backward plan has {bwd_ptr.numel() - 1} "
+                             f"targets, x {x.shape[0]} rows")
+        ctx.save_for_backward(bwd_src, bwd_ptr)
+        ctx.exact = exact
+        return _segsum(x, fwd_src, fwd_ptr, exact, backward=False)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 6
+        bwd_src, bwd_ptr = ctx.saved_tensors
+        dx = _segsum(g.contiguous(), bwd_src, bwd_ptr, ctx.exact,
+                     backward=True)
+        return dx, None, None, None, None, None
+
+
+def spmm(x: torch.Tensor, fwd_src: torch.Tensor, fwd_ptr: torch.Tensor,
+         bwd_src: torch.Tensor, bwd_ptr: torch.Tensor,
+         exact: bool = True) -> torch.Tensor:
+    """Differentiable out = A @ x: (fwd_src, fwd_ptr) is A's plan,
+    (bwd_src, bwd_ptr) Aᵀ's (the transpose direction's plan of the same
+    graph, whose targets are x's rows). Both plans follow `spmm_apply`'s
+    contract."""
+    return SpmmFunction.apply(x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact)

@@ -1,2 +1,2 @@
-"""Evaluation; the port of the metrics in `sagnn_tpu/train/` (training is
-not ported yet)."""
+"""Training and evaluation; the port of `sagnn_tpu/train/` (metrics, TF1
+Adam, checkpoints, the single-device trainer)."""

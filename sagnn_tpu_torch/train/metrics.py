@@ -1,5 +1,6 @@
-"""Ranking metrics HR@K / NDCG@K; the port of the candidate-protocol part of
-`sagnn_tpu/train/metrics.py` (ref: model.py:484-510 `calcRes`).
+"""Ranking metrics HR@K / NDCG@K and the per-epoch metric history; the port
+of the candidate-protocol part of `sagnn_tpu/train/metrics.py` (ref:
+model.py:484-510 `calcRes`, model.py:24-39).
 
 The reference sorts (score, item) pairs per user with Python's STABLE
 descending sort. The positive candidate is appended LAST (model.py:404),
@@ -12,7 +13,8 @@ so every candidate with a greater OR EQUAL score ranks ahead of it:
 
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass, field
+from typing import Dict, List
 
 import torch
 
@@ -45,3 +47,31 @@ def topk_metrics(scores: torch.Tensor, ks=(1, 5, 10, 15, 20),
                  ) -> Dict[str, torch.Tensor]:
     """Summed HR/NDCG per K of candidate scores [B, C] (positive last)."""
     return metrics_from_ranks(positive_ranks(scores), valid=valid, ks=ks)
+
+
+@dataclass
+class MetricsHistory:
+    """Per-epoch metric lists (ref: model.py:24-28 self.metrics)."""
+
+    data: Dict[str, List[float]] = field(default_factory=lambda: {
+        f"{phase}{met}": []
+        for phase in ("Train", "Test")
+        for met in ("Loss", "preLoss", "HR", "NDCG")
+    })
+
+    def append(self, phase: str, values: Dict[str, float]) -> None:
+        for met, val in values.items():
+            key = phase + met
+            if key in self.data:
+                self.data[key].append(float(val))
+
+    def format_line(self, name: str, ep: int, total_ep: int,
+                    values: Dict[str, float]) -> str:
+        """ref makePrint (model.py:30-39)."""
+        ret = f"Epoch {ep}/{total_ep}, {name}: "
+        ret += ", ".join(f"{m} = {v:.4f}" for m, v in values.items())
+        return ret + "  "
+
+    @property
+    def num_tests(self) -> int:
+        return len(self.data["TestHR"])

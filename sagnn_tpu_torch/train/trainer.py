@@ -1,0 +1,394 @@
+"""Single-device training loop; the port of `sagnn_tpu/train/trainer.py`
+(ref: Recommender.run/trainEpoch/testEpoch, model.py:41-71, 341-382,
+430-482).
+
+One step runs the full forward (propagation over every interval, the
+LSTM + attention fusion over every node, the sequence branch, both
+losses), the backward, and the TF1 Adam update, eagerly on one device:
+the card by default, the CPU when asked. With spmm_backend="pallas" the
+propagation's forward and backward both go through the CUDA segment-sum
+kernel (`ops/spmm_cuda.spmm`). Not here yet: meshes and multi-process
+runs (ROADMAP Queue A6), `load_imported_params` (A3), full-sort
+evaluation (A1).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import signal
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from sagnn_tpu_torch.config import Config
+from sagnn_tpu_torch.data.graph import compile_interval_graphs
+from sagnn_tpu_torch.data.io import DatasetBundle
+from sagnn_tpu_torch.data.sampler import Sampler
+from sagnn_tpu_torch.device import resolve_device
+from sagnn_tpu_torch.models.selfgnn import (SelfGNN, TrainBatch, check_ported,
+                                            graphs_to_device, reg_loss)
+from sagnn_tpu_torch.train.checkpoint import CheckpointManager
+from sagnn_tpu_torch.train.metrics import MetricsHistory, topk_metrics
+from sagnn_tpu_torch.train.optim import TF1Adam
+from sagnn_tpu_torch.utils.logger import log
+from sagnn_tpu_torch.utils.profiling import StepTimer
+
+# JAX's auto source-sharding threshold (trainer.py:132-143): the largest
+# multiple of 128 rows whose f32 table stays under 32 MiB
+_SRC_SHARD_BYTES = 32 * 2 ** 20
+
+
+def _resolve_src_sharding(cfg: Config, bundle: DatasetBundle) -> Config:
+    """spmm_src_shard_rows=0 (auto) as the JAX Trainer resolves it: on
+    past the threshold, which the port cannot run yet, else -1."""
+    mc = cfg.model
+    if mc.spmm_backend != "pallas" or mc.spmm_src_shard_rows != 0:
+        return cfg
+    cliff_rows = max(128, _SRC_SHARD_BYTES // (4 * mc.latdim) // 128 * 128)
+    big = max(bundle.num_users, bundle.num_items)
+    if big > cliff_rows:
+        raise NotImplementedError(
+            f"spmm_src_shard_rows=0 resolves to source sharding for a "
+            f"{big}-row node table (threshold {cliff_rows} rows); "
+            f"source-sharded propagation (K3) is not ported yet: ROADMAP "
+            f"Queue A5")
+    return cfg.replace(model=dataclasses.replace(mc, spmm_src_shard_rows=-1))
+
+
+class Trainer:
+    """End-to-end trainer over one DatasetBundle on one device."""
+
+    def __init__(self, cfg: Config, bundle: DatasetBundle,
+                 ckpt_root: str = "./Models",
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        if bundle.graph_num != cfg.model.graph_num:
+            raise ValueError(f"dataset has {bundle.graph_num} interval "
+                             f"graphs, config says {cfg.model.graph_num}")
+        if cfg.train.full_sort:
+            raise NotImplementedError("full_sort=True: full-sort evaluation "
+                                      "is not ported yet: ROADMAP Queue A1")
+        cfg = _resolve_src_sharding(cfg, bundle)
+        check_ported(cfg.model, train=True)
+        self.cfg = cfg
+        self.bundle = bundle
+        self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items)
+        self.graph_blocks = compile_interval_graphs(bundle.sub_mats)
+        self.graphs = graphs_to_device(self.graph_blocks, self.device)
+        tc = cfg.train
+        self.sampler = Sampler(bundle, batch=tc.batch, samp_num=tc.samp_num,
+                               ssl_num=tc.ssl_num, pred_num=tc.pred_num,
+                               pos_length=cfg.model.pos_length,
+                               test_size=tc.test_size, seed=tc.seed)
+        self.optimizer = TF1Adam(tc.lr, tc.decay, tc.decay_step)
+        self.ckpt = CheckpointManager(ckpt_root, tc.save_path)
+        self.history = MetricsHistory()
+        self.step_timer = StepTimer()
+        self.sample_timer = StepTimer()   # host sampling per batch
+        self.step_stats: list = []        # the last epoch's per-step losses
+        self.debug_uid = -1
+        # edges processed per step: 2 directions × gnn_layer hops × the
+        # real edges summed over intervals
+        self.edges_per_step = (2 * cfg.model.gnn_layer
+                               * int(self.graph_blocks.edge_counts.sum()))
+        # weights from a CPU generator (the same on every device); the
+        # dropout generator lives on the device and is seeded from it
+        init_gen = torch.Generator().manual_seed(tc.seed)
+        params = self.model.init(init_gen, device=self.device)
+        for v in params.values():
+            v.requires_grad_(True)
+        self.dropout_gen = torch.Generator(device=self.device)
+        self.dropout_gen.manual_seed(
+            int(torch.randint(0, 2 ** 62, (1,), generator=init_gen)))
+        self.state = {"params": params,
+                      "opt_state": self.optimizer.init(params), "step": 0}
+        self._steps_last_epoch = 0
+
+    # -- one step ------------------------------------------------------------
+
+    def train_step(self, batch: TrainBatch) -> Dict[str, torch.Tensor]:
+        """loss = preLoss + reg·reg_loss + ssl_reg·sslloss, its gradient,
+        and one TF1 Adam update of the params in place (JAX
+        `make_train_step`). `batch` holds tensors on the device. Returns
+        {"loss", "preLoss", "regLoss"} as 0-d device tensors, not yet
+        synchronised."""
+        tc = self.cfg.train
+        params = self.state["params"]
+        pre, ssl, _ = self.model.train_losses(params, self.graphs, batch,
+                                              self.dropout_gen)
+        reg = tc.reg * reg_loss(params) + tc.ssl_reg * ssl
+        loss = pre + reg
+        keys = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys],
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(keys, grads)}
+        self.optimizer.step(params, grads, self.state["opt_state"])
+        self.state["step"] += 1
+        return {"loss": loss.detach(), "preLoss": pre.detach(),
+                "regLoss": reg.detach()}
+
+    # -- epochs --------------------------------------------------------------
+
+    def train_epoch(self, verbose: bool = True) -> Dict[str, float]:
+        """One epoch. Batch i+1 is sampled (and copied to the device) on a
+        worker thread while step i runs. Each step's losses are fetched one
+        step late, so the host queues step i+1 before it waits for step i.
+        Each StepTimer sample spans the queueing of step i and the fetch
+        of step i-1's losses."""
+        tc = self.cfg.train
+        ids = self.sampler.epoch_user_ids(tc.trn_num)
+        steps = -(-len(ids) // tc.batch)
+        epoch_loss = epoch_pre = 0.0
+
+        def sample(i):
+            self.sample_timer.tic()
+            batch = self.sampler.train_batch(
+                ids[i * tc.batch:(i + 1) * tc.batch]).to(self.device)
+            self.sample_timer.toc()
+            return batch
+
+        def consume(i, pending):
+            nonlocal epoch_loss, epoch_pre
+            stats = {k: float(v) for k, v in pending.items()}
+            self.step_stats.append(stats)
+            epoch_loss += stats["loss"]
+            epoch_pre += stats["preLoss"]
+            if verbose:
+                log(f"Step {i}/{steps}: preloss = {stats['preLoss']:.2f}, "
+                    f"REGLoss = {stats['regLoss']:.2f}         ",
+                    oneline=True)
+
+        pending = None
+        self._steps_last_epoch = steps
+        self.step_stats = []
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            nxt = pool.submit(sample, 0)
+            for i in range(steps):
+                batch = nxt.result()
+                if i + 1 < steps:
+                    nxt = pool.submit(sample, i + 1)
+                self.step_timer.tic()
+                stats = self.train_step(batch)
+                # a sample with no pending fetch would time the queueing
+                # alone; the first step's toc is skipped
+                if pending is not None:
+                    consume(i - 1, pending)
+                    self.step_timer.toc()
+                pending = stats
+            if pending is not None:
+                self.step_timer.tic()
+                consume(steps - 1, pending)
+                self.step_timer.toc()
+        return {"Loss": epoch_loss / steps, "preLoss": epoch_pre / steps}
+
+    # -- trajectory-exact resume ----------------------------------------------
+
+    def capture_rng_state(self, next_epoch: int) -> Dict:
+        """JSON-able snapshot of every RNG the trajectory depends on: the
+        sampler's bit generator (epoch permutations, batch seeds, SSL
+        draws) and the dropout generator, with the epoch to resume at."""
+        return {
+            "sampler": self.sampler.rng.bit_generator.state,
+            "dropout_gen": self.dropout_gen.get_state().tolist(),
+            "epoch": int(next_epoch),
+        }
+
+    def restore_rng_state(self, rs: Dict) -> int:
+        """Install a capture_rng_state snapshot; returns its epoch."""
+        self.sampler.rng.bit_generator.state = rs["sampler"]
+        self.dropout_gen.set_state(
+            torch.tensor(rs["dropout_gen"], dtype=torch.uint8))
+        return int(rs["epoch"])
+
+    def throughput_stats(self) -> Dict[str, float]:
+        """Step time and propagation edges/s over the last epoch's steps."""
+        t = self.step_timer.windowed(self._steps_last_epoch)
+        mean = t.mean
+        return {
+            "step_ms_mean": mean * 1e3,
+            "step_ms_p50": t.percentile(50) * 1e3,
+            "step_ms_p95": t.percentile(95) * 1e3,
+            "edges_per_sec": (self.edges_per_step / mean
+                              if t.times else 0.0),
+        }
+
+    def test_epoch(self, max_users: int | None = None) -> Dict[str, float]:
+        """HR/NDCG@{1,5,10,15,20} under the reference's candidate protocol
+        over the test users (the first `max_users` of them when given).
+        The graph is encoded once; batch i+1 is sampled on a thread while
+        batch i scores, and the sums are fetched once at the end.
+        debug_uid >= 0 prints that batch row's candidate scores (the
+        reference's --uid debug mode, model.py:460-461)."""
+        tc = self.cfg.train
+        ids = np.asarray(self.bundle.tst_usrs)
+        if max_users is not None:
+            ids = ids[:max_users]
+        num = len(ids)
+        steps = -(-num // tc.batch)
+        params = self.state["params"]
+        final_user, final_item, _, _ = self.model.encode(params, self.graphs)
+
+        def sample(i):
+            user_ids, cand, _pos, seq, seq_mask, valid = \
+                self.sampler.test_batch(ids[i * tc.batch:(i + 1) * tc.batch],
+                                        test_mode=tc.test_mode)
+            return tuple(torch.from_numpy(a).to(self.device)
+                         for a in (user_ids, cand, seq, seq_mask, valid))
+
+        totals: Dict[str, torch.Tensor] = {}
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            nxt = pool.submit(sample, 0)
+            for i in range(steps):
+                user_ids, cand, seq, seq_mask, valid = nxt.result()
+                if i + 1 < steps:
+                    nxt = pool.submit(sample, i + 1)
+                scores = self.model.score_with_encodings(
+                    params, final_user, final_item, user_ids, cand, seq,
+                    seq_mask)
+                if self.debug_uid >= 0:
+                    print(scores[self.debug_uid].cpu().numpy())
+                mets = topk_metrics(scores, ks=(1, 5, 10, 15, 20),
+                                    valid=valid)
+                for k, v in mets.items():
+                    totals[k] = totals[k] + v if k in totals else v
+        out = {k: float(v) / max(1, num) for k, v in totals.items()}
+        out["HR"] = out[f"HR@{tc.shoot}"]
+        out["NDCG"] = out[f"NDCG@{tc.shoot}"]
+        return out
+
+    # -- full run (ref model.py:41-71) ------------------------------------------
+
+    def install_preemption_handler(self) -> Dict:
+        """Save a checkpoint on SIGTERM/SIGINT before exiting. Returns the
+        handlers it replaced (run() puts them back when it ends)."""
+        def _handler(signum, _frame):
+            log(f"signal {signum}: writing preemption checkpoint")
+            # the RNG snapshot from the START of the epoch in progress:
+            # resume re-enters that epoch drawing the same batches (params
+            # are from the moment of the signal, so a mid-epoch kill
+            # resumes safely but not bit-exactly)
+            self.ckpt.save(self.state, self.history, self.cfg,
+                           rng_state=getattr(self, "_epoch_rng_snapshot",
+                                             None))
+            raise SystemExit(128 + signum)
+
+        return {s: signal.signal(s, _handler)
+                for s in (signal.SIGTERM, signal.SIGINT)}
+
+    def run(self, resume: bool = False) -> Dict[str, float]:
+        """Train cfg.train.epoch epochs (from the checkpoint when resuming),
+        test every tst_epoch with a best-NDCG save, then evaluate the last
+        epoch's params and log the Test and max lines. Returns the best
+        test result (the final one when no test ran)."""
+        previous = self.install_preemption_handler()
+        try:
+            return self._run(resume)
+        finally:
+            for s, h in previous.items():
+                signal.signal(s, h)
+
+    def restore_checkpoint(self) -> Optional[int]:
+        """Load the saved state, history and RNG snapshot; returns the epoch
+        to resume at (None when nothing was saved)."""
+        state, hist = self.ckpt.restore(self.state)
+        if state is None:
+            return None
+        self.state = state
+        self.history = hist
+        st_epoch = self.ckpt.resume_epoch(hist, self.cfg.train.tst_epoch)
+        rs = self.ckpt.load_rng()
+        if rs is not None:
+            st_epoch = self.restore_rng_state(rs)
+        log(f"Model Loaded, resuming at epoch {st_epoch}")
+        return st_epoch
+
+    def _run(self, resume: bool) -> Dict[str, float]:
+        cfg = self.cfg
+        st_epoch = 0
+        if resume or cfg.train.load_model:
+            st_epoch = self.restore_checkpoint() or 0
+
+        # the best-NDCG tracker starts from the restored history, so a
+        # resumed run keeps what the uninterrupted run would have kept
+        max_ndcg, max_res, max_epoch = 0.0, {}, 0
+        ndcgs = self.history.data.get("TestNDCG", [])
+        if ndcgs:
+            i = int(np.argmax(ndcgs))
+            max_ndcg = float(ndcgs[i])
+            max_res = {"HR": float(self.history.data["TestHR"][i]),
+                       "NDCG": max_ndcg}
+            max_epoch = i * cfg.train.tst_epoch
+        try:
+            max_ndcg, max_res, max_epoch = self._epoch_loop(
+                st_epoch, max_ndcg, max_res, max_epoch)
+        finally:
+            self.ckpt.finalize()
+        final = self.test_epoch()
+        log(self.history.format_line("Test", cfg.train.epoch,
+                                     cfg.train.epoch,
+                                     {"HR": final["HR"],
+                                      "NDCG": final["NDCG"]}))
+        log(self.history.format_line("max", max_epoch, cfg.train.epoch,
+                                     max_res))
+        return max_res or final
+
+    def _epoch_loop(self, st_epoch: int, max_ndcg: float = 0.0,
+                    max_res: Optional[Dict] = None, max_epoch: int = 0):
+        cfg = self.cfg
+        max_res = max_res or {}
+        t_loop = time.monotonic()
+        epoch_times: list = []
+        for ep in range(st_epoch, cfg.train.epoch):
+            # time_budget_h: stop at the epoch boundary once the next epoch
+            # (predicted from the measured mean) would overrun the budget
+            if cfg.train.time_budget_h > 0 and epoch_times:
+                spent = time.monotonic() - t_loop
+                predicted = spent + float(np.mean(epoch_times))
+                if predicted > cfg.train.time_budget_h * 3600.0:
+                    log(f"time budget: {spent / 3600.0:.2f}h spent, next "
+                        f"epoch predicted to end at "
+                        f"{predicted / 3600.0:.2f}h > budget "
+                        f"{cfg.train.time_budget_h}h; stopping cleanly "
+                        f"at epoch {ep}")
+                    break
+            t_ep = time.monotonic()
+            test = ep % cfg.train.tst_epoch == 0
+            self._epoch_rng_snapshot = self.capture_rng_state(ep)
+            tr = self.train_epoch()
+            # a non-finite epoch loss rolls back to the last checkpoint
+            # (without its RNG state: the retry draws other batches)
+            if not np.isfinite(tr["Loss"]):
+                state, hist = self.ckpt.restore(self.state)
+                if state is not None:
+                    self.state = state
+                    self.history = hist
+                    log(f"NaN guard: non-finite loss at epoch {ep}; "
+                        f"restored last checkpoint and continuing")
+                    continue
+                raise FloatingPointError(
+                    f"non-finite loss at epoch {ep} with no checkpoint to "
+                    f"restore")
+            self.history.append("Train", tr)
+            log(self.history.format_line("Train", ep, cfg.train.epoch, tr))
+            ts = self.throughput_stats()
+            if ts["edges_per_sec"] > 0:
+                log(f"  step {ts['step_ms_mean']:.1f} ms avg "
+                    f"(p95 {ts['step_ms_p95']:.1f}), propagation "
+                    f"{ts['edges_per_sec'] / 1e9:.4f} Gedges/s")
+            if test:
+                te = self.test_epoch()
+                res = {"HR": te["HR"], "NDCG": te["NDCG"]}
+                self.history.append("Test", res)
+                log(self.history.format_line("Test", ep, cfg.train.epoch,
+                                             res))
+                if te["NDCG"] > max_ndcg:  # best-NDCG save policy
+                    self.ckpt.save(self.state, self.history, self.cfg,
+                                   block=False,
+                                   rng_state=self.capture_rng_state(ep + 1))
+                    max_ndcg, max_res, max_epoch = te["NDCG"], te, ep
+            epoch_times.append(time.monotonic() - t_ep)
+        return max_ndcg, max_res, max_epoch
