@@ -4,10 +4,11 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero; it prints no
-result line then):
+Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11 (any failure raises and
+the script exits non-zero; it prints no result line then):
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — compile sagnn_tpu_torch/csrc/*.cu with nvcc (timed).
+  2. build   — compile sagnn_tpu_torch/csrc/*.cu, one nvcc per source in
+               parallel (timed).
   3. set-up  — the synthetic gowalla-scale bundle (49,152 users x 40,960
                items, 3 intervals, sequences of 10-50 items), its graphs
                and CSR plans, and seeded random weights (timed).
@@ -39,6 +40,26 @@ result line then):
                one more step on each from the same batch and dropout state,
                held against each other; a torch.profiler pass over 3 steps
                on that batch (device busy share, top kernels).
+  8. variant serving — the preset with edge_norm="sym_sqrt", "mean" (12 K2,
+               no K1) and edge_attention (12 K5 + 12 K2), on the same bundle
+               and weights, each encode held against the plain path with
+               its propagation (and softmax) in f64; a bf16 attention encode
+               held hop by hop.
+  9. edge kernels — K2 and K5 (f32 and bf16) on interval 0, both
+               directions, an empty graph and a graph with empty rows,
+               against their plain versions in f64; both backwards
+               (`SpmmWeightedFunction` dx and dw, `SddmmFunction` dx and dy)
+               against plain autograd in f64; kernel, plain, library
+               (torch.sparse.mm, torch.sparse.sampled_addmm) and bound.
+ 10. variant steps — one step each with edge_norm="mean", edge attention,
+               edge_dropout_keep=0.8 (one mask from one generator state on
+               both sides) against the plain path in f64, each hop's
+               leaky-relu on the kernel path's side of the kink; and edge
+               attention on bf16 tables against the f32 step.
+ 11. variant training — `Trainer.run()` for one epoch with edge attention
+               and its evaluations; an epoch with edge_norm="sym_sqrt" and
+               edge_dropout_keep=0.8, checkpointed, resumed, and one more
+               step on each held against the other.
 Each phase prints its time. Prints a `main_path` line, a `train` JSON line,
 the card's name and power limit, and a `kernels` JSON line, then as the
 last line
@@ -47,6 +68,7 @@ last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -74,6 +96,13 @@ F32_FLOPS = 67e12
 KERNEL_SOURCE = "sagnn_tpu_torch/csrc/segsum.cu"
 KERNEL_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:218"   # _segsum_kernel
 BWD_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:485"      # _spmm_bwd
+# K2: _segsum_kernel's weighted mode; its backward launches: the dx of
+# _spmm_weighted_bwd and the dx, dy of _sddmm_bwd
+K2_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:241"
+K2_BWD_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:824"
+SDDMM_SOURCE = "sagnn_tpu_torch/csrc/sddmm.cu"
+K5_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:705"       # _sddmm_kernel
+K5_BWD_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:827"   # dw of _spmm_weighted_bwd
 # the training step check: losses at rtol 1e-5; each gradient at rtol 1e-4
 # and atol 1e-5 x the largest |g| over all parameters
 LOSS_RTOL = 1e-5
@@ -161,6 +190,160 @@ def check_close(got, want, rtol, atol, what) -> float:
           f"{what}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e})")
     log(f"  {what}: max abs err {err:.3e}, {used:.2f} of the tolerance")
     return err
+
+
+def plain_attention(x_src, x_tgt, fwd_src, fwd_tgt, fwd_ptr, bwd_src,
+                    bwd_ptr, to_bwd, temperature=None, exact=True):
+    """`ops.edge_attention.attention_propagate` through the plain versions
+    of K5 and K2 (differentiable by autograd, f64 with f64 inputs)."""
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.ops.edge_attention import edge_softmax
+
+    temp = float(x_src.shape[-1]) ** 0.5 if temperature is None \
+        else temperature
+    s = sc.sddmm_apply_plain(x_src, x_tgt, fwd_src, fwd_tgt, fwd_ptr,
+                             exact) / temp
+    w = edge_softmax(s, fwd_tgt, fwd_ptr)
+    return sc.spmm_weighted_apply_plain(x_src, w, fwd_src, fwd_ptr, exact)
+
+
+def _plain_spmm(x, src, ptr, _bwd_src, _bwd_ptr, exact=True):
+    """`spmm` through K1's plain version (differentiable by autograd)."""
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    return sc.spmm_apply_plain(x, src, ptr, exact)
+
+
+def _plain_spmm_weighted(x, w, src, _tgt, ptr, _bwd_src, _bwd_ptr, _to_bwd,
+                         exact=True):
+    """`spmm_weighted` through K2's plain version."""
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    return sc.spmm_weighted_apply_plain(x, w, src, ptr, exact)
+
+
+@contextlib.contextmanager
+def _hop_relu(relu):
+    """While active, each propagation hop's leaky-relu (and nothing else's)
+    is `relu`."""
+    from sagnn_tpu_torch.models import selfgnn
+
+    propagation, real = selfgnn._interval_propagation, selfgnn.leaky_relu
+
+    def wrapped(*args, **kw):
+        selfgnn.leaky_relu = relu
+        try:
+            return propagation(*args, **kw)
+        finally:
+            selfgnn.leaky_relu = real
+
+    selfgnn._interval_propagation = wrapped
+    try:
+        yield
+    finally:
+        selfgnn._interval_propagation = propagation
+
+
+@contextlib.contextmanager
+def kernel_kinks(kinks: list):
+    """While active, each propagation hop of the kernel path records on
+    `kinks` which side of the leaky-relu's kink its aggregate lies on
+    (aggregate > 0), in call order."""
+    from sagnn_tpu_torch.models import selfgnn
+    real = selfgnn.leaky_relu
+
+    def record(x, leaky):
+        kinks.append(x.detach() > 0)
+        return real(x, leaky)
+
+    with _hop_relu(record):
+        yield
+
+
+@contextlib.contextmanager
+def f64_propagation(kinks: list | None = None):
+    """While active, `_interval_propagation` is the plain reference of the
+    kernel path: every hop through the plain versions (K1, K2, and K5 with
+    the edge softmax), on the embedding tables cast to f64; the node states
+    come back in f32. The model it serves runs the "pallas" backend.
+
+    kinks: the kernel path's hop signs (`kernel_kinks`), for a gradient
+    check. Each hop's leaky-relu then takes the branch the kernel path
+    took. Where an aggregate lies within f32 rounding of 0, f32 and f64
+    can fall on either side of the kink, and the gradient at that element
+    then differs by (1 - leaky)·|g|, which no rounding tolerance holds
+    (measured on the card: the same f32-vs-f64 gradient gap in the plain
+    f32 backend and the kernel path, none with leaky = 1)."""
+    import torch
+    from sagnn_tpu_torch.models import selfgnn
+
+    patched = {"spmm": _plain_spmm, "spmm_weighted": _plain_spmm_weighted,
+               "attention_propagate": plain_attention}
+    saved = {name: getattr(selfgnn, name) for name in patched}
+    propagation = selfgnn._interval_propagation
+
+    def f64(p, graphs_, cfg_, nu_, ni_, edge_weights=None):
+        p64 = dict(p)
+        for key in ("reg/u_embed", "reg/i_embed"):
+            p64[key] = p[key].double()
+        uv, iv = propagation(p64, graphs_, cfg_, nu_, ni_, edge_weights)
+        return uv.float(), iv.float()
+
+    def replay(x, leaky):
+        return torch.where(kinks.pop(0), x, leaky * x)
+
+    for name, fn in patched.items():
+        setattr(selfgnn, name, fn)
+    selfgnn._interval_propagation = f64
+    try:
+        if kinks is None:
+            yield
+        else:
+            with _hop_relu(replay):
+                yield
+            check(not kinks, "every recorded hop replayed")
+    finally:
+        selfgnn._interval_propagation = propagation
+        for name, fn in saved.items():
+            setattr(selfgnn, name, fn)
+
+
+def loss_and_grads(model, leaves, graphs, batch, tc, gen=None):
+    """(preLoss, sslloss, {param: gradient}) of one step's whole loss."""
+    import torch
+    from sagnn_tpu_torch.models import selfgnn
+
+    keys = sorted(leaves)
+    pre, ssl, _ = model.train_losses(leaves, graphs, batch, gen)
+    loss = pre + tc.reg * selfgnn.reg_loss(leaves) + tc.ssl_reg * ssl
+    grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
+                                allow_unused=True)
+    return pre.detach(), ssl.detach(), {
+        k: torch.zeros_like(leaves[k]) if g is None else g
+        for k, g in zip(keys, grads)}
+
+
+def check_step(got, want, what) -> tuple[float, str]:
+    """Losses at LOSS_RTOL and every gradient at GRAD_RTOL with atol
+    GRAD_ATOL_SHARE x the largest |g| over all parameters; returns the
+    largest share of the gradient tolerance used and its parameter."""
+    pre_k, ssl_k, g_k = got
+    pre_r, ssl_r, g_r = want
+    check_close(pre_k.reshape(1), pre_r.reshape(1), LOSS_RTOL, 0.0,
+                f"{what} preLoss kernel vs plain f64")
+    check_close(ssl_k.reshape(1), ssl_r.reshape(1), LOSS_RTOL, 0.0,
+                f"{what} sslloss kernel vs plain f64")
+    g_max = max(float(g.abs().max()) for g in g_r.values())
+    grad_atol = GRAD_ATOL_SHARE * g_max
+    used = {k: tolerance_used(g_k[k], g_r[k], GRAD_RTOL, grad_atol)
+            for k in g_r}
+    worst = sorted(used.items(), key=lambda kv: -kv[1][1])
+    log(f"  {what} gradients kernel vs plain f64 (rtol {GRAD_RTOL}, atol "
+        f"{grad_atol:.3e} = {GRAD_ATOL_SHARE} x max|g| {g_max:.3e}); "
+        "largest shares of the tolerance: " + ", ".join(
+            f"{k} {s:.2f} (err {e:.2e})" for k, (e, s) in worst[:4]))
+    check(worst[0][1][1] <= 1.0,
+          f"{what} gradient {worst[0][0]}: {worst[0][1][1]:.2f} of the "
+          "tolerance")
+    return worst[0][1][1], worst[0][0]
 
 
 def kernel_phase(graphs, device) -> dict:
@@ -350,30 +533,43 @@ def backward_phase(graphs, device) -> dict:
     return records
 
 
-def bf16_propagation_reference(params, graphs, mc, num_users, num_items):
+def bf16_propagation_reference(params, graphs, mc, num_users, num_items,
+                               attr="spmm"):
     """The bf16-table propagation, held hop by hop. A first pass runs the
-    kernel path and keeps each hop's input and output; a second pass
+    kernel path and keeps each hop's inputs and output; a second pass
     builds the reference chain in f64, where each hop is the plain version
-    (the bf16-rounded input summed in f64) of the input the kernel path
-    gave that hop. Each hop's kernel output is checked against it at the
-    segment-sum tolerance. A reference fed its own f64 chain would round
+    (the bf16-rounded inputs, summed in f64) of the inputs the kernel path
+    gave that hop. Each hop's kernel output is checked against it: the
+    segment-sum (attr "spmm", K1) at the segment-sum tolerance, the
+    attention hop (attr "attention_propagate", K5 + softmax + K2) at
+    rtol 1e-4, atol 1e-5. A reference fed its own f64 chain would round
     some inputs of the next hop to the neighbouring bf16 value and differ
-    by a bf16 ulp, not by the kernel's f32 rounding.
+    by a bf16 ulp, not by the kernels' f32 rounding.
     Returns (user_vec, item_vec) of the reference, in f64."""
     from sagnn_tpu_torch.models import selfgnn
     from sagnn_tpu_torch.ops import spmm_cuda as sc
 
-    hops = []
+    if attr == "spmm":
+        def plain(x, src, ptr, _bwd_src, _bwd_ptr, exact):
+            return (sc.spmm_apply_plain(x.double(), src, ptr, exact),
+                    seg_tol(ptr))
+    else:
+        def plain(x, x_tgt, *plans, exact):
+            return (plain_attention(x.double(), x_tgt.double(), *plans,
+                                    exact=exact), (1e-4, 1e-5))
 
-    def record(x, src, ptr, bwd_src, bwd_ptr, exact):
-        out = kernel(x, src, ptr, bwd_src, bwd_ptr, exact)
-        hops.append((x, out))
+    hops = []
+    kernel = getattr(selfgnn, attr)
+
+    def record(*args, **kw):
+        out = kernel(*args, **kw)
+        hops.append((args, kw, out))
         return out
 
-    def replay(_x, src, ptr, _bwd_src, _bwd_ptr, exact):
-        x, got = hops[len(done)]
-        want = sc.spmm_apply_plain(x.double(), src, ptr, exact)
-        done.append(check_close(got, want, *seg_tol(ptr),
+    def replay(*_args, **_kw):
+        args, kw, got = hops[len(done)]
+        want, (rtol, atol) = plain(*args, **kw)
+        done.append(check_close(got, want, rtol, atol,
                                 f"bf16 hop {len(done)}"))
         return want
 
@@ -381,16 +577,15 @@ def bf16_propagation_reference(params, graphs, mc, num_users, num_items):
     p64 = dict(params)
     for key in ("reg/u_embed", "reg/i_embed"):
         p64[key] = p64[key].double()
-    kernel = selfgnn.spmm
     try:
-        selfgnn.spmm = record
+        setattr(selfgnn, attr, record)
         selfgnn._interval_propagation(params, graphs, mc, num_users,
                                       num_items)
-        selfgnn.spmm = replay
+        setattr(selfgnn, attr, replay)
         ref = selfgnn._interval_propagation(p64, graphs, mc, num_users,
                                             num_items)
     finally:
-        selfgnn.spmm = kernel
+        setattr(selfgnn, attr, kernel)
     check(len(done) == len(hops) == mc.graph_num * mc.gnn_layer * 2,
           "bf16 reference: every hop replayed")
     return ref
@@ -425,66 +620,35 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
               for k, v in params.items()}
     keys = sorted(leaves)
 
-    def loss_and_grads(model):
-        pre, ssl, _ = model.train_losses(leaves, graphs, batch)
-        loss = pre + tc.reg * selfgnn.reg_loss(leaves) + tc.ssl_reg * ssl
-        grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
-                                    allow_unused=True)
-        return pre.detach(), ssl.detach(), {
-            k: torch.zeros_like(leaves[k]) if g is None else g
-            for k, g in zip(keys, grads)}
-
     kernel = selfgnn.SelfGNN(mc, nu, ni)
+    kinks = []
     sc.reset_launches()
-    pre_k, ssl_k, g_k = loss_and_grads(kernel)
+    with kernel_kinks(kinks):
+        pre_k, ssl_k, g_k = loss_and_grads(kernel, leaves, graphs, batch, tc)
     torch.cuda.synchronize()
     launches = dict(sc.LAUNCHES)
     log(f"train step launches: {launches}")
     expect_launches(launches, "train step", segsum_f32=hops,
                     segsum_f32_bwd=hops)
 
-    # the reference: the plain ("xla") backend, its propagation summed in
-    # f64 (the embedding tables cast to f64 on the way in, the node states
-    # back to f32 on the way out), everything else in f32
-    plain = selfgnn.SelfGNN(dataclasses.replace(mc, spmm_backend="xla"),
-                            nu, ni)
-    propagation = selfgnn._interval_propagation
-
-    def f64_propagation(p, graphs_, cfg_, nu_, ni_):
-        p64 = dict(p)
-        for key in ("reg/u_embed", "reg/i_embed"):
-            p64[key] = p[key].double()
-        uv, iv = propagation(p64, graphs_, cfg_, nu_, ni_)
-        return uv.float(), iv.float()
-
-    try:
-        selfgnn._interval_propagation = f64_propagation
-        pre_r, ssl_r, g_r = loss_and_grads(plain)
-    finally:
-        selfgnn._interval_propagation = propagation
+    # the reference: the plain version of each hop, summed in f64 (the
+    # embedding tables cast to f64 on the way in, the node states back to
+    # f32 on the way out), each hop's leaky-relu on the kernel path's side
+    # of the kink, everything else in f32
+    with f64_propagation(kinks):
+        want = loss_and_grads(kernel, leaves, graphs, batch, tc)
     torch.cuda.synchronize()
-    check_close(pre_k.reshape(1), pre_r.reshape(1), LOSS_RTOL, 0.0,
-                "train step preLoss kernel vs plain f64")
-    check_close(ssl_k.reshape(1), ssl_r.reshape(1), LOSS_RTOL, 0.0,
-                "train step sslloss kernel vs plain f64")
+    g_r = want[2]
+    grad_share, grad_worst = check_step((pre_k, ssl_k, g_k), want,
+                                        "train step")
     g_max = max(float(g.abs().max()) for g in g_r.values())
     grad_atol = GRAD_ATOL_SHARE * g_max
-    used = {k: tolerance_used(g_k[k], g_r[k], GRAD_RTOL, grad_atol)
-            for k in keys}
-    worst = sorted(used.items(), key=lambda kv: -kv[1][1])
-    log(f"  gradients kernel vs plain f64 (rtol {GRAD_RTOL}, atol "
-        f"{grad_atol:.3e} = {GRAD_ATOL_SHARE} x max|g| {g_max:.3e}); "
-        "largest shares of the tolerance: " + ", ".join(
-            f"{k} {s:.2f} (err {e:.2e})" for k, (e, s) in worst[:4]))
-    check(worst[0][1][1] <= 1.0,
-          f"gradient {worst[0][0]}: {worst[0][1][1]:.2f} of the tolerance")
-    grad_share = worst[0][1][1]
 
     # the same step on the bf16 table: its kernels on the path, losses
     # near the exact path's (the table rounds to bf16, ~3 decimal digits)
     bf16 = selfgnn.SelfGNN(dataclasses.replace(mc, spmm_exact=False), nu, ni)
     sc.reset_launches()
-    pre_b, ssl_b, g_b = loss_and_grads(bf16)
+    pre_b, ssl_b, g_b = loss_and_grads(bf16, leaves, graphs, batch, tc)
     torch.cuda.synchronize()
     launches_bf16 = dict(sc.LAUNCHES)
     log(f"bf16 train step launches: {launches_bf16}")
@@ -502,7 +666,8 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
 
     # device time of the step (forward + backward of the whole loss) and
     # of its parts, with CUDA events, on the kernel path
-    step_ms = cuda_ms(lambda: loss_and_grads(kernel), iters=5, warmup=1)
+    step_ms = cuda_ms(lambda: loss_and_grads(kernel, leaves, graphs, batch,
+                                             tc), iters=5, warmup=1)
     uk, ik = leaves["reg/u_embed"], leaves["reg/i_embed"]
 
     def prop():
@@ -551,7 +716,7 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
                                    if v},
         "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
         "grad_atol": grad_atol, "grad_check_share": grad_share,
-        "grad_check_worst": worst[0][0],
+        "grad_check_worst": grad_worst,
         "bf16_grad_dev_over_max_g": bf16_grad_dev,
         "step_ms": step_ms, "propagation_fwd_ms": prop_fwd_ms,
         "propagation_bwd_ms": prop_fb_ms - prop_fwd_ms,
@@ -567,7 +732,7 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
         f"{fusion_fwd_ms:.3f} + {out['fusion_bwd_ms']:.3f} ms; rest "
         f"{out['rest_ms']:.3f} ms; optimizer {optimizer_ms:.3f} ms; host "
         f"sampling of one batch {sample_ms:.1f} ms")
-    return out
+    return out, batch
 
 
 def profile_steps(step, n: int = PROFILE_STEPS) -> dict:
@@ -745,12 +910,645 @@ def training_phase(cfg, bundle, device) -> dict:
     return out
 
 
+def _csr(ptr, cols, values, shape):
+    """A torch CSR matrix over a plan's rows (the library yardsticks'
+    operand), built outside any timed region."""
+    import torch
+    n = values.numel()
+    return torch.sparse_csr_tensor(ptr.long(), cols[:n].long(), values,
+                                   size=shape, check_invariants=False)
+
+
+def _library_ms(what, fn, want, rtol, atol) -> float | None:
+    """The yardstick's time, after holding its result against `want`; None
+    (logged) where this PyTorch build cannot run it on the card. The port
+    never calls it."""
+    try:
+        got = fn()
+    except RuntimeError as e:
+        log(f"  library[{what}]: not run here ({str(e).splitlines()[0]})")
+        return None
+    check_close(got, want, rtol, atol, f"library[{what}]")
+    return cuda_ms(fn)
+
+
+def _k2_bytes(n_src, n_tgt, n_edges, d, elem) -> int:
+    """K2's unique bytes: the table once, the source ids, the f32 weights
+    and the row pointers once, the f32 output once."""
+    return (n_src * d * elem + n_edges * 4 + n_edges * 4 + (n_tgt + 1) * 4
+            + n_tgt * d * 4)
+
+
+def _k5_bytes(n_src, n_tgt, n_edges, slots, d, elem) -> int:
+    """K5's unique bytes: both tables once, the source and target ids of
+    the real edges, the edge count, the f32 scores of every slot."""
+    return ((n_src + n_tgt) * d * elem + n_edges * 8 + 4 + slots * 4)
+
+
+def _bound_ms(nbytes, flops) -> float:
+    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+
+
+def _record(name, source, replaces, mode):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "mode": mode, "per_direction": {},
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "library_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes"}
+
+
+def _add(rec, d, err, **times):
+    rec["per_direction"][d] = dict(max_abs_err=err, **times)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        if times.get(key) is None or rec[key] is None:
+            rec[key] = None
+        else:
+            rec[key] += times[key]
+
+
+def edge_kernel_phase(graphs, device) -> dict:
+    """K2 and K5 against their plain versions summed in f64 (and the
+    library calls) on interval 0, both directions, f32 and bf16 tables;
+    K2 with the "mean" weights of each direction. Plus an empty graph and
+    a graph with empty rows. Returns per-kernel records."""
+    import torch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    D = 64
+    records = {}
+    for exact in (True, False):
+        mode = "f32" if exact else "bf16"
+        elem = 4 if exact else 2
+        table = ("exact f32 tables" if exact
+                 else "bf16 tables, f32 weights and accumulation")
+        k2 = _record(f"wsegsum_{mode}", KERNEL_SOURCE, K2_REPLACES, table)
+        k5 = _record(f"sddmm_{mode}", SDDMM_SOURCE, K5_REPLACES, table)
+        for d, n_src in (("u", NUM_ITEMS), ("i", NUM_USERS)):
+            src, tgt = graphs[f"{d}_src"][0], graphs[f"{d}_tgt"][0]
+            ptr = graphs[f"{d}_ptr"][0]
+            w = graphs["edge_weights"][0 if d == "u" else 1][0]
+            n_tgt, n, slots = ptr.numel() - 1, int(ptr[-1]), src.numel()
+            x = torch.randn((n_src, D), generator=gen, device=device)
+            y = torch.randn((n_tgt, D), generator=gen, device=device)
+            xl = x if exact else x.to(torch.bfloat16).float()
+            yl = y if exact else y.to(torch.bfloat16).float()
+            # K2
+            out = sc.spmm_weighted_apply(x, w, src, ptr, exact)
+            want = sc.spmm_weighted_apply_plain(x.double(), w.double(), src,
+                                                ptr, exact)
+            torch.cuda.synchronize()
+            rtol, atol = seg_tol(ptr)
+            atol *= float(w.abs().max())
+            err = check_close(out, want, rtol, atol, f"{k2['name']}[{d}]")
+            a = _csr(ptr, src, w[:n], (n_tgt, n_src))
+            _add(k2, d, err, edges=n, max_degree=int((ptr[1:] - ptr[:-1])
+                                                     .max()),
+                 ms=cuda_ms(lambda: sc.spmm_weighted_apply(x, w, src, ptr,
+                                                           exact)),
+                 plain_ms=cuda_ms(lambda: sc.spmm_weighted_apply_plain(
+                     x, w, src, ptr, exact)),
+                 library_ms=_library_ms(f"{k2['name']}[{d}]",
+                                        lambda: torch.sparse.mm(a, xl), want,
+                                        rtol, atol),
+                 bound_ms=_bound_ms(_k2_bytes(n_src, n_tgt, n, D, elem),
+                                    2 * n * D))
+            # K5
+            s = sc.sddmm_apply(x, y, src, tgt, ptr, exact)
+            want = sc.sddmm_apply_plain(x.double(), y.double(), src, tgt,
+                                        ptr, exact)
+            torch.cuda.synchronize()
+            atol = 1e-5 * math.sqrt(D) * float(x.abs().max()
+                                               * y.abs().max())
+            err = check_close(s, want, 1e-5, atol, f"{k5['name']}[{d}]")
+            check(not bool(s[n:].any()), f"{k5['name']}: pad slots score 0")
+            pattern = _csr(ptr, src, torch.ones(n, device=device),
+                           (n_tgt, n_src))
+            xt = xl.T.contiguous()
+            _add(k5, d, err, edges=n,
+                 ms=cuda_ms(lambda: sc.sddmm_apply(x, y, src, tgt, ptr,
+                                                   exact)),
+                 plain_ms=cuda_ms(lambda: sc.sddmm_apply_plain(
+                     x, y, src, tgt, ptr, exact)),
+                 library_ms=_library_ms(
+                     f"{k5['name']}[{d}]",
+                     lambda: torch.sparse.sampled_addmm(
+                         pattern, yl, xt, beta=0.0).values(),
+                     want[:n], 1e-5, atol),
+                 bound_ms=_bound_ms(_k5_bytes(n_src, n_tgt, n, slots, D,
+                                              elem), 2 * n * D))
+        # an empty interval (all padding) and a graph with empty rows
+        x = torch.randn((300, D), generator=gen, device=device)
+        y = torch.randn((128, D), generator=gen, device=device)
+        ptr = torch.zeros(129, dtype=torch.int32, device=device)
+        src = torch.zeros(512, dtype=torch.int32, device=device)
+        tgt = torch.full((512,), 128, dtype=torch.int32, device=device)
+        w = torch.rand(512, generator=gen, device=device)
+        out = sc.spmm_weighted_apply(x, w, src, ptr, exact)
+        s = sc.sddmm_apply(x, y, src, tgt, ptr, exact)
+        torch.cuda.synchronize()
+        check(out.shape == (128, D) and not bool(out.any()),
+              f"{k2['name']}: empty graph must give zeros")
+        check(s.shape == (512,) and not bool(s.any()),
+              f"{k5['name']}: empty graph must give zeros")
+        deg = torch.randint(0, 4, (1000,), generator=gen, device=device)
+        deg[::2] = 0
+        ptr = torch.zeros(1001, dtype=torch.int32, device=device)
+        ptr[1:] = torch.cumsum(deg, 0).to(torch.int32)
+        n = int(ptr[-1])
+        src = torch.randint(0, 300, (n + 40,), generator=gen, device=device,
+                            dtype=torch.int32)
+        tgt = torch.cat([torch.repeat_interleave(
+            torch.arange(1000, device=device), deg),
+            torch.full((40,), 1000, device=device)]).to(torch.int32)
+        w = torch.rand(n + 40, generator=gen, device=device)
+        y = torch.randn((1000, D), generator=gen, device=device)
+        out = sc.spmm_weighted_apply(x, w, src, ptr, exact)
+        s = sc.sddmm_apply(x, y, src, tgt, ptr, exact)
+        want = sc.spmm_weighted_apply_plain(x.double(), w.double(), src, ptr,
+                                            exact)
+        want5 = sc.sddmm_apply_plain(x.double(), y.double(), src, tgt, ptr,
+                                     exact)
+        torch.cuda.synchronize()
+        rtol, atol = seg_tol(ptr)
+        err = check_close(out, want, rtol, atol, f"{k2['name']}: empty rows")
+        check(not bool(out[::2].any()), f"{k2['name']}: empty rows zero")
+        k2["max_abs_err"] = max(k2["max_abs_err"], err)
+        atol = 1e-5 * math.sqrt(D) * float(x.abs().max() * y.abs().max())
+        err = check_close(s, want5, 1e-5, atol, f"{k5['name']}: empty rows")
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        k2["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree)*max|w|")
+        k2["bound_counts"] = ("bytes: the table once, the source ids, the "
+                              "f32 weights and the row pointers once, the "
+                              "f32 output once, at 3.35e12 B/s; operations:"
+                              " one multiply-add (2) per gathered value at "
+                              "67e12 FLOP/s")
+        k5["tolerance"] = "rtol 1e-5, atol 1e-5*sqrt(D)*max|x|*max|y|"
+        k5["bound_counts"] = ("bytes: both tables once, the source and "
+                              "target ids of the real edges, the f32 score "
+                              "of every slot; operations: 2*D per edge")
+        for rec in (k2, k5):
+            records[rec["name"]] = rec
+            log(f"{rec['name']}: u {rec['per_direction']['u']['ms']:.4f} ms"
+                f", i {rec['per_direction']['i']['ms']:.4f} ms; plain "
+                f"{rec['plain_ms']:.4f} ms; library {rec['library_ms']} ms; "
+                f"bound {rec['bound_ms']:.4f} ms; max abs err "
+                f"{rec['max_abs_err']:.3e}")
+    return records
+
+
+def edge_backward_phase(graphs, device) -> dict:
+    """Both backwards on interval 0, both directions, f32 and bf16:
+    `SpmmWeightedFunction` (dx: K2 on the transpose plan; dw: K5) and
+    `SddmmFunction` (dx: K2 on the transpose plan; dy: K2 on the forward
+    plan) through torch.autograd.grad against plain autograd in f64 (the
+    plain versions of K2 and K5 differentiated by autograd). Times the
+    backward launches alone (K2 for a weighted hop's dx, K5 for its dw),
+    the whole autograd backwards, the plain versions and the library
+    calls. Returns per-kernel records."""
+    import torch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    D = 64
+    records = {}
+    for exact in (True, False):
+        mode = "f32" if exact else "bf16"
+        elem = 4 if exact else 2
+        k2 = _record(f"wsegsum_{mode}_bwd", KERNEL_SOURCE, K2_BWD_REPLACES,
+                     "backward: dx of a weighted hop on the transpose plan "
+                     "(timed); also the SDDMM's dx and dy")
+        k5 = _record(f"sddmm_{mode}_bwd", SDDMM_SOURCE, K5_BWD_REPLACES,
+                     "backward: dw of a weighted hop over the forward plan")
+        for rec in (k2, k5):
+            rec["autograd_ms"] = 0.0
+        for d in ("u", "i"):
+            o = "i" if d == "u" else "u"
+            plan = (graphs[f"{d}_src"][0], graphs[f"{d}_tgt"][0],
+                    graphs[f"{d}_ptr"][0], graphs[f"{o}_src"][0],
+                    graphs[f"{o}_ptr"][0], graphs[f"{o}_from_{d}"][0])
+            fsrc, ftgt, fptr, bsrc, bptr, to_bwd = plan
+            n_x, n_t = bptr.numel() - 1, fptr.numel() - 1
+            n, slots = int(fptr[-1]), fsrc.numel()
+            w = graphs["edge_weights"][0 if d == "u" else 1][0].clone()
+            x = torch.randn((n_x, D), generator=gen, device=device)
+            y = torch.randn((n_t, D), generator=gen, device=device)
+            g = torch.randn((n_t, D), generator=gen, device=device)
+            gs = torch.randn(slots, generator=gen, device=device)
+            xv, wv, yv = (t.clone().requires_grad_() for t in (x, w, y))
+            out = sc.spmm_weighted(xv, wv, *plan, exact)
+            dx, dw = torch.autograd.grad(out, (xv, wv), g, retain_graph=True)
+            s = sc.sddmm(xv, yv, *plan, exact)
+            dxs, dy = torch.autograd.grad(s, (xv, yv), gs, retain_graph=True)
+            x64, w64, y64 = (t.double().requires_grad_() for t in (x, w, y))
+            g64, gs64 = g.double(), gs.double()
+            if exact:
+                # plain autograd in f64: the plain versions differentiated
+                ref = sc.spmm_weighted_apply_plain(x64, w64, fsrc, fptr)
+                rdx, rdw = torch.autograd.grad(ref, (x64, w64), g64)
+                ref = sc.sddmm_apply_plain(x64, y64, fsrc, ftgt, fptr)
+                rdxs, rdy = torch.autograd.grad(ref, (x64, y64), gs64)
+            else:
+                # the bf16 backwards round the tables they gather (the
+                # cotangent g, the saved x and y) to bf16, as JAX's do;
+                # autograd through the plain versions would not round g,
+                # so the reference is the plain transposes on the rounded
+                # tables, summed in f64
+                gs_b = gs64.index_select(0, to_bwd)
+                rdx = sc.spmm_weighted_apply_plain(
+                    g64, w64.detach().index_select(0, to_bwd), bsrc, bptr,
+                    exact)
+                rdw = sc.sddmm_apply_plain(x64, g64, fsrc, ftgt, fptr,
+                                           exact)
+                rdxs = sc.spmm_weighted_apply_plain(y64, gs_b, bsrc, bptr,
+                                                    exact)
+                rdy = sc.spmm_weighted_apply_plain(x64, gs64, fsrc, fptr,
+                                                   exact)
+            torch.cuda.synchronize()
+            rtol, atol = seg_tol(bptr)
+            err2 = check_close(dx, rdx, rtol, atol * float(w.abs().max()),
+                               f"{k2['name']}[{d}-hop dx]")
+            gmax = float(gs.abs().max())
+            err2 = max(err2, check_close(dxs, rdxs, rtol, atol * gmax,
+                                         f"{k2['name']}[{d}-hop sddmm dx]"))
+            err2 = max(err2, check_close(
+                dy, rdy, rtol, seg_tol(fptr)[1] * gmax,
+                f"{k2['name']}[{d}-hop sddmm dy]"))
+            atol5 = 1e-5 * math.sqrt(D) * float(x.abs().max()
+                                                * g.abs().max())
+            err5 = check_close(dw, rdw, 1e-5, atol5,
+                               f"{k5['name']}[{d}-hop dw]")
+            w_b = w.index_select(0, to_bwd)
+            gl = g if exact else g.to(torch.bfloat16).float()
+            xl = x if exact else x.to(torch.bfloat16).float()
+            at = _csr(bptr, bsrc, w_b[:int(bptr[-1])], (n_x, n_t))
+            _add(k2, d, err2, plan=o,
+                 ms=cuda_ms(lambda: sc.spmm_weighted_apply(g, w_b, bsrc,
+                                                           bptr, exact)),
+                 plain_ms=cuda_ms(lambda: sc.spmm_weighted_apply_plain(
+                     g, w_b, bsrc, bptr, exact)),
+                 library_ms=_library_ms(
+                     f"{k2['name']}[{d}-hop dx]",
+                     lambda: torch.sparse.mm(at, gl), rdx, rtol,
+                     atol * float(w.abs().max())),
+                 bound_ms=_bound_ms(_k2_bytes(n_t, n_x, n, D, elem),
+                                    2 * n * D))
+            pattern = _csr(fptr, fsrc, torch.ones(n, device=device),
+                           (n_t, n_x))
+            xt = xl.T.contiguous()
+            _add(k5, d, err5, plan=d,
+                 ms=cuda_ms(lambda: sc.sddmm_apply(x, g, fsrc, ftgt, fptr,
+                                                   exact)),
+                 plain_ms=cuda_ms(lambda: sc.sddmm_apply_plain(
+                     x, g, fsrc, ftgt, fptr, exact)),
+                 library_ms=_library_ms(
+                     f"{k5['name']}[{d}-hop dw]",
+                     lambda: torch.sparse.sampled_addmm(
+                         pattern, gl, xt, beta=0.0).values(),
+                     rdw[:n], 1e-5, atol5),
+                 bound_ms=_bound_ms(_k5_bytes(n_x, n_t, n, slots, D, elem),
+                                    2 * n * D))
+            k2["autograd_ms"] += cuda_ms(lambda: torch.autograd.grad(
+                out, (xv, wv), g, retain_graph=True))
+            k5["autograd_ms"] += cuda_ms(lambda: torch.autograd.grad(
+                s, (xv, yv), gs, retain_graph=True))
+        k2["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree of the "
+                           "plan)*max|weight|")
+        k5["tolerance"] = "rtol 1e-5, atol 1e-5*sqrt(D)*max|x|*max|g|"
+        k2["autograd"] = "autograd_ms: the whole SpmmWeightedFunction backward"
+        k5["autograd"] = "autograd_ms: the whole SddmmFunction backward"
+        for rec in (k2, k5):
+            records[rec["name"]] = rec
+            log(f"{rec['name']}: u-hop {rec['per_direction']['u']['ms']:.4f}"
+                f" ms, i-hop {rec['per_direction']['i']['ms']:.4f} ms; "
+                f"autograd {rec['autograd_ms']:.4f} ms; plain "
+                f"{rec['plain_ms']:.4f} ms; library {rec['library_ms']} ms; "
+                f"bound {rec['bound_ms']:.4f} ms; max abs err "
+                f"{rec['max_abs_err']:.3e}")
+    return records
+
+
+def variant_serving_phase(cfg, bundle, params, device):
+    """The edge variants at full width through `Recommender` (the preset
+    unchanged but for the variant; the bundle and weights reused): each
+    encode's launches read just after it, its node states and fused
+    outputs held against the plain path (the "xla" backend for the norms,
+    the plain K5/softmax/K2 for attention) with its propagation in f64;
+    then one bf16 encode with edge attention, held hop by hop. Returns
+    (results, {variant: launches}, {variant: Recommender})."""
+    import torch
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.models.selfgnn import (_interval_propagation,
+                                                _temporal_fusion)
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.serve import Recommender
+
+    hops = cfg.model.graph_num * cfg.model.gnn_layer * 2
+    results, launches, recs = {}, {}, {}
+    for name, variant, want in (
+            ("sym_sqrt", dict(edge_norm="sym_sqrt"), {"wsegsum_f32": hops}),
+            ("mean", dict(edge_norm="mean"), {"wsegsum_f32": hops}),
+            ("attention", dict(edge_attention=True),
+             {"sddmm_f32": hops, "wsegsum_f32": hops})):
+        vcfg = cfg.replace(model=dataclasses.replace(cfg.model, **variant))
+        mc = vcfg.model
+        t0 = time.perf_counter()
+        rec = Recommender(vcfg, bundle, params, device=device)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        sc.reset_launches()
+        fu, fi = rec.encode()
+        torch.cuda.synchronize()
+        launches[name] = dict(sc.LAUNCHES)
+        log(f"{name} encode launches: {launches[name]}")
+        expect_launches(launches[name], f"{name} encode", **want)
+        with f64_propagation():
+            uv64, iv64 = selfgnn._interval_propagation(
+                rec.params, rec.graphs, mc, NUM_USERS, NUM_ITEMS)
+        uv, iv = selfgnn._interval_propagation(rec.params, rec.graphs, mc,
+                                               NUM_USERS, NUM_ITEMS)
+        ru, ri = _temporal_fusion(rec.params, uv64, iv64, mc)
+        torch.cuda.synchronize()
+        prop_tol = (1e-4, 1e-5) if mc.edge_attention else (1e-5, 1e-5)
+        check_close(uv, uv64, *prop_tol, f"{name} user_vec kernel vs plain")
+        check_close(iv, iv64, *prop_tol, f"{name} item_vec kernel vs plain")
+        err_u = check_close(fu, ru, 1e-4, 1e-5,
+                            f"{name} final_user kernel vs plain")
+        err_i = check_close(fi, ri, 1e-4, 1e-5,
+                            f"{name} final_item kernel vs plain")
+        encode_ms = cuda_ms(rec.encode, iters=5, warmup=1)
+        propagation_ms = cuda_ms(
+            lambda: _interval_propagation(rec.params, rec.graphs, mc,
+                                          NUM_USERS, NUM_ITEMS),
+            iters=5, warmup=1)
+        results[name] = {"encode_ms": encode_ms,
+                         "propagation_ms": propagation_ms,
+                         "recommender_setup_s": setup_s,
+                         "max_abs_err_final": max(err_u, err_i),
+                         "launches": {k: v for k, v in launches[name].items()
+                                      if v}}
+        log(f"{name} encode {encode_ms:.3f} ms: propagation "
+            f"{propagation_ms:.3f} ms; kernel vs plain max abs err "
+            f"{max(err_u, err_i):.3e}; Recommender set-up {setup_s:.1f} s")
+        recs[name] = rec
+
+    # bf16 tables with edge attention
+    att = recs["attention"]
+    mc16 = dataclasses.replace(att.cfg.model, spmm_exact=False)
+    rec16 = Recommender(att.cfg.replace(model=mc16), bundle, params,
+                        device=device)
+    sc.reset_launches()
+    fu16, fi16 = rec16.encode()
+    torch.cuda.synchronize()
+    launches["attention_bf16"] = dict(sc.LAUNCHES)
+    log(f"bf16 attention encode launches: {launches['attention_bf16']}")
+    expect_launches(launches["attention_bf16"], "bf16 attention encode",
+                    sddmm_bf16=hops, wsegsum_bf16=hops)
+    uv16, iv16 = _interval_propagation(rec16.params, rec16.graphs, mc16,
+                                       NUM_USERS, NUM_ITEMS)
+    uv_ref, iv_ref = bf16_propagation_reference(
+        rec16.params, rec16.graphs, mc16, NUM_USERS, NUM_ITEMS,
+        attr="attention_propagate")
+    ru16, ri16 = _temporal_fusion(rec16.params, uv_ref.float(),
+                                  iv_ref.float(), mc16)
+    torch.cuda.synchronize()
+    check_close(uv16, uv_ref, 1e-4, 1e-5, "bf16 attention user_vec")
+    check_close(iv16, iv_ref, 1e-4, 1e-5, "bf16 attention item_vec")
+    err_u = check_close(fu16, ru16, 1e-4, 1e-5,
+                        "bf16 attention final_user kernel vs plain")
+    err_i = check_close(fi16, ri16, 1e-4, 1e-5,
+                        "bf16 attention final_item kernel vs plain")
+    fu32, fi32 = att.encodings
+    dev16 = max(max_err(fu16, fu32), max_err(fi16, fi32))
+    results["attention_bf16"] = {
+        "encode_ms": cuda_ms(rec16.encode, iters=5, warmup=1),
+        "max_abs_err_final": max(err_u, err_i),
+        "max_abs_dev_from_f32_encode": dev16,
+        "launches": {k: v for k, v in launches["attention_bf16"].items()
+                     if v}}
+    log(f"bf16 attention encode {results['attention_bf16']['encode_ms']:.3f}"
+        f" ms; max abs deviation from the f32 attention encode {dev16:.3e}")
+    return results, launches, recs
+
+
+def variant_step_phase(cfg, bundle, params, batch, recs, device) -> dict:
+    """One full-width training step (keepRate 1, the batch of the parity
+    step) per variant, the kernel path against the plain path with its
+    propagation in f64 (losses and every gradient at the parity step's
+    tolerances), with the launch counts read around it: edge_norm="mean",
+    edge attention, edge_dropout_keep=0.8 (one mask drawn on the card
+    from one generator state, given to both sides), and edge attention on
+    bf16 tables (losses near the f32 step's). Logs each step's device time
+    and its propagation part."""
+    import torch
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    tc = cfg.train
+    nu, ni = bundle.num_users, bundle.num_items
+    hops = cfg.model.graph_num * cfg.model.gnn_layer * 2
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    out = {}
+    steps = (
+        ("mean", dict(edge_norm="mean"), recs["mean"].graphs,
+         dict(wsegsum_f32=hops, wsegsum_f32_bwd=hops)),
+        ("attention", dict(edge_attention=True), recs["attention"].graphs,
+         dict(sddmm_f32=hops, sddmm_f32_bwd=hops, wsegsum_f32=hops,
+              wsegsum_f32_bwd=3 * hops)),
+        ("dropout", dict(edge_dropout_keep=0.8), recs["attention"].graphs,
+         dict(wsegsum_f32=hops, wsegsum_f32_bwd=hops)),
+        ("attention_bf16", dict(edge_attention=True, spmm_exact=False),
+         recs["attention"].graphs,
+         dict(sddmm_bf16=hops, sddmm_bf16_bwd=hops, wsegsum_bf16=hops,
+              wsegsum_bf16_bwd=3 * hops)))
+    for name, variant, graphs, want in steps:
+        mc = dataclasses.replace(cfg.model, keep_rate=1.0, **variant)
+        kernel = selfgnn.SelfGNN(mc, nu, ni)
+        gen = torch.Generator(device=device).manual_seed(11)
+        state = gen.get_state()
+        kinks = []
+        sc.reset_launches()
+        with kernel_kinks(kinks):
+            got = loss_and_grads(kernel, leaves, graphs, batch, tc, gen)
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        log(f"{name} train step launches: {launches}")
+        expect_launches(launches, f"{name} train step", **want)
+        rec = {"launches_per_step": {k: v for k, v in launches.items()
+                                     if v}}
+        if name == "attention_bf16":
+            f32 = out["attention"]["_losses"]
+            check_close(got[0].reshape(1), f32[0].reshape(1), BF16_LOSS_RTOL,
+                        0.0, "bf16 attention step preLoss vs f32")
+            check_close(got[1].reshape(1), f32[1].reshape(1), BF16_LOSS_RTOL,
+                        0.0, "bf16 attention step sslloss vs f32")
+            check(all(bool(torch.isfinite(g).all())
+                      for g in got[2].values()),
+                  "bf16 attention step gradients finite")
+        else:
+            gen.set_state(state)        # the same edge-dropout mask
+            with f64_propagation(kinks):
+                ref = loss_and_grads(kernel, leaves, graphs, batch, tc, gen)
+            torch.cuda.synchronize()
+            share, worst = check_step(got, ref, f"{name} step")
+            rec.update(grad_check_share=share, grad_check_worst=worst)
+            rec["_losses"] = got[:2]
+
+        def prop():
+            weights = None
+            if mc.edge_dropout_keep < 1.0:
+                gen.set_state(state)
+                weights = selfgnn.edge_dropout(graphs, mc, gen)
+            return selfgnn._interval_propagation(leaves, graphs, mc, nu, ni,
+                                                 weights)
+
+        def step():
+            gen.set_state(state)
+            return loss_and_grads(kernel, leaves, graphs, batch, tc, gen)
+
+        uv, iv = prop()
+        cu, ci = torch.randn_like(uv), torch.randn_like(iv)
+        uk, ik = leaves["reg/u_embed"], leaves["reg/i_embed"]
+        rec["step_ms"] = cuda_ms(step, iters=3, warmup=1)
+        rec["propagation_fwd_ms"] = cuda_ms(prop, iters=3, warmup=1)
+        rec["propagation_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            list(prop()), [uk, ik], [cu, ci]), iters=3, warmup=1) \
+            - rec["propagation_fwd_ms"]
+        log(f"{name} train step {rec['step_ms']:.3f} ms (forward + "
+            f"backward): propagation {rec['propagation_fwd_ms']:.3f} + "
+            f"{rec['propagation_bwd_ms']:.3f} ms")
+        out[name] = rec
+    for rec in out.values():
+        rec.pop("_losses", None)
+    return out
+
+
+def variant_training_phase(cfg, bundle, device) -> dict:
+    """`Trainer.run()` for one epoch with edge attention and its
+    evaluations, launches counted over the run; then a Trainer with
+    edge_norm="sym_sqrt" and edge_dropout_keep=0.8 trains one epoch,
+    checkpoints, and a second Trainer resumes from the checkpoint: the
+    next step on each, from the same batch and dropout state, agrees."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch.models.selfgnn import TrainBatch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.train.trainer import Trainer
+    from sagnn_tpu_torch.utils.profiling import StepTimer
+
+    tc = cfg.train
+    hops = cfg.model.graph_num * cfg.model.gnn_layer * 2
+    steps = -(-tc.trn_num // tc.batch)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        att_cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, edge_attention=True),
+            train=dataclasses.replace(tc, epoch=1, tst_epoch=1,
+                                      save_path="attention"))
+        trainer = Trainer(att_cfg, bundle, ckpt_root=root, device=device)
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        best = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(sc.LAUNCHES)
+        log(f"attention training run launches: {launches}")
+        check(trainer.state["step"] == steps, f"one epoch of {steps} steps")
+        # per step 12 + 12 K5 and 12 + 36 K2; per evaluation (the epoch's
+        # and the final one) 12 of each
+        expect_launches(launches, "attention training run",
+                        sddmm_f32=hops * (steps + 2),
+                        sddmm_f32_bwd=hops * steps,
+                        wsegsum_f32=hops * (steps + 2),
+                        wsegsum_f32_bwd=3 * hops * steps)
+        stats = trainer.step_stats
+        check(all(math.isfinite(s[k]) for s in stats for k in s),
+              "every attention training loss finite")
+        for k, v in best.items():
+            check(math.isfinite(v) and 0.0 <= v <= 1.0, f"metric {k}={v}")
+        times = StepTimer(times=trainer.step_timer.times[1:])
+        out["attention"] = {
+            "run_s": run_s, "steps": steps,
+            "step_ms_mean": times.mean * 1e3,
+            "step_ms_p50": times.percentile(50) * 1e3,
+            "first_preloss": stats[0]["preLoss"],
+            "last_preloss": stats[-1]["preLoss"],
+            "metrics": {k: best[k] for k in ("HR", "NDCG")},
+            "launches_run": {k: v for k, v in launches.items() if v}}
+        log(f"attention training: run {run_s:.2f} s (one epoch of {steps} "
+            f"steps and two evaluations), step {times.mean * 1e3:.2f} ms "
+            f"mean; preLoss {stats[0]['preLoss']:.4f} -> "
+            f"{stats[-1]['preLoss']:.4f}; HR {best['HR']:.4f}")
+
+        sd_cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, edge_norm="sym_sqrt",
+                                      edge_dropout_keep=0.8),
+            train=dataclasses.replace(tc, epoch=1, save_path="dropout"))
+        trainer = Trainer(sd_cfg, bundle, ckpt_root=root, device=device)
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        trainer.train_epoch(verbose=False)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = dict(sc.LAUNCHES)
+        expect_launches(launches, "sym_sqrt + dropout epoch",
+                        wsegsum_f32=hops * steps,
+                        wsegsum_f32_bwd=hops * steps)
+        check(all(math.isfinite(s[k]) for s in trainer.step_stats
+                  for k in s), "every dropout training loss finite")
+        trainer.ckpt.save(trainer.state, trainer.history, trainer.cfg,
+                          rng_state=trainer.capture_rng_state(1))
+        resumed = Trainer(sd_cfg.replace(train=dataclasses.replace(
+            sd_cfg.train, epoch=2, load_model="dropout")), bundle,
+            ckpt_root=root, device=device)
+        check(resumed.restore_checkpoint() == 1
+              and resumed.state["step"] == steps,
+              "dropout run restored at epoch 1")
+
+        def next_batch(tr):
+            ids = tr.sampler.epoch_user_ids(tc.trn_num)
+            return tr.sampler.train_batch(ids[:tc.batch])
+
+        b_run, b_res = next_batch(trainer), next_batch(resumed)
+        for f in dataclasses.fields(TrainBatch):
+            check(np.array_equal(getattr(b_run, f.name),
+                                 getattr(b_res, f.name)),
+                  f"dropout resume draws the same {f.name}")
+        s_run = trainer.train_step(b_run.to(device))
+        sc.reset_launches()
+        s_res = resumed.train_step(b_res.to(device))
+        torch.cuda.synchronize()
+        expect_launches(dict(sc.LAUNCHES), "resumed dropout step",
+                        wsegsum_f32=hops, wsegsum_f32_bwd=hops)
+        for k in s_run:
+            check_close(s_res[k].reshape(1), s_run[k].reshape(1),
+                        RESUME_RTOL, 0.0,
+                        f"resumed dropout step {k} vs uninterrupted")
+        out["sym_sqrt_dropout"] = {
+            "epoch_s": epoch_s, "steps": steps,
+            "launches_epoch": {k: v for k, v in launches.items() if v},
+            "resumed_step_losses": {k: float(v) for k, v in s_res.items()},
+            "uninterrupted_step_losses": {k: float(v)
+                                          for k, v in s_run.items()}}
+        log(f"sym_sqrt + dropout training: epoch of {steps} steps "
+            f"{epoch_s:.2f} s; resumed step losses "
+            f"{out['sym_sqrt_dropout']['resumed_step_losses']}")
+    return out
+
+
 def main() -> None:
-    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
+    drive(torch.device("cuda", 0))
+
+
+def drive(device) -> None:
+    """Every phase on `device` (the card; `main` requires one)."""
+    t_start = time.perf_counter()
+    import torch
     sys.path.insert(0, ROOT)
     from sagnn_tpu_torch.config import PRESETS
     from sagnn_tpu_torch.data.synthetic import synthetic_dataset
@@ -761,7 +1559,6 @@ def main() -> None:
     from sagnn_tpu_torch.serve import Recommender
 
     # 1. device
-    device = torch.device("cuda", 0)
     card = gpu_name_and_power()
     kind = torch.cuda.get_device_name(0)
     log(f"gpu: {card}")
@@ -918,11 +1715,34 @@ def main() -> None:
     phase_s["serving"] = time.perf_counter() - t0
     log(f"phase serving: {phase_s['serving']:.1f} s")
 
+    # 8. serving the edge variants (weighted K2, attention K5 + K2)
+    t0 = time.perf_counter()
+    variants, vlaunches, vrecs = variant_serving_phase(cfg, bundle,
+                                                       rec.params, device)
+    phase_s["variant serving"] = time.perf_counter() - t0
+    log(f"phase variant serving: {phase_s['variant serving']:.1f} s")
+
+    # 9. K2 and K5 against their plain versions, forward and backward, on
+    # the "mean" variant's graphs (its weights, both permutations)
+    t0 = time.perf_counter()
+    records.update(edge_kernel_phase(vrecs["mean"].graphs, device))
+    records.update(edge_backward_phase(vrecs["mean"].graphs, device))
+    phase_s["edge kernels"] = time.perf_counter() - t0
+    log(f"phase edge kernels: {phase_s['edge kernels']:.1f} s")
+
     # 6. one training step, kernel path against the plain path
     t0 = time.perf_counter()
-    step = train_step_phase(cfg, bundle, rec.params, rec.graphs, device)
+    step, batch = train_step_phase(cfg, bundle, rec.params, rec.graphs,
+                                   device)
     phase_s["train step check"] = time.perf_counter() - t0
     log(f"phase train step check: {phase_s['train step check']:.1f} s")
+
+    # 10. the variants' training steps on the same batch
+    t0 = time.perf_counter()
+    vsteps = variant_step_phase(cfg, bundle, rec.params, batch, vrecs,
+                                device)
+    phase_s["variant steps"] = time.perf_counter() - t0
+    log(f"phase variant steps: {phase_s['variant steps']:.1f} s")
 
     # 7. training through the Trainer: one epoch, evaluation, checkpoint,
     # resume
@@ -930,6 +1750,12 @@ def main() -> None:
     training = training_phase(cfg, bundle, device)
     phase_s["training"] = time.perf_counter() - t0
     log(f"phase training: {phase_s['training']:.1f} s")
+
+    # 11. the variants through the Trainer
+    t0 = time.perf_counter()
+    vtraining = variant_training_phase(cfg, bundle, device)
+    phase_s["variant training"] = time.perf_counter() - t0
+    log(f"phase variant training: {phase_s['variant training']:.1f} s")
 
     # `launches`: the count on the path each kernel belongs to, read just
     # after it (the serving encode for the forward kernels, the training
@@ -954,13 +1780,46 @@ def main() -> None:
         launches=step["launches_per_bf16_step"]["segsum_bf16_bwd"],
         launches_per_train_step=step["launches_per_bf16_step"][
             "segsum_bf16_bwd"])
+    # K2 and K5: the serving encodes for the forward kernels (sym_sqrt for
+    # K2, attention for K5, the bf16 attention encode for the bf16 modes),
+    # the attention training run for the f32 backwards, the bf16 attention
+    # step for the bf16 backwards
+    att_run = vtraining["attention"]["launches_run"]
+    per_step = {k: v["launches_per_step"] for k, v in vsteps.items()}
+
+    def step_counts(name):
+        return {k: v[name] for k, v in per_step.items() if name in v}
+
+    for name, launches, per_encode in (
+            ("wsegsum_f32", vlaunches["sym_sqrt"]["wsegsum_f32"],
+             {v: vlaunches[v]["wsegsum_f32"]
+              for v in ("sym_sqrt", "mean", "attention")}),
+            ("wsegsum_bf16", vlaunches["attention_bf16"]["wsegsum_bf16"],
+             {"attention_bf16": vlaunches["attention_bf16"]["wsegsum_bf16"]}),
+            ("sddmm_f32", vlaunches["attention"]["sddmm_f32"],
+             {"attention": vlaunches["attention"]["sddmm_f32"]}),
+            ("sddmm_bf16", vlaunches["attention_bf16"]["sddmm_bf16"],
+             {"attention_bf16": vlaunches["attention_bf16"]["sddmm_bf16"]}),
+            ("wsegsum_f32_bwd", att_run["wsegsum_f32_bwd"], None),
+            ("sddmm_f32_bwd", att_run["sddmm_f32_bwd"], None),
+            ("wsegsum_bf16_bwd",
+             per_step["attention_bf16"]["wsegsum_bf16_bwd"], None),
+            ("sddmm_bf16_bwd",
+             per_step["attention_bf16"]["sddmm_bf16_bwd"], None)):
+        records[name].update(launches=launches,
+                             launches_per_train_step=step_counts(name))
+        if per_encode is not None:
+            records[name]["launches_per_encode"] = per_encode
+        if name in att_run:
+            records[name]["launches_attention_training_run"] = att_run[name]
     kernels = []
     for r in records.values():
         r["kernel_ms"] = r["ms"]
         r["ok"] = True
         r["timed"] = ("ms/plain_ms/library_ms/bound_ms: one user-target "
                       "plus one item-target hop on interval 0 (the "
-                      "backward: the dx of each)")
+                      "backward: K1 and K2 the dx of each, K5 the dw)")
+        check(r["launches"] > 0, f"{r['name']}: launched on its path")
         kernels.append(r)
     main_path = {
         "card": card, "setup_s": t_setup, "bundle_s": t_bundle,
@@ -971,13 +1830,14 @@ def main() -> None:
         "recommend_ms": recommend_ms, "recommend_users": len(users),
         "evaluate_s": evaluate_s, "evaluate_users": min(
             EVAL_USERS, len(bundle.tst_usrs)), "metrics": metrics,
-        "interval_edges": edges}
+        "interval_edges": edges, "variants": variants}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()
                 if k not in ("steps", "launches_run")},
              "launches_training_run": {k: v for k, v in run.items() if v},
-             "step_check": step, "phase_s": phase_s,
+             "step_check": step, "variant_steps": vsteps,
+             "variant_training": vtraining, "phase_s": phase_s,
              "total_s": time.perf_counter() - t_start}
     log(json.dumps({"train": train}))
     log(card)   # nvidia-smi's name,power.limit line

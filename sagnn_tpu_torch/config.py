@@ -3,7 +3,7 @@
 The dataclasses and presets are field-for-field the JAX package's (a test
 holds them equal). `ModelConfig.spmm_backend` selects the propagation
 path: "xla" runs the plain PyTorch gather + segment-sum
-(`ops/segment.py`), "pallas" runs the hand-written CUDA segment-sum
+(`ops/segment.py`), "pallas" runs the hand-written CUDA kernels
 (`ops/spmm_cuda.py`). The names are kept so one flag set drives both
 packages.
 
@@ -58,15 +58,15 @@ class ModelConfig:
     # no code path in the port.
     spmm_fold_gather: bool = False
     # Q2 variant: degree-normalized propagation (DataHandler.py:50-59).
-    # None = parity (unweighted). Not ported yet.
+    # None = parity (unweighted); the weighted segment-sum (K2) otherwise.
     edge_norm: Optional[str] = None  # None | "sym_sqrt" | "mean"
     # Q1 variant: functional edge dropout (model.py:93-102). 1.0 = parity
-    # (off). Training only; not ported yet.
+    # (off). Training only; weights every hop through K2.
     edge_dropout_keep: float = 1.0
     # sequence-parallel per-token attention (multi-device). Not ported yet.
     seq_parallel: bool = False
-    # GAT-style edge-attention propagation (SDDMM + weighted SpMM). Not
-    # ported yet.
+    # GAT-style edge-attention propagation (SDDMM K5 + weighted SpMM K2;
+    # "pallas" backend only).
     edge_attention: bool = False
     # recompute propagation activations in the backward pass (training
     # only; the port's training refuses it so far)

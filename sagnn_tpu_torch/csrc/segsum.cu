@@ -1,10 +1,20 @@
-// Segment-sum SpMM over target-sorted CSR rows, for Hopper (sm_90a).
+// Segment-sum SpMM over target-sorted CSR rows, for Hopper (sm_90a),
+// unweighted (K1) and weighted (K2).
 //
 // Replaces sagnn_tpu/ops/spmm_pallas.py::_segsum_kernel (launched by
-// _segsum_pallas) in its unweighted forward mode, exact (f32 table) and
-// bf16 (bf16 table, f32 accumulation):
+// _segsum_pallas) in its unweighted mode (K1) and its weighted mode (K2,
+// `weighted=True`, spmm_pallas.py:241-242, 258-259: the weights ride the
+// transposed one-hot), each with an exact f32 table or a bf16 table with
+// f32 accumulation:
 //
-//     out[t, :] = sum_{e in [ptr[t], ptr[t+1])} x[src[e], :]      (f32)
+//     out[t, :] = sum_{e in [ptr[t], ptr[t+1])} w[e] * x[src[e], :]   (f32)
+//
+// with w = 1 in K1. K2 is the forward of the weighted propagation
+// (edge_norm, edge_dropout_keep, edge attention) and the backward of both
+// it and the SDDMM (csrc/sddmm.cu): dx of a weighted hop is K2 on the
+// transpose plan, the SDDMM's dy and dx are K2 weighted by its cotangent.
+// The weights are f32 in both table modes and lie in the plan's edge
+// order (w[e] belongs to the edge whose source id is src[e]).
 //
 // The TPU kernel sums with a one-hot matmul per chunk of edges only to
 // avoid the TPU's serialized scatter. Here the edges are already sorted by
@@ -16,20 +26,24 @@
 //
 // What bounds it: memory. Per hop the kernel reads E gathered rows of
 // D values (E*D*4 bytes in f32, half that in bf16), E source ids, the row
-// pointers, and writes num_tgt*D*4 bytes. It does one add per gathered
-// value, far below the card's arithmetic rate. At gowalla scale the source
-// table is 10-13 MB in f32 and fits in the 50 MB L2, so repeated row
-// gathers can be served from L2; the unique bytes (table once, ids,
-// pointers, output) are the floor.
+// pointers, in K2 also E f32 weights (4 bytes per edge more), and writes
+// num_tgt*D*4 bytes. It does one add (K2: one multiply-add) per gathered
+// value, far below the card's arithmetic rate. At gowalla scale the
+// source table is 10-13 MB in f32 and fits in the 50 MB L2, so repeated
+// row gathers can be served from L2; the unique bytes (table once, ids,
+// weights, pointers, output) are the floor.
 //
 // What the design does about it:
 //   * each lane owns two adjacent columns (float2 / bf16x2), so at D = 64
 //     one warp reads a whole 256-byte f32 row (128 bytes in bf16) in one
 //     coalesced load;
-//   * the warp loads 32 source ids at once and broadcasts them with
-//     __shfl_sync, and the edge loop is unrolled by kUnroll so that many
-//     independent row loads are in flight before the adds consume them,
-//     into kUnroll independent sums (no serial chain of adds);
+//   * the warp loads 32 source ids (and in K2 their 32 weights) at once
+//     and broadcasts them with __shfl_sync, and the edge loop is unrolled
+//     by kUnroll so that many independent row loads are in flight before
+//     the adds consume them, into kUnroll independent sums (no serial
+//     chain of adds);
+//   * K2 is a template flag of the same kernel, so K1 compiles to the
+//     code it had and a later edge-balanced split of long rows fixes both;
 //   * offsets are 64-bit ((int64_t)src[e] * d).
 // Degree skew (Zipf item popularity) makes some item rows thousands of
 // edges long, walked serially by one warp; an edge-balanced split is left
@@ -57,11 +71,12 @@ __device__ __forceinline__ float2 load_pair(
 }
 
 // One warp per target row; lane `lane` owns column pairs lane, lane+32, ...
-template <typename T>
+// kWeighted: each gathered row is scaled by its edge's f32 weight w[e].
+template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ src,
-                   const int* __restrict__ ptr, float* __restrict__ out,
-                   int num_tgt, int d) {
+segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const int* __restrict__ src, const int* __restrict__ ptr,
+                   float* __restrict__ out, int num_tgt, int d) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= num_tgt) return;  // whole warp leaves together
@@ -82,19 +97,29 @@ segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ src,
     for (int base = beg; base < end; base += 32) {
       const int n = min(32, end - base);  // warp-uniform
       const int my_src = lane < n ? src[base + lane] : 0;
+      const float my_w = kWeighted && lane < n ? w[base + lane] : 0.f;
       int j = 0;
       for (; j + kUnroll <= n; j += kUnroll) {
         float2 v[kUnroll];
+        float wt[kUnroll];  // read only in K2
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int s = __shfl_sync(kFullMask, my_src, j + u);
+          if constexpr (kWeighted) {
+            wt[u] = __shfl_sync(kFullMask, my_w, j + u);
+          }
           v[u] = active ? load_pair(x + (int64_t)s * d, c)
                         : make_float2(0.f, 0.f);
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          acc[u].x += v[u].x;
-          acc[u].y += v[u].y;
+          if constexpr (kWeighted) {
+            acc[u].x = fmaf(wt[u], v[u].x, acc[u].x);
+            acc[u].y = fmaf(wt[u], v[u].y, acc[u].y);
+          } else {
+            acc[u].x += v[u].x;
+            acc[u].y += v[u].y;
+          }
         }
       }
       // the tail (< kUnroll edges): edge j + u goes to sum u, with a
@@ -103,10 +128,17 @@ segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ src,
       for (int u = 0; u < kUnroll - 1; ++u) {
         if (j + u < n) {  // warp-uniform
           const int s = __shfl_sync(kFullMask, my_src, j + u);
+          float wt = 1.f;
+          if constexpr (kWeighted) wt = __shfl_sync(kFullMask, my_w, j + u);
           if (active) {
             const float2 v = load_pair(x + (int64_t)s * d, c);
-            acc[u].x += v.x;
-            acc[u].y += v.y;
+            if constexpr (kWeighted) {
+              acc[u].x = fmaf(wt, v.x, acc[u].x);
+              acc[u].y = fmaf(wt, v.y, acc[u].y);
+            } else {
+              acc[u].x += v.x;
+              acc[u].y += v.y;
+            }
           }
         }
       }
@@ -123,17 +155,18 @@ segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ src,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* src, const void* ptr, void* out,
-           int num_tgt, int d, int device, void* stream) {
+template <typename T, bool kWeighted>
+int launch(const void* x, const void* w, const void* src, const void* ptr,
+           void* out, int num_tgt, int d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (num_tgt <= 0) return (int)cudaSuccess;
   const dim3 grid((num_tgt + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  segsum_rows_kernel<T><<<grid, kWarpsPerBlock * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const int*>(src),
-      static_cast<const int*>(ptr), static_cast<float*>(out), num_tgt, d);
+  segsum_rows_kernel<T, kWeighted><<<grid, kWarpsPerBlock * 32, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const int*>(src), static_cast<const int*>(ptr),
+      static_cast<float*>(out), num_tgt, d);
   return (int)cudaGetLastError();
 }
 
@@ -147,15 +180,32 @@ extern "C" {
 int sagnn_segsum_f32(const void* x, const void* src, const void* ptr,
                      void* out, int num_tgt, int d, int device,
                      void* stream) {
-  return launch<float>(x, src, ptr, out, num_tgt, d, device, stream);
+  return launch<float, false>(x, nullptr, src, ptr, out, num_tgt, d, device,
+                             stream);
 }
 
 // The same with x: [N_src, d] bf16, accumulated in f32.
 int sagnn_segsum_bf16(const void* x, const void* src, const void* ptr,
                       void* out, int num_tgt, int d, int device,
                       void* stream) {
-  return launch<__nv_bfloat16>(x, src, ptr, out, num_tgt, d, device,
-                               stream);
+  return launch<__nv_bfloat16, false>(x, nullptr, src, ptr, out, num_tgt, d,
+                                     device, stream);
+}
+
+// K2: the same with per-edge weights w: [len(src)] f32 in the plan's edge
+// order, out[t] = sum_e w[e] * x[src[e]].
+int sagnn_wsegsum_f32(const void* x, const void* w, const void* src,
+                      const void* ptr, void* out, int num_tgt, int d,
+                      int device, void* stream) {
+  return launch<float, true>(x, w, src, ptr, out, num_tgt, d, device, stream);
+}
+
+// K2 with x: [N_src, d] bf16 (the weights stay f32), accumulated in f32.
+int sagnn_wsegsum_bf16(const void* x, const void* w, const void* src,
+                       const void* ptr, void* out, int num_tgt, int d,
+                       int device, void* stream) {
+  return launch<__nv_bfloat16, true>(x, w, src, ptr, out, num_tgt, d, device,
+                                     stream);
 }
 
 const char* sagnn_error_string(int code) {

@@ -1,5 +1,8 @@
-"""Interval graphs as padded, target-sorted COO; the port's copy of
-`sagnn_tpu/data/graph.py` (the parity subset: no edge weights yet).
+"""Interval graphs as padded, target-sorted COO, their edge weights and
+the permutation between the two directions' edge orders; the port's copy
+of `sagnn_tpu/data/graph.py` (without `edge_weights_canonical`, which
+exists for the TPU's chunk layout: the port keeps each direction's
+weights in that direction's own COO order).
 
 All `graph_num` interval graphs are padded to ONE common edge count `E` (a
 multiple of `pad_multiple`), giving `[g, E]` int32 index arrays; the JAX
@@ -11,7 +14,10 @@ Conventions (as in the JAX package):
     CSR row-major order the reference's `segment_sum` relies on (Q9).
     Padding edges come last with `tgt = num_targets` (a dump row) and
     `src = 0`, so sortedness holds.
-  * Propagation is unweighted (Q1/Q2): no edge values are stored.
+  * The parity path is unweighted (Q1/Q2): the COO stores no edge values.
+    Degree-normalised weights (`edge_weights`) and the cross-direction
+    permutation (`direction_permutation`) serve the non-parity variants
+    (`edge_norm`, `edge_dropout_keep`, `edge_attention`).
   * An empty interval becomes all padding.
 """
 
@@ -116,6 +122,75 @@ def compile_interval_graphs(
         i_tgt=np.stack(i_tgt),
         edge_counts=counts,
     )
+
+
+def edge_weights(g: IntervalGraphs, sub_mats: Sequence[sp.spmatrix],
+                 norm: str = "sym_sqrt") -> np.ndarray:
+    """[2, g, E] float32 edge weights for the non-parity variants:
+    weights[0] aligned with u_src/u_tgt, weights[1] with i_src/i_tgt; pad
+    slots hold 0.
+
+    norms:
+      * "sym_sqrt": what `transToLsts(norm=True)` computes before the int32
+        truncation destroys it (DataHandler.py:53-59),
+        w = 1/(sqrt(row_deg)+eps) * 1/(sqrt(col_deg)+eps); the same value
+        for both directions of an edge.
+      * "mean": 1/target degree (GraphSAGE-mean). Direction-dependent: the
+        user-target hop's weight is 1/user_deg, the item-target hop's
+        1/item_deg.
+    """
+    if norm not in ("sym_sqrt", "mean"):
+        raise ValueError(norm)
+    E = g.edges_padded
+    out = np.zeros((2, g.graph_num, E), dtype=np.float32)
+    for k, m in enumerate(sub_mats):
+        c = sp.coo_matrix(m)
+        binary = sp.coo_matrix((np.ones(c.nnz), (c.row, c.col)),
+                               shape=m.shape)
+        row_deg = np.asarray(binary.sum(axis=1)).ravel()
+        col_deg = np.asarray(binary.sum(axis=0)).ravel()
+        if norm == "sym_sqrt":
+            rd = 1.0 / (np.sqrt(row_deg + 1e-8) + 1e-8)
+            cd = 1.0 / (np.sqrt(col_deg + 1e-8) + 1e-8)
+            w_u = w_i = rd[c.row] * cd[c.col]
+        else:
+            w_u = 1.0 / np.maximum(row_deg, 1.0)[c.row]
+            w_i = 1.0 / np.maximum(col_deg, 1.0)[c.col]
+        order = np.argsort(c.row.astype(np.int32), kind="stable")
+        out[0, k, : c.nnz] = w_u[order]
+        order = np.argsort(c.col.astype(np.int32), kind="stable")
+        out[1, k, : c.nnz] = w_i[order]
+    return out
+
+
+def direction_permutation(g: IntervalGraphs,
+                          sub_mats: Sequence[sp.spmatrix]) -> np.ndarray:
+    """[g, E] int32: for each i-direction edge slot, the u-direction slot of
+    the same (user, item) edge; pad slots map to themselves. So a per-edge
+    array in u-order becomes i-order as `a_u[perm]`.
+
+    Both directions come from one COO through stable argsorts (by row for
+    u, by column for i), so composing the two orders gives the exact
+    correspondence."""
+    E = g.edges_padded
+    out = np.tile(np.arange(E, dtype=np.int32), (g.graph_num, 1))
+    for k, m in enumerate(sub_mats):
+        c = sp.coo_matrix(m)
+        order_u = np.argsort(c.row.astype(np.int32), kind="stable")
+        order_i = np.argsort(c.col.astype(np.int32), kind="stable")
+        inv_u = np.empty(c.nnz, np.int32)
+        inv_u[order_u] = np.arange(c.nnz, dtype=np.int32)
+        out[k, : c.nnz] = inv_u[order_i]
+    return out
+
+
+def inverse_permutation(perm: np.ndarray) -> np.ndarray:
+    """[g, E] int32 inverse of each row of `perm` (for
+    `direction_permutation`: each u-direction slot's i-direction slot)."""
+    inv = np.empty_like(perm)
+    rows = np.arange(perm.shape[0])[:, None]
+    inv[rows, perm] = np.arange(perm.shape[1], dtype=perm.dtype)[None, :]
+    return inv
 
 
 def build_user_item_csr(sequences: List[List[int]], num_users: int,

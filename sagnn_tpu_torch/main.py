@@ -61,18 +61,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    "(reference --uid debug mode, model.py:460-461)")
     p.add_argument("--spmm_backend", choices=["xla", "pallas", "ring"],
                    help="propagation: xla = plain PyTorch gather + "
-                        "index_add_, pallas = the CUDA segment-sum kernel "
-                        "(its plain version on the CPU); ring is not "
-                        "ported yet")
+                        "index_add_, pallas = the CUDA kernels (their "
+                        "plain versions on the CPU); ring is not ported "
+                        "yet")
     p.add_argument("--spmm_chunk_size", type=int,
                    help="accepted for the JAX package's flag set; the "
                         "port's CSR plan has no chunks")
     p.add_argument("--spmm_fold_gather", action="store_true", default=None,
                    help="accepted; changes no value in the port")
     p.add_argument("--spmm_src_shard_rows", type=int)
-    p.add_argument("--edge_norm", choices=["sym_sqrt", "mean"])
-    p.add_argument("--edge_dropout_keep", type=float)
-    p.add_argument("--edge_attention", action="store_true", default=None)
+    p.add_argument("--edge_norm", choices=["sym_sqrt", "mean"],
+                   help="degree-normalised propagation (weighted "
+                        "segment-sum)")
+    p.add_argument("--edge_dropout_keep", type=float,
+                   help="functional edge dropout in training: keep rate")
+    p.add_argument("--edge_attention", action="store_true", default=None,
+                   help="edge-attention propagation (SDDMM, edge softmax, "
+                        "weighted segment-sum; pallas backend)")
     p.add_argument("--per_token_seq_attention", action="store_true",
                    default=None)
     p.add_argument("--seq_parallel", action="store_true", default=None)

@@ -10,7 +10,10 @@ paths ("reg/u_embed", "free/seq_mhsa/0/wq", ...), so a JAX pytree, an
   free/* — LSTM, the MHSA kernels/biases, layer norms, meta biases.
 
 Quirks kept (PARITY.md): Q1/Q2 unweighted propagation, Q3 pooled sequence
-branch, Q4 shared user/item LSTM, Q5 exp-attention.
+branch, Q4 shared user/item LSTM, Q5 exp-attention. The opt-in variants of
+Q1/Q2 are carried too: degree-normalised edge weights (`edge_norm`),
+functional edge dropout in training (`edge_dropout_keep`) and GAT-style
+edge attention (`edge_attention`).
 
 Precision: the encode runs in f32 throughout; the entry points turn TF32
 off on the card (`device.resolve_device`).
@@ -26,14 +29,17 @@ import torch
 import torch.nn.functional as F
 
 from sagnn_tpu_torch.config import ModelConfig
-from sagnn_tpu_torch.data.graph import IntervalGraphs
+from sagnn_tpu_torch.data.graph import (IntervalGraphs, direction_permutation,
+                                        edge_weights, inverse_permutation)
 from sagnn_tpu_torch.models.layers import l2_sum, leaky_relu, tf_glorot_uniform
 from sagnn_tpu_torch.ops.attention import (layer_norm,
                                            multi_head_self_attention)
 from sagnn_tpu_torch.ops.chunking import auto_chunk_rows, scatter_local_mask
 from sagnn_tpu_torch.ops.lstm import lstm_scan
-from sagnn_tpu_torch.ops.segment import propagate
-from sagnn_tpu_torch.ops.spmm_cuda import build_stacked_plans, spmm
+from sagnn_tpu_torch.ops.edge_attention import attention_propagate
+from sagnn_tpu_torch.ops.segment import edge_dropout_weights, propagate
+from sagnn_tpu_torch.ops.spmm_cuda import (build_stacked_plans, spmm,
+                                           spmm_weighted)
 
 Params = Dict[str, torch.Tensor]
 
@@ -142,22 +148,52 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, num_users: int,
     return out
 
 
-def graphs_to_device(gb: IntervalGraphs, device: torch.device | str
-                     ) -> Dict:
+def graphs_to_device(gb: IntervalGraphs, device: torch.device | str,
+                     cfg: Optional[ModelConfig] = None,
+                     sub_mats=None) -> Dict:
     """The padded COO blocks (the "xla" backend's input) and the CSR row
     pointers over them (the "pallas" backend's, with the same source
-    ids), as int32 tensors on `device`."""
+    ids), as int32 tensors on `device`.
+
+    With a `cfg` whose variant needs them, from the interval matrices
+    `sub_mats` the blocks were compiled from (the JAX Trainer's
+    attachments, trainer.py:155-233):
+      * "edge_weights" [2, g, E] f32 (cfg.edge_norm): each direction's
+        weights in its own COO order (`data.graph.edge_weights`);
+      * "i_from_u" and "u_from_i" [g, E] int32 (any weighted variant or
+        edge attention): i_from_u[k, j] is the u-direction slot of the
+        i-direction slot j (`data.graph.direction_permutation`), u_from_i
+        its inverse. A per-edge array in one direction's order takes the
+        other's as `a.index_select(0, perm)`: the backward of a weighted
+        hop gathers its weights into the transpose plan's order."""
     plans = build_stacked_plans(gb.u_src, gb.u_tgt, gb.i_src, gb.i_tgt,
                                 gb.num_users, gb.num_items)
 
     def t(a):
         return torch.from_numpy(a).to(device)
 
-    return {
+    out = {
         "u_src": t(gb.u_src), "u_tgt": t(gb.u_tgt),
         "i_src": t(gb.i_src), "i_tgt": t(gb.i_tgt),
         "u_ptr": t(plans["u_ptr"]), "i_ptr": t(plans["i_ptr"]),
     }
+    if cfg is None or not (_weighted(cfg) or cfg.edge_attention):
+        return out
+    if sub_mats is None:
+        raise ValueError("edge weights and edge attention need the interval "
+                         "matrices (sub_mats)")
+    i_from_u = direction_permutation(gb, sub_mats)
+    out["i_from_u"] = t(i_from_u)
+    out["u_from_i"] = t(inverse_permutation(i_from_u))
+    if cfg.edge_norm is not None:
+        out["edge_weights"] = t(edge_weights(gb, sub_mats, cfg.edge_norm))
+    return out
+
+
+def _weighted(cfg: ModelConfig) -> bool:
+    """Whether training propagates with per-edge weights (serving too when
+    edge_norm is set; edge dropout alone weights training only)."""
+    return cfg.edge_norm is not None or cfg.edge_dropout_keep < 1.0
 
 
 def topk_descending(scores: torch.Tensor, k: int
@@ -203,39 +239,84 @@ def chunked_topk(queries: torch.Tensor, item_table: torch.Tensor,
 
 
 def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
-                          num_users: int, num_items: int
+                          num_users: int, num_items: int,
+                          edge_weights: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LightGCN-style propagation per interval (model.py:118-129); JAX
-    `_interval_propagation` for the "xla" and unweighted "pallas" backends.
-    Returns user_vec [g, U, D], item_vec [g, I, D], the layer-summed
-    per-interval node states. Both backends carry gradients: "xla" through
-    autograd of the gather + index_add_, "pallas" through `spmm`, whose
-    backward is the kernel on the other direction's plan of the same
-    interval (A_i = A_uᵀ, as JAX pairs fu/fi, selfgnn.py:503-506)."""
-    def hop(x, side, k, num_tgt):
-        """One hop of interval k into the `side` ("u" or "i") targets."""
-        if cfg.spmm_backend == "pallas":
-            other = "i" if side == "u" else "u"
-            return leaky_relu(spmm(x, graphs[f"{side}_src"][k],
-                                   graphs[f"{side}_ptr"][k],
-                                   graphs[f"{other}_src"][k],
-                                   graphs[f"{other}_ptr"][k],
-                                   cfg.spmm_exact), cfg.leaky)
-        return propagate(x, graphs[f"{side}_src"][k],
-                         graphs[f"{side}_tgt"][k], num_tgt, cfg.leaky)
+    `_interval_propagation` for the "xla" and "pallas" backends, unweighted,
+    weighted and with edge attention. Returns user_vec [g, U, D], item_vec
+    [g, I, D], the layer-summed per-interval node states.
+
+    Both backends carry gradients: "xla" through autograd of the gather +
+    index_add_, "pallas" through the kernels' autograd Functions, whose
+    backward runs on the other direction's plan of the same interval
+    (A_i = A_uᵀ, as JAX pairs fu/fi, selfgnn.py:503-506).
+
+    edge_weights: optional (w_u, w_i), [g, E] each, every direction's
+    per-edge weights in its own COO order: the user-target hops take w_u,
+    the item-target hops w_i. Default: graphs["edge_weights"] when
+    cfg.edge_norm is set, else unweighted. `SelfGNN.encode` passes the
+    edge-dropout weights here in training; the tests pass JAX's mask.
+
+    cfg.edge_attention ("pallas" only and without edge weights, as
+    `check_ported` holds it): each hop scores its edges from the current
+    layer's embeddings (K5), normalises the scores per target (edge
+    softmax) and sums with them (K2), in its own direction's edge order."""
+    pallas = cfg.spmm_backend == "pallas"
+    if edge_weights is None and cfg.edge_norm is not None:
+        edge_weights = (graphs["edge_weights"][0], graphs["edge_weights"][1])
+
+    def hop(x, x_tgt, side, k, num_tgt):
+        """One hop of interval k into the `side` ("u" or "i") targets, from
+        the other side's x; x_tgt is the target side's current embedding
+        (read by edge attention only)."""
+        other = "i" if side == "u" else "u"
+        src, tgt = graphs[f"{side}_src"][k], graphs[f"{side}_tgt"][k]
+        w = None if edge_weights is None else \
+            edge_weights[0 if side == "u" else 1][k]
+        if not pallas:
+            return propagate(x, src, tgt, num_tgt, cfg.leaky, w)
+        plans = (graphs[f"{side}_ptr"][k], graphs[f"{other}_src"][k],
+                 graphs[f"{other}_ptr"][k])
+        if cfg.edge_attention:
+            agg = attention_propagate(x, x_tgt, src, tgt, *plans,
+                                      graphs[f"{other}_from_{side}"][k],
+                                      exact=cfg.spmm_exact)
+        elif w is not None:
+            agg = spmm_weighted(x, w, src, tgt, *plans,
+                                graphs[f"{other}_from_{side}"][k],
+                                cfg.spmm_exact)
+        else:
+            agg = spmm(x, src, *plans, cfg.spmm_exact)
+        return leaky_relu(agg, cfg.leaky)
 
     users, items = [], []
     for k in range(cfg.graph_num):
         embs0 = [params["reg/u_embed"][k]]
         embs1 = [params["reg/i_embed"][k]]
         for _ in range(cfg.gnn_layer):
-            a0 = hop(embs1[-1], "u", k, num_users)
-            a1 = hop(embs0[-1], "i", k, num_items)
+            a0 = hop(embs1[-1], embs0[-1], "u", k, num_users)
+            a1 = hop(embs0[-1], embs1[-1], "i", k, num_items)
             embs0.append(a0 + embs0[-1])
             embs1.append(a1 + embs1[-1])
         users.append(sum(embs0[1:], embs0[0]))  # tf.add_n over all layers
         items.append(sum(embs1[1:], embs1[0]))
     return torch.stack(users), torch.stack(items)
+
+
+def edge_dropout(graphs: Dict, cfg: ModelConfig, gen: torch.Generator
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One training step's edge-dropout weights (w_u, w_i), [g, E] each in
+    its direction's own order: a Bernoulli(keep) mask scaled by 1/keep,
+    drawn for the user-target direction and then, independently, for the
+    item-target one (the reference's two edgeDropout calls,
+    model.py:121-122), times the edge_norm weights when set."""
+    shape = tuple(graphs["u_src"].shape)
+    base = graphs.get("edge_weights")
+    return tuple(edge_dropout_weights(gen, shape, cfg.edge_dropout_keep,
+                                      None if base is None else base[d])
+                 for d in range(2))
 
 
 def _temporal_fusion(params: Params, user_vec: torch.Tensor,
@@ -371,10 +452,6 @@ _NOT_PORTED = (
     ("spmm_backend", lambda c: c.spmm_backend not in ("xla", "pallas"),
      "only 'xla' and 'pallas' are ported ('ring' is multi-device): ROADMAP "
      "Queue A6"),
-    ("edge_norm", lambda c: c.edge_norm is not None,
-     "weighted propagation (K2) is not ported yet: ROADMAP Queue A5"),
-    ("edge_attention", lambda c: c.edge_attention,
-     "edge attention (K2 + SDDMM, K5) is not ported yet: ROADMAP Queue A5"),
     ("per_token_seq_attention", lambda c: c.per_token_seq_attention,
      "per-token sequence attention is not ported yet: ROADMAP Queue A5"),
     ("seq_parallel", lambda c: c.seq_parallel,
@@ -386,9 +463,6 @@ _NOT_PORTED = (
 )
 # options that change only training
 _NOT_PORTED_IN_TRAINING = (
-    ("edge_dropout_keep", lambda c: c.edge_dropout_keep < 1.0,
-     "edge dropout needs the weighted segment-sum (K2), not ported yet: "
-     "ROADMAP Queue A5"),
     ("fusion_chunk_rows", lambda c: c.fusion_chunk_rows > 0,
      "the chunked fusion stack's per-block checkpointing in training is "
      "not ported yet: ROADMAP Queue A5"),
@@ -400,12 +474,21 @@ _NOT_PORTED_IN_TRAINING = (
 
 def check_ported(cfg: ModelConfig, train: bool = False) -> None:
     """Raise NotImplementedError for an option the port does not carry
-    (for serving, or with train=True for training)."""
+    (for serving, or with train=True for training), and ValueError for a
+    combination the JAX package refuses too (trainer.py:177-183)."""
     checks = _NOT_PORTED + (_NOT_PORTED_IN_TRAINING if train else ())
     for name, bad, why in checks:
         if bad(cfg):
             raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: "
                                       f"{why}")
+    if cfg.edge_attention:
+        if cfg.spmm_backend != "pallas":
+            raise ValueError("edge_attention requires spmm_backend='pallas' "
+                             "(the SDDMM and weighted segment-sum kernels)")
+        if _weighted(cfg):
+            raise ValueError("edge_attention is exclusive with edge_norm and "
+                             "edge_dropout_keep < 1 (attention is the edge "
+                             "weighting)")
 
 
 class SelfGNN:
@@ -433,8 +516,10 @@ class SelfGNN:
         item_vec [g,I,D]).
 
         train=False: inference under no_grad, dropout off. train=True: with
-        autograd; with keep_rate < 1 the LSTM output dropout draws from
-        `gen` (a generator on the params' device; None = no dropout)."""
+        autograd; `gen` (a generator on the params' device; None = no
+        dropout) draws the edge-dropout masks when edge_dropout_keep < 1,
+        then the LSTM output dropout masks when keep_rate < 1. Both come
+        from the one generator that checkpoints carry."""
         if not train:
             with torch.no_grad():
                 return self._encode(params, graphs, None)
@@ -442,8 +527,12 @@ class SelfGNN:
         return self._encode(params, graphs, gen)
 
     def _encode(self, params, graphs, gen):
+        weights = None
+        if gen is not None and self.cfg.edge_dropout_keep < 1.0:
+            weights = edge_dropout(graphs, self.cfg, gen)
         user_vec, item_vec = _interval_propagation(
-            params, graphs, self.cfg, self.num_users, self.num_items)
+            params, graphs, self.cfg, self.num_users, self.num_items,
+            weights)
         final_user, final_item = _temporal_fusion(params, user_vec, item_vec,
                                                   self.cfg, gen)
         return final_user, final_item, user_vec, item_vec

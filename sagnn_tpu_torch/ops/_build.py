@@ -3,10 +3,11 @@ kernels are compiled by JAX itself).
 
 The sources under `sagnn_tpu_torch/csrc/` are compiled by `nvcc` into one
 shared library with a plain C interface and loaded with `ctypes` (seconds
-to build, where a PyTorch C++ extension takes minutes). The library goes
-into `sagnn_tpu_torch/build/`, named by a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one is reused. A failed
-build raises.
+to build, where a PyTorch C++ extension takes minutes). Each source is
+compiled to an object by its own `nvcc`, all started together, and the
+objects are linked once. The library goes into `sagnn_tpu_torch/build/`,
+named by a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one is reused. A failed build raises.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -70,15 +71,41 @@ def build() -> BuildInfo:
                 log = f.read()
         return BuildInfo(path, 0.0, log)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    tag = f"{path}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        if not src.endswith(".cu"):
+            continue
+        obj = f"{tag}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        objs.append(obj)
+    log = ""
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    tmp = f"{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)  # atomic: concurrent builders never see half a file
@@ -90,11 +117,22 @@ def load_library() -> ctypes.CDLL:
     """The built library with every C entry point's signature declared."""
     lib = ctypes.CDLL(build().path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("sagnn_segsum_f32", "sagnn_segsum_bf16"):
-        fn = getattr(lib, name)
+    signatures = {
         # x, src, ptr, out, num_tgt, d, device, stream
-        fn.argtypes = [p, p, p, p, i, i, i, p]
-        fn.restype = i
+        ("sagnn_segsum_f32", "sagnn_segsum_bf16"):
+            [p, p, p, p, i, i, i, p],
+        # x, w, src, ptr, out, num_tgt, d, device, stream
+        ("sagnn_wsegsum_f32", "sagnn_wsegsum_bf16"):
+            [p, p, p, p, p, i, i, i, p],
+        # x, y, src, tgt, ptr, out, num_tgt, num_slots, d, device, stream
+        ("sagnn_sddmm_f32", "sagnn_sddmm_bf16"):
+            [p, p, p, p, p, p, i, i, i, i, p],
+    }
+    for names, argtypes in signatures.items():
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i
     lib.sagnn_error_string.argtypes = [i]
     lib.sagnn_error_string.restype = ctypes.c_char_p
     return lib

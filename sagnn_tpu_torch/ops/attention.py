@@ -33,7 +33,8 @@ def multi_head_self_attention(params: Dict[str, torch.Tensor],
     """
     B, T, D = x.shape
     dk = D // num_heads
-    xf = x.float()
+    # f32 at least (the parity path), f64 for an f64 reference
+    xf = x if x.dtype == torch.float64 else x.float()
     q = xf @ params["wq"] + params["bq"]
     k = xf @ params["wk"] + params["bk"]
     v = xf @ params["wv"] + params["bv"]

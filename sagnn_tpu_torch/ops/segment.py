@@ -1,8 +1,9 @@
-"""Message propagation in plain PyTorch: gather + sorted segment-sum; the
-port's copy of `sagnn_tpu/ops/segment.py`.
+"""Message propagation in plain PyTorch: gather + sorted segment-sum, with
+optional per-edge weights; the port's copy of `sagnn_tpu/ops/segment.py`.
 
-This is the "xla" propagation backend and the plain version of the CUDA
-segment-sum kernel (`ops/spmm_cuda.py`).
+This is the "xla" propagation backend (unweighted, and the weighted
+variants `edge_norm` / `edge_dropout_keep`) and the plain version of the
+CUDA segment-sum kernels (`ops/spmm_cuda.py`: K1 unweighted, K2 weighted).
 
 Reference semantics (model.py:80-92 `messagePropagate`): an UNWEIGHTED sum
 over in-edges (Q1/Q2) followed by the leaky-relu. Padded edges carry
@@ -16,14 +17,18 @@ import torch
 
 
 def gather_segment_sum(src_emb: torch.Tensor, src: torch.Tensor,
-                       tgt: torch.Tensor, num_tgt: int) -> torch.Tensor:
-    """out[t, :] = sum_{e: tgt[e]==t} src_emb[src[e], :].
+                       tgt: torch.Tensor, num_tgt: int,
+                       weights: torch.Tensor | None = None) -> torch.Tensor:
+    """out[t, :] = sum_{e: tgt[e]==t} w[e] * src_emb[src[e], :].
 
     src_emb: [N_src, D]; src, tgt: [E] int32/int64 (pad tgt = num_tgt);
-    returns [num_tgt, D]. On the CPU the sum runs in edge order; on a card
-    `index_add_` uses atomics, so the order (and the last bits) vary.
+    weights: optional [E]; returns [num_tgt, D]. On the CPU the sum runs in
+    edge order; on a card `index_add_` uses atomics, so the order (and the
+    last bits) vary.
     """
     msgs = src_emb.index_select(0, src)
+    if weights is not None:
+        msgs = msgs * weights.to(msgs.dtype)[:, None]
     out = torch.zeros((num_tgt + 1, src_emb.shape[1]), dtype=msgs.dtype,
                       device=msgs.device)
     out.index_add_(0, tgt, msgs)
@@ -31,7 +36,21 @@ def gather_segment_sum(src_emb: torch.Tensor, src: torch.Tensor,
 
 
 def propagate(src_emb: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
-              num_tgt: int, leaky: float) -> torch.Tensor:
+              num_tgt: int, leaky: float,
+              weights: torch.Tensor | None = None) -> torch.Tensor:
     """One reference propagation hop incl. the leaky-relu (model.py:92)."""
-    agg = gather_segment_sum(src_emb, src, tgt, num_tgt)
+    agg = gather_segment_sum(src_emb, src, tgt, num_tgt, weights)
     return torch.maximum(leaky * agg, agg)
+
+
+def edge_dropout_weights(gen: torch.Generator, shape, keep_rate: float,
+                         base: torch.Tensor | None = None) -> torch.Tensor:
+    """Functional edge dropout for the non-parity variant: a Bernoulli edge
+    mask scaled by 1/keep (what the reference's edgeDropout meant to do,
+    model.py:93-102), times `base` when given. The mask is drawn from
+    `gen` on its device (uniform < keep, as `jax.random.bernoulli`
+    thresholds); the two frameworks' streams differ, so tests feed both the
+    same mask."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    w = (u < keep_rate).to(torch.float32) / keep_rate
+    return w if base is None else w * base

@@ -1,26 +1,43 @@
-"""Segment-sum SpMM through the hand-written CUDA kernel; the port of the
-unweighted path of `sagnn_tpu/ops/spmm_pallas.py` (`plan_spmm`,
-`spmm_apply`, `build_stacked_plans`, and the differentiable `spmm`).
+"""Segment-sum SpMM (unweighted K1, weighted K2) and SDDMM (K5) through the
+hand-written CUDA kernels; the port of `sagnn_tpu/ops/spmm_pallas.py`
+(`plan_spmm`, `spmm_apply`, `build_stacked_plans`, the differentiable
+`spmm`, `spmm_weighted` and `sddmm`, spmm_pallas.py:459-492, 689-892).
 
 The plan is CSR row pointers over the target-sorted COO that
 `data.graph.compile_interval_graphs` emits: `ptr = searchsorted(tgt,
 arange(num_tgt + 1))`. Pad edges (tgt == num_tgt) sort after
 `ptr[num_tgt]` and are never read. This replaces the TPU plan's chunk and
-one-hot layout, which existed only to avoid the TPU's scatter.
+one-hot layout, which existed only to avoid the TPU's scatter. Per-edge
+values (weights, scores) lie in the plan's own COO order: slot e belongs
+to the edge (src[e], tgt[e]). The TPU's canonical-order indirection
+(`edge_slot`/`edge_pos`) is not needed; where a value crosses to the
+other direction's plan, it is gathered through the cross-direction
+permutation (`data.graph.direction_permutation`).
 
-`spmm_apply(x, src, ptr, exact)` computes out[t] = Σ_{e in row t} x[src[e]]
-in f32. On a CUDA tensor it launches `csrc/segsum.cu` (exact: the f32
-table; bf16 mode: the table cast once to bf16, accumulated in f32) or
-raises; on a CPU tensor it runs the plain PyTorch version,
-`spmm_apply_plain`, which the tests and `chip_smoke.py` hold the kernel
-against.
+Kernels (each on a CUDA tensor launches `csrc/*.cu` or raises; on a CPU
+tensor runs its plain PyTorch version, which the tests and
+`chip_smoke.py` hold the kernel against):
+  * `spmm_apply(x, src, ptr, exact)`: out[t] = Σ_{e in row t} x[src[e]]
+    (K1, `csrc/segsum.cu`).
+  * `spmm_weighted_apply(x, w, src, ptr, exact)`: out[t] = Σ w[e]·x[src[e]]
+    (K2, the weighted mode of the same kernel).
+  * `sddmm_apply(x, y, src, tgt, ptr, exact)`: s[e] = x[src[e]]·y[tgt[e]]
+    for the plan's real edges, 0 on pad slots (K5, `csrc/sddmm.cu`).
+In every one the sums run in f32; exact=False casts the gathered tables
+to bf16 first (as the JAX package does) and keeps weights in f32.
 
-`spmm(x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact)` is A @ x with a
-gradient (`SpmmFunction`, JAX's `jax.custom_vjp` `spmm`): the forward runs
-the kernel on A's plan, the backward runs the same kernel on the transpose
-plan, dx = Aᵀ g. For a bipartite interval graph the transpose plan is the
-other direction's CSR of the same interval (the u-direction's targets are
-the i-direction's sources), so no second kernel is needed.
+Differentiable forms (`torch.autograd.Function`s whose backwards are the
+same kernels; JAX's `jax.custom_vjp`s):
+  * `spmm` (`SpmmFunction`): A @ x, dx = Aᵀ g, K1 on the transpose plan.
+    For a bipartite interval graph the transpose plan is the other
+    direction's CSR of the same interval.
+  * `spmm_weighted` (`SpmmWeightedFunction`): A_w @ x, differentiable in x
+    and w: dx = K2 on the transpose plan with w gathered into its order;
+    dw = K5(x, g) over the forward plan, only when w needs a gradient.
+  * `sddmm` (`SddmmFunction`): dy = K2 on the forward plan weighted by the
+    cotangent ḡ; dx = K2 on the transpose plan weighted by ḡ gathered
+    into its order.
+The "_bwd" launch counts are the launches these backwards make.
 """
 
 from __future__ import annotations
@@ -31,9 +48,11 @@ import torch
 from sagnn_tpu_torch.ops.segment import gather_segment_sum
 
 # Kernel launches per kernel name, incremented only where a launch happens;
-# the "_bwd" names count the launches made by SpmmFunction's backward.
-LAUNCHES = {"segsum_f32": 0, "segsum_bf16": 0, "segsum_f32_bwd": 0,
-            "segsum_bf16_bwd": 0}
+# the "_bwd" names count the launches made by the autograd Functions'
+# backwards. segsum: K1; wsegsum: K2; sddmm: K5.
+LAUNCHES = {f"{kernel}_{mode}{bwd}": 0
+            for kernel in ("segsum", "wsegsum", "sddmm")
+            for bwd in ("", "_bwd") for mode in ("f32", "bf16")}
 
 
 def reset_launches() -> None:
@@ -72,45 +91,122 @@ def build_stacked_plans(u_src: np.ndarray, u_tgt: np.ndarray,
             "i_ptr": row_ptrs(i_src, i_tgt, num_items, num_users)}
 
 
-def spmm_apply_plain(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
-                     exact: bool = True) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: expand the row pointers to
-    per-edge targets, then gather + index_add_. bf16 mode sums the
-    bf16-rounded table, as the kernel does. The sum runs in f32, or in f64
-    when x is f64 (a reference for the kernel's own rounding)."""
-    num_tgt = ptr.numel() - 1
+def _plain_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The table a plain version gathers from: bf16-rounded in bf16 mode,
+    held in f64 when x is f64 (a reference for the kernels' own f32
+    rounding), else in f32."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return (x if exact else x.to(torch.bfloat16)).to(acc)
+
+
+def _plan_edges(src: torch.Tensor, ptr: torch.Tensor
+                ) -> tuple[int, torch.Tensor]:
+    """(real edge count, per-edge target ids) of a CSR plan."""
     counts = (ptr[1:] - ptr[:-1]).long()
     n_edges = int(ptr[-1])
     if src.numel() < n_edges:
         raise ValueError(f"the plan has {n_edges} edges, src {src.numel()}")
     tgt = torch.repeat_interleave(
-        torch.arange(num_tgt, device=ptr.device), counts)
-    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    table = (x if exact else x.to(torch.bfloat16)).to(acc)
-    return gather_segment_sum(table, src[:n_edges].long(), tgt, num_tgt)
+        torch.arange(ptr.numel() - 1, device=ptr.device), counts)
+    return n_edges, tgt
+
+
+def spmm_apply_plain(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
+                     exact: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of K1: expand the row pointers to per-edge
+    targets, then gather + index_add_. bf16 mode sums the bf16-rounded
+    table, as the kernel does. The sum runs in f32, or in f64 when x is
+    f64."""
+    n_edges, tgt = _plan_edges(src, ptr)
+    return gather_segment_sum(_plain_table(x, exact), src[:n_edges].long(),
+                              tgt, ptr.numel() - 1)
+
+
+def spmm_weighted_apply_plain(x: torch.Tensor, w: torch.Tensor,
+                              src: torch.Tensor, ptr: torch.Tensor,
+                              exact: bool = True) -> torch.Tensor:
+    """The plain version of K2: as `spmm_apply_plain`, each gathered row
+    scaled by its edge's weight (kept in f32, or f64 with an f64 x)."""
+    n_edges, tgt = _plan_edges(src, ptr)
+    table = _plain_table(x, exact)
+    return gather_segment_sum(table, src[:n_edges].long(), tgt,
+                              ptr.numel() - 1,
+                              weights=w[:n_edges].to(table.dtype))
+
+
+def sddmm_apply_plain(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
+                      tgt: torch.Tensor, ptr: torch.Tensor,
+                      exact: bool = True) -> torch.Tensor:
+    """The plain version of K5: [len(src)] scores x[src[e]]·y[tgt[e]] for
+    the plan's ptr[-1] real edges, 0 on the pad slots after them."""
+    n_edges = int(ptr[-1])
+    if src.numel() < n_edges or tgt.numel() != src.numel():
+        raise ValueError(f"the plan has {n_edges} edges, src "
+                         f"{src.numel()}, tgt {tgt.numel()}")
+    xs = _plain_table(x, exact)[src[:n_edges].long()]
+    yt = _plain_table(y, exact)[tgt[:n_edges].long()]
+    out = torch.zeros(src.numel(), dtype=xs.dtype, device=xs.device)
+    out[:n_edges] = torch.sum(xs * yt, dim=-1)
+    return out
+
+
+def _check_table(name: str, x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.shape[1] % 2 or x.shape[1] == 0:
+        raise ValueError(f"{name} must be [N, D] with D even and > 0, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {x.dtype}")
+    if x.shape[0] >= 2 ** 31:
+        raise ValueError(f"the kernels index {name}'s rows with int32")
+
+
+def _check_ids(device: torch.device, **ids: torch.Tensor) -> None:
+    for name, t in ids.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
 
 
 def _check_cuda_args(x: torch.Tensor, src: torch.Tensor,
                      ptr: torch.Tensor) -> None:
-    if x.dim() != 2 or x.shape[1] % 2 or x.shape[1] == 0:
-        raise ValueError(f"x must be [N, D] with D even and > 0, got "
-                         f"{tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    for name, t in (("src", src), ("ptr", ptr)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
+    _check_table("x", x)
+    _check_ids(x.device, src=src, ptr=ptr)
     if ptr.numel() < 1 or ptr.numel() - 1 >= 2 ** 31:
         raise ValueError(f"ptr has {ptr.numel()} entries")
-    if x.shape[0] >= 2 ** 31:
-        raise ValueError("the kernel indexes source rows with int32")
+    if src.numel() >= 2 ** 31:
+        raise ValueError("the kernels index edges with int32")
+
+
+def _kernel_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
+    """x as the kernel reads it: contiguous f32, or bf16 in bf16 mode,
+    aligned for float2 / bf16x2 loads."""
+    table = (x.float() if exact else x.to(torch.bfloat16)).contiguous()
+    if table.data_ptr() % (8 if exact else 4):
+        table = table.clone()
+    return table
+
+
+def _launch(name: str, device: torch.device, backward: bool,
+            *args) -> None:
+    """Call the library's `sagnn_<name>` with `args`, the device and the
+    current stream; raise on a refused launch; count it."""
+    from sagnn_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"sagnn_{name}")(
+            *args, torch.cuda.current_device(), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.sagnn_error_string(err).decode()}")
+    LAUNCHES[name + ("_bwd" if backward else "")] += 1
 
 
 def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
                exact: bool = True) -> torch.Tensor:
-    """out [num_tgt, D] f32 = Σ over each CSR row of x[src] (see module
+    """out [num_tgt, D] f32 = Σ over each CSR row of x[src] (K1; see module
     docstring). CUDA: launches the kernel on the current stream without
     synchronising; CPU: the plain version. No gradient flows through it:
     `spmm` is the differentiable form.
@@ -123,36 +219,87 @@ def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
     return _segsum(x, src, ptr, exact, backward=False)
 
 
+def spmm_weighted_apply(x: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
+                        ptr: torch.Tensor, exact: bool = True
+                        ) -> torch.Tensor:
+    """out [num_tgt, D] f32 = Σ over each CSR row of w[e]·x[src[e]] (K2).
+    w: [len(src)] in the plan's edge order, used in f32 in both table
+    modes. The plan's contract is `spmm_apply`'s; `spmm_weighted` is the
+    differentiable form."""
+    return _segsum(x, src, ptr, exact, backward=False, w=w)
+
+
 def _segsum(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
-            exact: bool, backward: bool) -> torch.Tensor:
-    """`spmm_apply`, counting a CUDA launch under the forward or the
+            exact: bool, backward: bool,
+            w: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 (w None) or K2, counting a CUDA launch under the forward or the
     backward name."""
     if x.device.type == "cpu":
-        return spmm_apply_plain(x, src, ptr, exact)
+        if w is None:
+            return spmm_apply_plain(x, src, ptr, exact)
+        return spmm_weighted_apply_plain(x, w, src, ptr, exact)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_apply runs on cuda or cpu, not {x.device}")
     _check_cuda_args(x, src, ptr)
-    from sagnn_tpu_torch.ops._build import load_library
-
-    lib = load_library()
-    table = (x.float() if exact else x.to(torch.bfloat16)).contiguous()
-    if table.data_ptr() % (8 if exact else 4):  # float2 / bf16x2 loads
-        table = table.clone()
+    if w is not None:
+        if w.device != x.device or w.dim() != 1 or w.numel() != src.numel():
+            raise ValueError(f"w must be [{src.numel()}] on {x.device}, got "
+                             f"{tuple(w.shape)} on {w.device}")
+        w = w.float().contiguous()
+    table = _kernel_table(x, exact)
     num_tgt, d = ptr.numel() - 1, x.shape[1]
     out = torch.empty((num_tgt, d), dtype=torch.float32, device=x.device)
     if num_tgt == 0:
         return out
-    name = "segsum_f32" if exact else "segsum_bf16"
-    fn = lib.sagnn_segsum_f32 if exact else lib.sagnn_segsum_bf16
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), src.data_ptr(), ptr.data_ptr(),
-                 out.data_ptr(), num_tgt, d, torch.cuda.current_device(),
-                 stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.sagnn_error_string(err).decode()}")
-    LAUNCHES[name + ("_bwd" if backward else "")] += 1
+    kernel = "segsum" if w is None else "wsegsum"
+    name = f"{kernel}_{'f32' if exact else 'bf16'}"
+    ids = (src.data_ptr(), ptr.data_ptr(), out.data_ptr(), num_tgt, d)
+    if w is None:
+        _launch(name, x.device, backward, table.data_ptr(), *ids)
+    else:
+        _launch(name, x.device, backward, table.data_ptr(), w.data_ptr(),
+                *ids)
+    return out
+
+
+def sddmm_apply(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
+                tgt: torch.Tensor, ptr: torch.Tensor,
+                exact: bool = True) -> torch.Tensor:
+    """s [len(src)] f32 = x[src[e]]·y[tgt[e]] for the plan's real edges,
+    0 on the pad slots (K5). y has one row per target of the plan
+    (ptr.numel() - 1); src/tgt are the plan's target-sorted COO. The
+    kernel reads the edge count from ptr[-1] on the device. `sddmm` is the
+    differentiable form."""
+    return _sddmm(x, y, src, tgt, ptr, exact, backward=False)
+
+
+def _sddmm(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
+           tgt: torch.Tensor, ptr: torch.Tensor, exact: bool,
+           backward: bool) -> torch.Tensor:
+    if y.shape[0] != ptr.numel() - 1:
+        raise ValueError(f"y has {y.shape[0]} rows, the plan "
+                         f"{ptr.numel() - 1} targets")
+    if x.device.type == "cpu":
+        return sddmm_apply_plain(x, y, src, tgt, ptr, exact)
+    if x.device.type != "cuda":
+        raise ValueError(f"sddmm_apply runs on cuda or cpu, not {x.device}")
+    _check_cuda_args(x, src, ptr)
+    _check_table("y", y)
+    _check_ids(x.device, tgt=tgt)
+    if y.device != x.device or y.shape[1] != x.shape[1]:
+        raise ValueError(f"y {tuple(y.shape)} on {y.device} does not fit x "
+                         f"{tuple(x.shape)} on {x.device}")
+    if tgt.numel() != src.numel():
+        raise ValueError(f"tgt has {tgt.numel()} slots, src {src.numel()}")
+    xt, yt = _kernel_table(x, exact), _kernel_table(y, exact)
+    slots = src.numel()
+    out = torch.empty(slots, dtype=torch.float32, device=x.device)
+    if slots == 0:
+        return out
+    _launch(f"sddmm_{'f32' if exact else 'bf16'}", x.device, backward,
+            xt.data_ptr(), yt.data_ptr(), src.data_ptr(), tgt.data_ptr(),
+            ptr.data_ptr(), out.data_ptr(), ptr.numel() - 1, slots,
+            x.shape[1])
     return out
 
 
@@ -164,9 +311,7 @@ class SpmmFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact):
-        if bwd_ptr.numel() - 1 != x.shape[0]:
-            raise ValueError(f"the backward plan has {bwd_ptr.numel() - 1} "
-                             f"targets, x {x.shape[0]} rows")
+        _check_transpose_plan(bwd_ptr, x)
         ctx.save_for_backward(bwd_src, bwd_ptr)
         ctx.exact = exact
         return _segsum(x, fwd_src, fwd_ptr, exact, backward=False)
@@ -182,6 +327,12 @@ class SpmmFunction(torch.autograd.Function):
         return dx, None, None, None, None, None
 
 
+def _check_transpose_plan(bwd_ptr: torch.Tensor, x: torch.Tensor) -> None:
+    if bwd_ptr.numel() - 1 != x.shape[0]:
+        raise ValueError(f"the backward plan has {bwd_ptr.numel() - 1} "
+                         f"targets, x {x.shape[0]} rows")
+
+
 def spmm(x: torch.Tensor, fwd_src: torch.Tensor, fwd_ptr: torch.Tensor,
          bwd_src: torch.Tensor, bwd_ptr: torch.Tensor,
          exact: bool = True) -> torch.Tensor:
@@ -190,3 +341,97 @@ def spmm(x: torch.Tensor, fwd_src: torch.Tensor, fwd_ptr: torch.Tensor,
     graph, whose targets are x's rows). Both plans follow `spmm_apply`'s
     contract."""
     return SpmmFunction.apply(x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact)
+
+
+class SpmmWeightedFunction(torch.autograd.Function):
+    """A_w @ x, differentiable in x and w; JAX `spmm_weighted` /
+    `_spmm_weighted_bwd` (`sagnn_tpu/ops/spmm_pallas.py:797-832`):
+      dx = A_wᵀ g: K2 on the transpose plan, w gathered into its order;
+      dw[e] = x[src[e]]·g[tgt[e]]: K5 over the forward plan, launched only
+      when w needs a gradient (a constant w, as with edge_norm, never
+      launches it).
+    In bf16 mode both gathered tables (g for dx, x and g for dw) are cast
+    to bf16; w stays f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, fwd_src, fwd_tgt, fwd_ptr, bwd_src, bwd_ptr,
+                to_bwd, exact):
+        _check_transpose_plan(bwd_ptr, x)
+        if to_bwd.numel() != w.numel():
+            raise ValueError(f"to_bwd has {to_bwd.numel()} slots, w "
+                             f"{w.numel()}")
+        ctx.save_for_backward(x, w, fwd_src, fwd_tgt, fwd_ptr, bwd_src,
+                              bwd_ptr, to_bwd)
+        ctx.exact = exact
+        return _segsum(x, fwd_src, fwd_ptr, exact, backward=False, w=w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w, fwd_src, fwd_tgt, fwd_ptr, bwd_src, bwd_ptr, to_bwd = \
+            ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _segsum(g, bwd_src, bwd_ptr, ctx.exact, backward=True,
+                         w=w.index_select(0, to_bwd))
+        if ctx.needs_input_grad[1]:
+            dw = _sddmm(x, g, fwd_src, fwd_tgt, fwd_ptr, ctx.exact,
+                        backward=True)
+        return (dx, dw) + (None,) * 7
+
+
+def spmm_weighted(x: torch.Tensor, w: torch.Tensor, fwd_src: torch.Tensor,
+                  fwd_tgt: torch.Tensor, fwd_ptr: torch.Tensor,
+                  bwd_src: torch.Tensor, bwd_ptr: torch.Tensor,
+                  to_bwd: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """Differentiable out = A_w @ x. (fwd_src, fwd_tgt, fwd_ptr): A's plan
+    and its COO targets; (bwd_src, bwd_ptr): Aᵀ's plan; w [len(fwd_src)]
+    in A's edge order; to_bwd [len(bwd_src)]: for each slot of Aᵀ's plan,
+    the slot of the same edge in A's (so w.index_select(0, to_bwd) is w in
+    Aᵀ's order)."""
+    return SpmmWeightedFunction.apply(x, w, fwd_src, fwd_tgt, fwd_ptr,
+                                      bwd_src, bwd_ptr, to_bwd, exact)
+
+
+class SddmmFunction(torch.autograd.Function):
+    """s[e] = x[src[e]]·y[tgt[e]], differentiable in x and y; JAX `sddmm` /
+    `_sddmm_bwd` (`sagnn_tpu/ops/spmm_pallas.py:835-869`):
+      dy[t] = Σ_{e: tgt=t} ḡ[e]·x[src[e]]: K2 on the forward plan;
+      dx[u] = Σ_{e: src=u} ḡ[e]·y[tgt[e]]: K2 on the transpose plan, ḡ
+      gathered into its order.
+    In bf16 mode the gathered tables (x, y) are cast to bf16; ḡ stays
+    f32."""
+
+    @staticmethod
+    def forward(ctx, x, y, fwd_src, fwd_tgt, fwd_ptr, bwd_src, bwd_ptr,
+                to_bwd, exact):
+        _check_transpose_plan(bwd_ptr, x)
+        ctx.save_for_backward(x, y, fwd_src, fwd_ptr, bwd_src, bwd_ptr,
+                              to_bwd)
+        ctx.exact = exact
+        return _sddmm(x, y, fwd_src, fwd_tgt, fwd_ptr, exact, backward=False)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, y, fwd_src, fwd_ptr, bwd_src, bwd_ptr, to_bwd = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            dx = _segsum(y, bwd_src, bwd_ptr, ctx.exact, backward=True,
+                         w=g.index_select(0, to_bwd))
+        if ctx.needs_input_grad[1]:
+            dy = _segsum(x, fwd_src, fwd_ptr, ctx.exact, backward=True, w=g)
+        return (dx, dy) + (None,) * 7
+
+
+def sddmm(x: torch.Tensor, y: torch.Tensor, fwd_src: torch.Tensor,
+          fwd_tgt: torch.Tensor, fwd_ptr: torch.Tensor,
+          bwd_src: torch.Tensor, bwd_ptr: torch.Tensor, to_bwd: torch.Tensor,
+          exact: bool = True) -> torch.Tensor:
+    """Differentiable edge scores [len(fwd_src)] in A's edge order (pad
+    slots 0); the arguments as `spmm_weighted`'s, y with one row per
+    target of A."""
+    return SddmmFunction.apply(x, y, fwd_src, fwd_tgt, fwd_ptr, bwd_src,
+                               bwd_ptr, to_bwd, exact)

@@ -6,11 +6,13 @@ evaluation in `Trainer.test_epoch` (`sagnn_tpu/train/trainer.py`).
         --users 0 1 2 --k 10 [--params file.npz] [--device cpu]
 
 prints one JSON line per user: {"user", "items", "scores"}. Without
---params the weights are random, drawn from the preset's train seed. It
-propagates through the CUDA segment-sum kernel on the card and through its
-plain version on the CPU. The graph is encoded
-once per `Recommender`; recommendations and evaluation reuse it (eval is
-deterministic, keepRate=1).
+--params the weights are random, drawn from the preset's train seed.
+`--edge_norm sym_sqrt|mean` serves degree-normalised propagation and
+`--edge_attention` edge attention. It propagates through the CUDA kernels
+on the card (the segment-sum, weighted with edge_norm, with the SDDMM
+for edge attention) and through their plain versions on the CPU. The
+graph is encoded once per `Recommender`; recommendations and evaluation
+reuse it (eval is deterministic, keepRate=1).
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ class Recommender:
         self.bundle = bundle
         self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items)
         self.graphs = graphs_to_device(
-            compile_interval_graphs(bundle.sub_mats), self.device)
+            compile_interval_graphs(bundle.sub_mats), self.device,
+            cfg.model, bundle.sub_mats)
         if params is None:
             gen = torch.Generator().manual_seed(cfg.train.seed)
             params = self.model.init(gen, device=self.device)
@@ -143,11 +146,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="--data synthetic: number of users")
     ap.add_argument("--synth_items", type=int, default=4096,
                     help="--data synthetic: number of items")
+    ap.add_argument("--edge_norm", choices=["sym_sqrt", "mean"],
+                    help="degree-normalised propagation")
+    ap.add_argument("--edge_attention", action="store_true",
+                    help="edge-attention propagation")
     args = ap.parse_args(argv)
 
     cfg = PRESETS[args.preset]
     cfg = cfg.replace(model=dataclasses.replace(
-        cfg.model, spmm_backend="pallas"))
+        cfg.model, spmm_backend="pallas", edge_norm=args.edge_norm,
+        edge_attention=args.edge_attention))
     if args.data == "synthetic":
         from sagnn_tpu_torch.data.synthetic import synthetic_dataset
         bundle = synthetic_dataset(num_users=args.synth_users,

@@ -6,10 +6,15 @@ One step runs the full forward (propagation over every interval, the
 LSTM + attention fusion over every node, the sequence branch, both
 losses), the backward, and the TF1 Adam update, eagerly on one device:
 the card by default, the CPU when asked. With spmm_backend="pallas" the
-propagation's forward and backward both go through the CUDA segment-sum
-kernel (`ops/spmm_cuda.spmm`). Not here yet: meshes and multi-process
-runs (ROADMAP Queue A6), `load_imported_params` (A3), full-sort
-evaluation (A1).
+propagation's forward and backward both go through the CUDA kernels
+(`ops/spmm_cuda`): the segment-sum (K1) unweighted, its weighted mode (K2)
+with `edge_norm` or `edge_dropout_keep < 1`, and K2 with the SDDMM (K5)
+with `edge_attention`. The edge weights and the cross-direction
+permutation are attached from `bundle.sub_mats` as the JAX Trainer does
+(trainer.py:155-233); the edge-dropout masks are drawn each step from
+the dropout generator, so checkpoints cover them. Not here yet: meshes
+and multi-process runs (ROADMAP Queue A6), `load_imported_params` (A3),
+full-sort evaluation (A1).
 """
 
 from __future__ import annotations
@@ -77,7 +82,8 @@ class Trainer:
         self.bundle = bundle
         self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items)
         self.graph_blocks = compile_interval_graphs(bundle.sub_mats)
-        self.graphs = graphs_to_device(self.graph_blocks, self.device)
+        self.graphs = graphs_to_device(self.graph_blocks, self.device,
+                                       cfg.model, bundle.sub_mats)
         tc = cfg.train
         self.sampler = Sampler(bundle, batch=tc.batch, samp_num=tc.samp_num,
                                ssl_num=tc.ssl_num, pred_num=tc.pred_num,

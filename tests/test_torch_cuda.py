@@ -1,6 +1,7 @@
-"""The CUDA segment-sum kernel on the card, forward and backward, against
-its plain version; the serving encode and a training step on the card
-against the CPU.
+"""The CUDA kernels on the card against their plain versions: the
+segment-sum (K1) forward and backward, its weighted mode (K2) and the
+SDDMM (K5) with both autograd Functions; the serving encode (parity and
+each edge variant) and a training step on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. They import
 neither JAX nor the JAX package, so they run on a machine with PyTorch
@@ -97,6 +98,52 @@ def test_kernel_rejects_bad_inputs(dev):
         sc.spmm(x, src, ptr, src, ptr)
 
 
+def _f64_encode(rec):
+    """The encode of `rec`'s weights on the CPU with every op in f64 (the
+    plain propagation and the fusion stack)."""
+    from sagnn_tpu_torch.models.selfgnn import graphs_to_device
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+
+    graphs = graphs_to_device(compile_interval_graphs(rec.bundle.sub_mats),
+                              "cpu", rec.cfg.model, rec.bundle.sub_mats)
+    p64 = {k: v.detach().cpu().double() for k, v in rec.params.items()}
+    return rec.model.encode(p64, graphs)[:2]
+
+
+def _check_against_f64(sides, ref, names=("final_user", "final_item")):
+    """Hold each side's encode against the f64 reference at rtol 1e-4 and
+    atol 1e-5 x the output's max |value|, and print what the former
+    card-vs-CPU check (rtol 1e-4, atol 1e-5 per element) would have
+    failed: each failing element's values, row and column.
+
+    Why this tolerance: an encode output is computed from values up to
+    ~3.6 through the LSTM, the raw-exp attention and the layer norms, so
+    an element near 0 carries the honest f32 error of that scale
+    (~1e-5 x 3.6), which a per-element atol of 1e-5 does not allow for.
+    Each side is held against f64 rather than against the other, so the
+    check measures each side's own rounding."""
+    for i, name in enumerate(names):
+        r = ref[i]
+        scale = float(r.abs().max())
+        errs = {side: float((t[i].cpu().double() - r).abs().max())
+                for side, t in sides.items()}
+        cpu, card = (sides[k][i].cpu() for k in ("cpu", "card"))
+        bad = ~torch.isclose(card, cpu, rtol=1e-4, atol=1e-5)
+        rows, cols = torch.nonzero(bad, as_tuple=True)
+        print(f"{name}: max|v| {scale:.4f}; max abs err vs f64: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; card-vs-cpu elements outside rtol 1e-4/atol 1e-5: "
+              f"{int(bad.sum())} of {bad.numel()}"
+              + "".join(f"; [row {int(a)}, col {int(b)}] card "
+                        f"{float(card[a, b]):.6e} cpu {float(cpu[a, b]):.6e}"
+                        f" f64 {float(r[a, b]):.6e}"
+                        for a, b in zip(rows[:8], cols[:8])))
+        for side, t in sides.items():
+            torch.testing.assert_close(t[i].cpu().double(), r, rtol=1e-4,
+                                       atol=1e-5 * scale,
+                                       msg=f"{side} {name}")
+
+
 def test_recommender_on_card_matches_cpu(dev):
     import dataclasses
 
@@ -113,9 +160,42 @@ def test_recommender_on_card_matches_cpu(dev):
                                test_size=30, seed=2)
     cpu = Recommender(cfg, bundle, device="cpu")
     gpu = Recommender(cfg, bundle, cpu.params, device=dev)
-    for a, b in zip(cpu.encode(), gpu.encode()):
-        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-5)
+    _check_against_f64({"cpu": cpu.encode(), "card": gpu.encode()},
+                       _f64_encode(cpu))
     assert cpu.evaluate() == pytest.approx(gpu.evaluate(), abs=1e-6)
+
+
+@pytest.mark.parametrize("variant", [
+    dict(edge_norm="sym_sqrt"), dict(edge_norm="mean"),
+    dict(edge_attention=True)], ids=["sym_sqrt", "mean", "attention"])
+def test_variant_encode_on_card_matches_cpu(dev, variant):
+    """Each edge variant's encode on the card (K2; K5 + K2 for attention)
+    and on the CPU, each held against the f64 encode; the launches."""
+    import dataclasses
+
+    from sagnn_tpu_torch.config import PRESETS
+    from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+    from sagnn_tpu_torch.serve import Recommender
+
+    base = PRESETS["gowalla"]
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, spmm_backend="pallas",
+                                  **variant),
+        train=dataclasses.replace(base.train, test_size=30, seed=1))
+    bundle = synthetic_dataset(num_users=70, num_items=90, graph_num=3,
+                               test_size=30, seed=2)
+    cpu = Recommender(cfg, bundle, device="cpu")
+    gpu = Recommender(cfg, bundle, cpu.params, device=dev)
+    sc.reset_launches()
+    card = gpu.encode()
+    torch.cuda.synchronize()
+    hops = 12
+    want = {"wsegsum_f32": hops}
+    if variant.get("edge_attention"):
+        want["sddmm_f32"] = hops
+    assert {k: v for k, v in sc.LAUNCHES.items() if v} == want
+    _check_against_f64({"cpu": cpu.encode(), "card": card},
+                       _f64_encode(cpu))
 
 
 def test_encode_is_repeatable_on_card(dev):
@@ -224,8 +304,8 @@ def test_train_step_on_card_matches_cpu(dev, tmp_path):
                          {k: g.cpu() for k, g in zip(keys, grads)}))
         stats = tr.train_step(batch)
         assert all(np.isfinite(float(v)) for v in stats.values())
-    assert launches == {"segsum_f32": 12, "segsum_bf16": 0,
-                        "segsum_f32_bwd": 12, "segsum_bf16_bwd": 0}
+    assert {k: v for k, v in launches.items() if v} == {
+        "segsum_f32": 12, "segsum_f32_bwd": 12}
     (pre_c, ssl_c, g_c), (pre_d, ssl_d, g_d) = results
     assert pre_d == pytest.approx(pre_c, rel=1e-5)
     assert ssl_d == pytest.approx(ssl_c, rel=1e-5)
@@ -233,3 +313,137 @@ def test_train_step_on_card_matches_cpu(dev, tmp_path):
     for k in g_c:
         torch.testing.assert_close(g_d[k], g_c[k], rtol=1e-4,
                                    atol=1e-5 * g_max, msg=k)
+
+
+# -- K2 and K5 ---------------------------------------------------------------
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("d", [2, 16, 64, 96])
+@pytest.mark.parametrize("skew", [False, True])
+def test_weighted_kernel_matches_plain(dev, exact, d, skew):
+    """K2 against its plain version summed in f64, at rtol 1e-5 and atol
+    1e-5 x sqrt(max degree) x max|w|."""
+    src, ptr = _graph(1000, 700, 20_000, 37, seed=d + 1, skew=skew)
+    gen = torch.Generator().manual_seed(d)
+    x = torch.randn((700, d), generator=gen)
+    w = torch.rand(src.numel(), generator=gen) * 2 - 0.5
+    want = sc.spmm_weighted_apply_plain(x.double(), w.double(), src, ptr,
+                                        exact)
+    before = dict(sc.LAUNCHES)
+    got = sc.spmm_weighted_apply(x.to(dev), w.to(dev), src.to(dev),
+                                 ptr.to(dev), exact)
+    torch.cuda.synchronize()
+    name = "wsegsum_f32" if exact else "wsegsum_bf16"
+    assert sc.LAUNCHES[name] == before[name] + 1
+    tol = _tol(ptr)
+    tol["atol"] *= float(w.abs().max())
+    torch.testing.assert_close(got.cpu().double(), want, **tol)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("d", [2, 16, 64, 96, 130])
+def test_sddmm_kernel_matches_plain(dev, exact, d):
+    """K5 against its plain version in f64, at rtol 1e-5 and atol
+    1e-5 x sqrt(D) x max|x| x max|y|; pad slots score 0."""
+    n_tgt, n_src = 1000, 700
+    src, ptr = _graph(n_tgt, n_src, 20_003, 41, seed=d, skew=True)
+    tgt = torch.repeat_interleave(torch.arange(n_tgt),
+                                  (ptr[1:] - ptr[:-1]).long())
+    tgt = torch.cat([tgt, torch.full((41,), n_tgt)]).to(torch.int32)
+    gen = torch.Generator().manual_seed(d)
+    x = torch.randn((n_src, d), generator=gen)
+    y = torch.randn((n_tgt, d), generator=gen)
+    want = sc.sddmm_apply_plain(x.double(), y.double(), src, tgt, ptr,
+                                exact)
+    before = dict(sc.LAUNCHES)
+    got = sc.sddmm_apply(x.to(dev), y.to(dev), src.to(dev), tgt.to(dev),
+                         ptr.to(dev), exact)
+    torch.cuda.synchronize()
+    name = "sddmm_f32" if exact else "sddmm_bf16"
+    assert sc.LAUNCHES[name] == before[name] + 1
+    assert got.shape == (src.numel(),)
+    assert not got[-41:].any()
+    atol = 1e-5 * math.sqrt(d) * float(x.abs().max() * y.abs().max())
+    torch.testing.assert_close(got.cpu().double(), want, rtol=1e-5,
+                               atol=atol)
+    again = sc.sddmm_apply(x.to(dev), y.to(dev), src.to(dev), tgt.to(dev),
+                           ptr.to(dev), exact)
+    assert torch.equal(got, again)            # deterministic
+
+
+def test_sddmm_kernel_empty_graph(dev):
+    x = torch.randn((50, 64), device=dev)
+    y = torch.randn((64, 64), device=dev)
+    ptr = torch.zeros(65, dtype=torch.int32, device=dev)
+    src = torch.zeros(512, dtype=torch.int32, device=dev)
+    tgt = torch.full((512,), 64, dtype=torch.int32, device=dev)
+    for exact in (True, False):
+        s = sc.sddmm_apply(x, y, src, tgt, ptr, exact)
+        torch.cuda.synchronize()
+        assert s.shape == (512,) and not s.any()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("side", ["u", "i"])
+def test_weighted_functions_backward_match_plain(dev, exact, side):
+    """SpmmWeightedFunction (dx: K2 on the transpose plan; dw: K5) and
+    SddmmFunction (dy: K2 on the forward plan; dx: K2 on the transpose
+    plan) on the card against the same Functions on the CPU in f64 (their
+    plain versions); the launches of each backward."""
+    import dataclasses
+
+    import scipy.sparse as sp
+
+    from sagnn_tpu_torch.config import ModelConfig
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+    from sagnn_tpu_torch.models.selfgnn import graphs_to_device
+
+    rng = np.random.default_rng(4)
+    rows = rng.integers(0, 598, 20_000)
+    cols = rng.integers(1, 800, 20_000)
+    rows[:5000] = 3
+    m = sp.coo_matrix((np.ones(20_000), (rows, cols)), shape=(600, 800))
+    cfg = dataclasses.replace(ModelConfig(), edge_norm="mean")
+    gb = compile_interval_graphs([m])
+    other = "i" if side == "u" else "u"
+    plans = {}
+    for where in ("cpu", dev):
+        g = graphs_to_device(gb, where, cfg, [m])
+        plans[str(where)] = tuple(g[k][0] for k in (
+            f"{side}_src", f"{side}_tgt", f"{side}_ptr", f"{other}_src",
+            f"{other}_ptr", f"{other}_from_{side}"))
+    n_x = plans["cpu"][4].numel() - 1
+    n_t = plans["cpu"][2].numel() - 1
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((n_x, 64), generator=gen)
+    y = torch.randn((n_t, 64), generator=gen)
+    w = torch.rand(plans["cpu"][0].numel(), generator=gen)
+    g_out = torch.randn((n_t, 64), generator=gen)
+    g_s = torch.randn(plans["cpu"][0].numel(), generator=gen)
+
+    def run(where, dtype):
+        xs, ws, ys = (t.to(where, dtype).requires_grad_() for t in (x, w, y))
+        p = plans[str(where)]
+        out = sc.spmm_weighted(xs, ws, *p, exact)
+        dx_w, dw = torch.autograd.grad(out, (xs, ws), g_out.to(where, dtype))
+        s = sc.sddmm(xs, ys, *p, exact)
+        dx_s, dy = torch.autograd.grad(s, (xs, ys), g_s.to(where, dtype))
+        return out, dx_w, dw, s, dx_s, dy
+
+    sc.reset_launches()
+    got = run(dev, torch.float32)
+    torch.cuda.synchronize()
+    mode = "f32" if exact else "bf16"
+    assert {k: v for k, v in sc.LAUNCHES.items() if v} == {
+        f"wsegsum_{mode}": 1, f"wsegsum_{mode}_bwd": 3, f"sddmm_{mode}": 1,
+        f"sddmm_{mode}_bwd": 1}
+    want = run("cpu", torch.float64)
+    deg = max(int((p[1:] - p[:-1]).max()) for p in (plans["cpu"][2],
+                                                    plans["cpu"][4]))
+    scale = 1e-5 * math.sqrt(max(deg, 64)) * 16.0
+    for name, a, b in zip(("out", "dx_w", "dw", "s", "dx_s", "dy"), got,
+                          want):
+        # bf16 tables: the plain version rounds the same tables to bf16,
+        # so the f32 tolerance holds
+        torch.testing.assert_close(a.cpu().double(), b.detach().double(),
+                                   rtol=1e-5, atol=scale, msg=name)

@@ -237,7 +237,7 @@ def test_train_losses_need_a_generator_for_dropout(env):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("edge_dropout_keep", 0.9), ("fusion_chunk_rows", 16),
+    ("fusion_chunk_rows", 1), ("fusion_chunk_rows", 16),
     ("remat_propagation", True)])
 def test_training_options_not_ported_raise(env, field, value):
     bundle, _jg, _jp, tg, tp, jbatch = env

@@ -147,9 +147,10 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(bundle, tmp_path):
 
 @pytest.mark.parametrize("train,model,match", [
     ({"full_sort": True}, {}, "full_sort.*ROADMAP"),
-    ({}, {"edge_dropout_keep": 0.8}, "edge_dropout_keep.*ROADMAP"),
+    ({}, {"remat_propagation": True}, "remat_propagation.*ROADMAP"),
     ({}, {"fusion_chunk_rows": 8}, "fusion_chunk_rows.*ROADMAP"),
-    ({}, {"edge_norm": "mean"}, "edge_norm.*ROADMAP"),
+    ({}, {"per_token_seq_attention": True},
+     "per_token_seq_attention.*ROADMAP"),
 ])
 def test_unported_options_raise(bundle, tmp_path, train, model, match):
     cfg = _cfg(**train)
