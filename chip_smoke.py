@@ -4,7 +4,7 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11 (any failure raises and
+Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11, 12 (any failure raises and
 the script exits non-zero; it prints no result line then):
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile sagnn_tpu_torch/csrc/*.cu, one nvcc per source in
@@ -25,13 +25,16 @@ the script exits non-zero; it prints no result line then):
                plain backend (its propagation summed in f64), top-10 for
                256 users, HR/NDCG over up to 4,096 test users; then the
                bf16-table encode as a second path, held hop by hop
-               against the plain version on the inputs it gave each hop.
+               against the plain version on the inputs it gave each hop;
+               the encode with spmm_fold_gather on both tables (12
+               row-folded K4 launches, K1's node states bit for bit).
   6. train step check — one full-width training step (keep_rate 1,
                batch 512) on the kernel path against the plain backend with
                its propagation summed in f64: preLoss, sslloss and every
                parameter's gradient; 12 forward and 12 backward launches;
                the same step on the bf16 table (12 + 12 of its launches);
-               the device time of the step and of its parts.
+               both steps with spmm_fold_gather (K4, 12 + 12); the device
+               time of the step and of its parts.
   7. training — `Trainer(...).run()` with the unchanged gowalla preset
                (keepRate 0.5) for one epoch of ceil(trn_num / batch) = 20
                steps, its evaluation over every test user and its
@@ -60,6 +63,25 @@ the script exits non-zero; it prints no result line then):
                and its evaluations; an epoch with edge_norm="sym_sqrt" and
                edge_dropout_keep=0.8, checkpointed, resumed, and one more
                step on each held against the other.
+ 12. flagship — the 1M-user flagship of scripts/bench_1m.py: its bundle
+               (1,048,576 users x 786,432 items x 60M drawn edges, g=3,
+               `synthetic_large_dataset`, seed 0) and the exact_b512
+               recipe (latdim 64, 8 heads, ssldim 48, batch 512, sampNum
+               10, sslNum 8, remat_propagation, fusion_chunk_rows 16,384,
+               spmm_fold_gather; spmm_src_shard_rows auto). A `Trainer`
+               (shard rows resolved to 131,072, sharded plans attached)
+               and a `Recommender` with the fold off on the same weights;
+               K3, K4 and K3 with K4 on interval 0 (f32 and bf16 tables,
+               forward and backward) against their plain versions in f64,
+               with K1 and torch.sparse.mm on the same hops; the encode
+               (84 K3 launches) against the plain backend's propagation in
+               f64, a top-10 for 256 users, an evaluation of 4,096 test
+               users; a bf16-table encode held hop by hop; one full-width
+               step at keepRate 1 against the plain path in f64 (168 + 84
+               folded K3 launches: forward, recompute, backward), the same
+               step with the fold off and on bf16 tables; four
+               `Trainer.train_step`s at keepRate 0.5, timed, with the peak
+               device memory; a torch.profiler pass over two more.
 Each phase prints its time. Prints a `main_path` line, a `train` JSON line,
 the card's name and power limit, and a `kernels` JSON line, then as the
 last line
@@ -73,6 +95,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -115,6 +138,22 @@ BF16_LOSS_RTOL = 1e-2
 RESUME_RTOL = 1e-5
 # the profiler pass over trainer steps on one batch
 PROFILE_STEPS, PROFILE_TOP = 3, 10
+# K3 (the accumulating mode: per source shard or slice), K4 (row-folded
+# gathers) and K3 with K4, and the backwards that launch them
+K3_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:327"       # zero_init
+K4_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:263"       # folded half-select
+K34_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:612"      # fold in shard windows
+K3_BWD_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:679"   # _spmm_ss_bwd
+K4_BWD_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:485"   # _spmm_bwd, folded
+# the 1M-user flagship (scripts/bench_1m.py:35-48): its bundle, and the
+# exact_b512 recipe's auto shard rows (32 MiB / (4 B x latdim 64)) and
+# predicted K3 launches per encode, g x gnn_layer x (S_u + S_i) =
+# 3 x 2 x (786,432 / 131,072 + 1,048,576 / 131,072) = 3 x 2 x (6 + 8)
+FLAGSHIP = dict(num_users=1_048_576, num_items=786_432,
+                total_edges=60_000_000, graph_num=3, test_size=100, seed=0)
+FLAGSHIP_SHARD_ROWS = 131_072
+FLAGSHIP_ENCODE_LAUNCHES = 84
+FLAGSHIP_STEPS = 3          # timed Trainer steps at keepRate 0.5
 
 
 def log(*a):
@@ -148,6 +187,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sharded_row_ptr(ptr_ss):
+    """The row pointers of the whole plan whose shards `ptr_ss` [S, T+1]
+    are (row t's edges summed over the shards)."""
+    import torch
+    deg = (ptr_ss[:, 1:] - ptr_ss[:, :-1]).sum(0)
+    return torch.cat([deg.new_zeros(1), torch.cumsum(deg, 0)])
 
 
 def seg_tol(ptr) -> tuple[float, float]:
@@ -207,10 +254,19 @@ def plain_attention(x_src, x_tgt, fwd_src, fwd_tgt, fwd_ptr, bwd_src,
     return sc.spmm_weighted_apply_plain(x_src, w, fwd_src, fwd_ptr, exact)
 
 
-def _plain_spmm(x, src, ptr, _bwd_src, _bwd_ptr, exact=True):
-    """`spmm` through K1's plain version (differentiable by autograd)."""
+def _plain_spmm(x, src, ptr, _bwd_src, _bwd_ptr, exact=True, _folded=False):
+    """`spmm` through K1's plain version (differentiable by autograd; the
+    fold changes no value)."""
     from sagnn_tpu_torch.ops import spmm_cuda as sc
     return sc.spmm_apply_plain(x, src, ptr, exact)
+
+
+def _plain_spmm_src_sharded(x, src, ptr, _bwd_src, _bwd_ptr, shard_rows,
+                            exact=True, _folded=False):
+    """`spmm_src_sharded` through K3's plain version (per shard gather +
+    scatter_add_, differentiable by autograd)."""
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    return sc.spmm_apply_src_sharded_plain(x, src, ptr, shard_rows, exact)
 
 
 def _plain_spmm_weighted(x, w, src, _tgt, ptr, _bwd_src, _bwd_ptr, _to_bwd,
@@ -276,7 +332,8 @@ def f64_propagation(kinks: list | None = None):
     from sagnn_tpu_torch.models import selfgnn
 
     patched = {"spmm": _plain_spmm, "spmm_weighted": _plain_spmm_weighted,
-               "attention_propagate": plain_attention}
+               "attention_propagate": plain_attention,
+               "spmm_src_sharded": _plain_spmm_src_sharded}
     saved = {name: getattr(selfgnn, name) for name in patched}
     propagation = selfgnn._interval_propagation
 
@@ -550,9 +607,15 @@ def bf16_propagation_reference(params, graphs, mc, num_users, num_items,
     from sagnn_tpu_torch.ops import spmm_cuda as sc
 
     if attr == "spmm":
-        def plain(x, src, ptr, _bwd_src, _bwd_ptr, exact):
+        def plain(x, src, ptr, _bwd_src, _bwd_ptr, exact, _folded=False):
             return (sc.spmm_apply_plain(x.double(), src, ptr, exact),
                     seg_tol(ptr))
+    elif attr == "spmm_src_sharded":
+        def plain(x, src, ptr, _bwd_src, _bwd_ptr, shard_rows, exact,
+                  _folded=False):
+            return (sc.spmm_apply_src_sharded_plain(x.double(), src, ptr,
+                                                    shard_rows, exact),
+                    seg_tol(sharded_row_ptr(ptr)))
     else:
         def plain(x, x_tgt, *plans, exact):
             return (plain_attention(x.double(), x_tgt.double(), *plans,
@@ -664,6 +727,30 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
     log(f"  bf16 step gradients: max abs deviation from the exact step "
         f"{bf16_grad_dev:.3e} x max|g|")
 
+    # K4's backward: the same steps with row-folded gathers both ways
+    fold_launches, fold_dev = {}, {}
+    for exact, (pre_r, ssl_r, g_r_), mode in (
+            (True, (pre_k, ssl_k, g_k), "f32"),
+            (False, (pre_b, ssl_b, g_b), "bf16")):
+        fold = selfgnn.SelfGNN(dataclasses.replace(
+            mc, spmm_exact=exact, spmm_fold_gather=True), nu, ni)
+        sc.reset_launches()
+        pre_f, ssl_f, g_f = loss_and_grads(fold, leaves, graphs, batch, tc)
+        torch.cuda.synchronize()
+        fold_launches[mode] = dict(sc.LAUNCHES)
+        expect_launches(fold_launches[mode], f"{mode} fold train step",
+                        **{f"segsum_fold_{mode}": hops,
+                           f"segsum_fold_{mode}_bwd": hops})
+        check_close(pre_f.reshape(1), pre_r.reshape(1), 1e-6, 0.0,
+                    f"{mode} fold step preLoss vs unfolded")
+        check_close(ssl_f.reshape(1), ssl_r.reshape(1), 1e-6, 0.0,
+                    f"{mode} fold step sslloss vs unfolded")
+        fold_dev[mode] = max(max_err(g_f[k], g_r_[k]) for k in keys) / g_max
+        check(fold_dev[mode] <= GRAD_ATOL_SHARE,
+              f"{mode} fold step gradients: {fold_dev[mode]:.3e} x max|g|")
+        log(f"  {mode} fold step gradients: max abs deviation from the "
+            f"unfolded step {fold_dev[mode]:.3e} x max|g|")
+
     # device time of the step (forward + backward of the whole loss) and
     # of its parts, with CUDA events, on the kernel path
     step_ms = cuda_ms(lambda: loss_and_grads(kernel, leaves, graphs, batch,
@@ -714,6 +801,9 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
         "launches_per_step": {k: v for k, v in launches.items() if v},
         "launches_per_bf16_step": {k: v for k, v in launches_bf16.items()
                                    if v},
+        "launches_per_fold_step": {m: {k: v for k, v in f.items() if v}
+                                   for m, f in fold_launches.items()},
+        "fold_grad_dev_over_max_g": fold_dev,
         "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
         "grad_atol": grad_atol, "grad_check_share": grad_share,
         "grad_check_worst": grad_worst,
@@ -1537,6 +1627,493 @@ def variant_training_phase(cfg, bundle, device) -> dict:
     return out
 
 
+def flagship_config():
+    """scripts/bench_1m.py's exact_b512 recipe on the "pallas" backend,
+    spmm_src_shard_rows left at 0 (auto)."""
+    from sagnn_tpu_torch.config import (Config, DataConfig, ModelConfig,
+                                        TrainConfig)
+    return Config(
+        model=ModelConfig(graph_num=FLAGSHIP["graph_num"], gnn_layer=2,
+                          att_layer=1, latdim=64, num_heads=8, ssldim=48,
+                          pos_length=200, spmm_backend="pallas",
+                          remat_propagation=True, fusion_chunk_rows=16_384,
+                          spmm_fold_gather=True),
+        train=TrainConfig(batch=512, samp_num=10, ssl_num=8,
+                          trn_num=FLAGSHIP["num_users"],
+                          test_size=FLAGSHIP["test_size"]),
+        data=DataConfig(data="synthetic"))
+
+
+def _sharded_bytes_and_ops(ptr_ss, n_src, n_edges, d, elem):
+    """K3's bytes (the table once, the ids, the S row-pointer arrays, and a
+    read and a write of the f32 output row for every (shard, row) pair
+    with edges, counted from the plan) and operations (one add per
+    gathered value and one per accumulated output value)."""
+    touched = int((ptr_ss[:, 1:] > ptr_ss[:, :-1]).sum())
+    nbytes = (n_src * d * elem + n_edges * 4 + ptr_ss.numel() * 4
+              + touched * 2 * d * 4)
+    return nbytes, n_edges * d + touched * d, touched
+
+
+def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
+    """K3 (accumulating, per source shard), K4 (row-folded, unsharded) and
+    K3 with K4 on interval 0 of the flagship bundle, both directions, on
+    f32 and bf16 tables: each forward against its plain version summed
+    in f64 (K3: the per-shard plain version; K4: K1's), K4 bit-equal to
+    K1 and the fold inside the shards bit-equal to K3; each backward (the
+    autograd Functions' dx, on the transpose direction's plan) against
+    the plain transpose sum in f64. Times each mode, its plain version,
+    K1 and the library call (torch.sparse.mm on the whole CSR) on the
+    same hops. Returns per-kernel records."""
+    import torch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    D = 64
+    ss = graphs["plans_ss"]
+    records = {}
+    for exact in (True, False):
+        mode = "f32" if exact else "bf16"
+        elem = 4 if exact else 2
+        table = "exact f32 table" if exact else "bf16 table, f32 accumulation"
+        k3 = _record(f"segsum_acc_{mode}", KERNEL_SOURCE, K3_REPLACES,
+                     f"accumulate per source shard of {shard_rows} rows; "
+                     + table)
+        k4 = _record(f"segsum_fold_{mode}", KERNEL_SOURCE, K4_REPLACES,
+                     "row-folded gathers, unsharded; " + table)
+        k34 = _record(f"segsum_fold_acc_{mode}", KERNEL_SOURCE, K34_REPLACES,
+                      "row-folded gathers inside each source shard, "
+                      "accumulated; " + table)
+        b3 = _record(f"segsum_acc_{mode}_bwd", KERNEL_SOURCE,
+                     K3_BWD_REPLACES, "backward of a sharded hop: dx, K3 "
+                     "per shard of the transpose plan; " + table)
+        b4 = _record(f"segsum_fold_{mode}_bwd", KERNEL_SOURCE,
+                     K4_BWD_REPLACES, "backward of a folded hop: dx, K4 on "
+                     "the transpose plan; " + table)
+        b34 = _record(f"segsum_fold_acc_{mode}_bwd", KERNEL_SOURCE,
+                      K3_BWD_REPLACES, "backward of a folded sharded hop: "
+                      "dx, K3 with K4 per shard of the transpose plan; "
+                      + table)
+        for d in ("u", "i"):
+            o = "i" if d == "u" else "u"
+            src, ptr = graphs[f"{d}_src"][0], graphs[f"{d}_ptr"][0]
+            bsrc, bptr = graphs[f"{o}_src"][0], graphs[f"{o}_ptr"][0]
+            lsrc, lptr = ss[f"{d}_src"][0], ss[f"{d}_ptr"][0]
+            blsrc, blptr = ss[f"{o}_src"][0], ss[f"{o}_ptr"][0]
+            n_src, n_tgt = bptr.numel() - 1, ptr.numel() - 1
+            n = int(ptr[-1])
+            x = torch.randn((n_src, D), generator=gen, device=device)
+            g = torch.randn((n_tgt, D), generator=gen, device=device)
+            rtol, atol = seg_tol(ptr)
+            brtol, batol = seg_tol(bptr)
+
+            # forwards
+            want_ss = sc.spmm_apply_src_sharded_plain(x.double(), lsrc, lptr,
+                                                      shard_rows, exact)
+            want_k1 = sc.spmm_apply_plain(x.double(), src, ptr, exact)
+            got3 = sc.spmm_apply_src_sharded(x, lsrc, lptr, shard_rows, exact)
+            got4 = sc.spmm_apply(x, src, ptr, exact, folded=True)
+            got34 = sc.spmm_apply_src_sharded(x, lsrc, lptr, shard_rows,
+                                              exact, folded=True)
+            got1 = sc.spmm_apply(x, src, ptr, exact)
+            torch.cuda.synchronize()
+            e3 = check_close(got3, want_ss, rtol, atol,
+                             f"flagship {k3['name']}[{d}]")
+            e4 = check_close(got4, want_k1, rtol, atol,
+                             f"flagship {k4['name']}[{d}]")
+            e34 = check_close(got34, want_ss, rtol, atol,
+                              f"flagship {k34['name']}[{d}]")
+            check(torch.equal(got4, got1), f"{k4['name']}[{d}]: K1's bits")
+            check(torch.equal(got34, got3), f"{k34['name']}[{d}]: K3's bits")
+            log(f"  K3 vs K1 on the same hop: max abs diff "
+                f"{max_err(got3, got1):.3e}")
+            del want_ss, want_k1, got3, got4, got34, got1
+            a = _csr(ptr, src, torch.ones(n, device=device), (n_tgt, n_src))
+            xl = x if exact else x.to(torch.bfloat16).float()
+            k1_ms = cuda_ms(lambda: sc.spmm_apply(x, src, ptr, exact),
+                            iters=10)
+            library_ms = cuda_ms(lambda: torch.sparse.mm(a, xl), iters=10)
+            plain_k1 = cuda_ms(lambda: sc.spmm_apply_plain(x, src, ptr,
+                                                           exact), iters=5)
+            plain_ss = cuda_ms(lambda: sc.spmm_apply_src_sharded_plain(
+                x, lsrc, lptr, shard_rows, exact), iters=5)
+            nbytes3, ops3, touched = _sharded_bytes_and_ops(lptr, n_src, n,
+                                                            D, elem)
+            nbytes1 = (n_src * D * elem + n * 4 + (n_tgt + 1) * 4
+                       + n_tgt * D * 4)
+            shape = dict(edges=n, num_src=n_src, num_tgt=n_tgt,
+                         shards=int(lptr.shape[0]),
+                         touched_shard_rows=touched,
+                         max_degree=int((ptr[1:] - ptr[:-1]).max()),
+                         k1_ms=k1_ms, library_ms=library_ms)
+            _add(k3, d, e3, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+                x, lsrc, lptr, shard_rows, exact), iters=10),
+                plain_ms=plain_ss, bound_ms=_bound_ms(nbytes3, ops3),
+                unique_bytes=nbytes3, **shape)
+            _add(k4, d, e4, ms=cuda_ms(lambda: sc.spmm_apply(
+                x, src, ptr, exact, folded=True), iters=10),
+                plain_ms=plain_k1, bound_ms=_bound_ms(nbytes1, n * D),
+                unique_bytes=nbytes1, **shape)
+            _add(k34, d, e34, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+                x, lsrc, lptr, shard_rows, exact, folded=True), iters=10),
+                plain_ms=plain_ss, bound_ms=_bound_ms(nbytes3, ops3),
+                unique_bytes=nbytes3, **shape)
+
+            # backwards: dx through each Function on the transpose plans
+            xv = x.clone().requires_grad_()
+            want_bss = sc.spmm_apply_src_sharded_plain(g.double(), blsrc,
+                                                       blptr, shard_rows,
+                                                       exact)
+            want_b1 = sc.spmm_apply_plain(g.double(), bsrc, bptr, exact)
+            dx3, = torch.autograd.grad(sc.spmm_src_sharded(
+                xv, lsrc, lptr, blsrc, blptr, shard_rows, exact), xv, g)
+            dx4, = torch.autograd.grad(sc.spmm(
+                xv, src, ptr, bsrc, bptr, exact, True), xv, g)
+            dx34, = torch.autograd.grad(sc.spmm_src_sharded(
+                xv, lsrc, lptr, blsrc, blptr, shard_rows, exact, True), xv,
+                g)
+            torch.cuda.synchronize()
+            eb3 = check_close(dx3, want_bss, brtol, batol,
+                              f"flagship {b3['name']}[{d}-hop dx]")
+            eb4 = check_close(dx4, want_b1, brtol, batol,
+                              f"flagship {b4['name']}[{d}-hop dx]")
+            eb34 = check_close(dx34, want_bss, brtol, batol,
+                               f"flagship {b34['name']}[{d}-hop dx]")
+            check(torch.equal(dx34, dx3), f"{b34['name']}[{d}]: K3's bits")
+            del want_bss, want_b1, dx3, dx4, dx34
+            at = _csr(bptr, bsrc, torch.ones(n, device=device),
+                      (n_src, n_tgt))
+            gl = g if exact else g.to(torch.bfloat16).float()
+            bk1_ms = cuda_ms(lambda: sc.spmm_apply(g, bsrc, bptr, exact),
+                             iters=10)
+            blibrary_ms = cuda_ms(lambda: torch.sparse.mm(at, gl), iters=10)
+            bplain_k1 = cuda_ms(lambda: sc.spmm_apply_plain(g, bsrc, bptr,
+                                                            exact), iters=5)
+            bplain_ss = cuda_ms(lambda: sc.spmm_apply_src_sharded_plain(
+                g, blsrc, blptr, shard_rows, exact), iters=5)
+            bbytes3, bops3, btouched = _sharded_bytes_and_ops(
+                blptr, n_tgt, n, D, elem)
+            bbytes1 = (n_tgt * D * elem + n * 4 + (n_src + 1) * 4
+                       + n_src * D * 4)
+            bshape = dict(plan=o, edges=n, shards=int(blptr.shape[0]),
+                          touched_shard_rows=btouched, k1_ms=bk1_ms,
+                          library_ms=blibrary_ms)
+            _add(b3, d, eb3, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+                g, blsrc, blptr, shard_rows, exact), iters=10),
+                plain_ms=bplain_ss, bound_ms=_bound_ms(bbytes3, bops3),
+                unique_bytes=bbytes3, **bshape)
+            _add(b4, d, eb4, ms=cuda_ms(lambda: sc.spmm_apply(
+                g, bsrc, bptr, exact, folded=True), iters=10),
+                plain_ms=bplain_k1, bound_ms=_bound_ms(bbytes1, n * D),
+                unique_bytes=bbytes1, **bshape)
+            _add(b34, d, eb34, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+                g, blsrc, blptr, shard_rows, exact, folded=True), iters=10),
+                plain_ms=bplain_ss, bound_ms=_bound_ms(bbytes3, bops3),
+                unique_bytes=bbytes3, **bshape)
+        for rec in (k3, k4, k34, b3, b4, b34):
+            rec["k1_ms"] = sum(v["k1_ms"]
+                               for v in rec["per_direction"].values())
+            rec["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree of "
+                                "the whole plan)")
+            rec["bound_counts"] = (
+                "K3: the table once, the ids, the S row-pointer arrays, and "
+                "a read and a write of the f32 output row per (shard, row) "
+                "pair with edges; K4: K1's bytes (the table once, ids, row "
+                "pointers, the f32 output once); at 3.35e12 B/s; "
+                "operations: one f32 add per gathered (and, in K3, per "
+                "accumulated) value at 67e12 FLOP/s")
+            records[rec["name"]] = rec
+            log(f"{rec['name']}: u {rec['per_direction']['u']['ms']:.4f} ms"
+                f", i {rec['per_direction']['i']['ms']:.4f} ms; K1 "
+                f"{rec['k1_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; "
+                f"library {rec['library_ms']:.4f} ms; bound "
+                f"{rec['bound_ms']:.4f} ms; max abs err "
+                f"{rec['max_abs_err']:.3e}")
+    return records
+
+
+def flagship_phase(device) -> tuple[dict, dict]:
+    """The 1M-user flagship through the entry points: the bundle of
+    scripts/bench_1m.py, a `Trainer` with the exact_b512 recipe (auto
+    shard rows resolved to FLAGSHIP_SHARD_ROWS, sharded plans attached),
+    a `Recommender` with the fold off on the same weights; K3 and K4 on
+    interval 0 against their plain versions (`flagship_kernel_phase`);
+    the Recommender's encode (K3 launches read just after it) against
+    the plain backend's propagation in f64, a recommend for
+    SERVE_USERS users and an evaluation of EVAL_USERS test users; a
+    bf16-table encode held hop by hop; one full-width step at keepRate 1
+    (K3 with K4, forward, recompute and backward) against the plain path
+    with its propagation in f64; the same step with the fold off and on
+    bf16 tables; FLAGSHIP_STEPS + 1 `Trainer.train_step`s at keepRate 0.5,
+    timed, with the device's peak memory, and a profiler pass over two
+    more. Returns (results, records)."""
+    import torch
+    from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.serve import Recommender
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    cfg = flagship_config()
+    tc = cfg.train
+    nu, ni = FLAGSHIP["num_users"], FLAGSHIP["num_items"]
+    out = {"host_s": {}}
+    t0 = time.perf_counter()
+    bundle = synthetic_large_dataset(**FLAGSHIP)
+    out["host_s"]["bundle"] = time.perf_counter() - t0
+    out["interval_edges"] = [m.nnz for m in bundle.sub_mats]
+    log(f"flagship bundle: {nu} users x {ni} items, "
+        f"{FLAGSHIP['total_edges']} edges drawn, interval edges "
+        f"{out['interval_edges']}; {out['host_s']['bundle']:.1f} s")
+    root = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, bundle, ckpt_root=root, device=device)
+    torch.cuda.synchronize()
+    out["host_s"]["trainer"] = time.perf_counter() - t0
+    mc = trainer.cfg.model
+    rows = mc.spmm_src_shard_rows
+    check(rows == FLAGSHIP_SHARD_ROWS, f"shard rows resolved to {rows}")
+    ss = trainer.graphs["plans_ss"]
+    s_u, s_i = ss["u_ptr"].shape[1], ss["i_ptr"].shape[1]
+    check((s_u, s_i) == (sc.num_shards(ni, rows), sc.num_shards(nu, rows)),
+          f"shards u {s_u}, i {s_i}")
+    per_encode = mc.graph_num * mc.gnn_layer * (s_u + s_i)
+    if (nu, ni) == (1_048_576, 786_432):
+        check(per_encode == FLAGSHIP_ENCODE_LAUNCHES,
+              f"{per_encode} K3 launches per encode")
+    log(f"flagship Trainer: shard rows {rows}, shards u {s_u} / i {s_i}, "
+        f"{per_encode} K3 launches per encode (predicted "
+        f"{FLAGSHIP_ENCODE_LAUNCHES}); set-up {out['host_s']['trainer']:.1f}"
+        f" s")
+    t0 = time.perf_counter()
+    rec = Recommender(cfg.replace(model=dataclasses.replace(
+        cfg.model, spmm_fold_gather=False)), bundle,
+        trainer.state["params"], device=device)
+    torch.cuda.synchronize()
+    out["host_s"]["recommender"] = time.perf_counter() - t0
+    check(rec.cfg.model.spmm_src_shard_rows == rows
+          and "plans_ss" in rec.graphs, "the Recommender serves sharded")
+
+    t0 = time.perf_counter()
+    records = flagship_kernel_phase(rec.graphs, rows, device)
+    out["kernels_s"] = time.perf_counter() - t0
+
+    # serving: the encode through K3, its launches read just after it
+    launches = {}
+    sc.reset_launches()
+    fu, fi = rec.encode()
+    torch.cuda.synchronize()
+    launches["encode"] = dict(sc.LAUNCHES)
+    log(f"flagship encode launches: {launches['encode']}")
+    expect_launches(launches["encode"], "flagship encode",
+                    segsum_acc_f32=per_encode)
+    check(fu.shape == (nu, 64) and fi.shape == (ni, 64), "encoding shapes")
+    smc = rec.cfg.model
+    plain_cfg = dataclasses.replace(smc, spmm_backend="xla")
+    p64 = dict(rec.params)
+    for key in ("reg/u_embed", "reg/i_embed"):
+        p64[key] = p64[key].detach().double()
+    with torch.no_grad():
+        uv64, iv64 = selfgnn._interval_propagation(p64, rec.graphs,
+                                                   plain_cfg, nu, ni)
+        uv, iv = selfgnn._interval_propagation(rec.params, rec.graphs, smc,
+                                               nu, ni)
+        ru, ri = selfgnn._temporal_fusion(rec.params, uv64.float(),
+                                          iv64.float(), smc)
+    torch.cuda.synchronize()
+    check_close(uv, uv64, 1e-5, 1e-5, "flagship user_vec kernel vs plain f64")
+    check_close(iv, iv64, 1e-5, 1e-5, "flagship item_vec kernel vs plain f64")
+    err_u = check_close(fu, ru, 1e-4, 1e-5, "flagship final_user vs plain")
+    err_i = check_close(fi, ri, 1e-4, 1e-5, "flagship final_item vs plain")
+    del p64, uv64, iv64, uv, iv, ru, ri
+    out["encode_ms"] = cuda_ms(rec.encode, iters=3, warmup=1)
+
+    def propagate():
+        with torch.no_grad():
+            return selfgnn._interval_propagation(rec.params, rec.graphs, smc,
+                                                 nu, ni)
+
+    out["propagation_ms"] = cuda_ms(propagate, iters=3, warmup=1)
+    out["max_abs_err_final"] = max(err_u, err_i)
+    log(f"flagship encode {out['encode_ms']:.2f} ms: propagation "
+        f"{out['propagation_ms']:.2f} ms ({per_encode} K3 launches)")
+
+    users = bundle.tst_usrs[:SERVE_USERS]
+    scores, items = rec.recommend(users, k=10)
+    torch.cuda.synchronize()
+    check(scores.shape == items.shape == (len(users), 10)
+          and bool(torch.isfinite(scores).all())
+          and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          "flagship top-k")
+    items_np = items.cpu().numpy()
+    for b, u in enumerate(users):
+        seen = set(bundle.sequences[u][-smc.pos_length:].tolist())
+        check(not seen & set(items_np[b].tolist()), "seen item served")
+    out["recommend_ms"] = cuda_ms(lambda: rec.recommend(users, k=10),
+                                  iters=3, warmup=1)
+    t0 = time.perf_counter()
+    metrics = rec.evaluate(max_users=EVAL_USERS)
+    torch.cuda.synchronize()
+    out["evaluate_s"] = time.perf_counter() - t0
+    out["evaluate_users"] = min(EVAL_USERS, len(bundle.tst_usrs))
+    for k, v in metrics.items():
+        check(math.isfinite(v) and 0.0 <= v <= 1.0, f"metric {k}={v}")
+    out["metrics"] = {k: metrics[k] for k in ("HR@10", "NDCG@10")}
+    log(f"flagship recommend {SERVE_USERS} users {out['recommend_ms']:.2f}"
+        f" ms; evaluate {out['evaluate_users']} users "
+        f"{out['evaluate_s']:.2f} s, HR@10 {metrics['HR@10']:.4f}")
+
+    # the encode on bf16 tables, held hop by hop
+    mc16 = dataclasses.replace(smc, spmm_exact=False)
+    m16 = selfgnn.SelfGNN(mc16, nu, ni)
+    sc.reset_launches()
+    fu16, fi16, uv16, iv16 = m16.encode(rec.params, rec.graphs)
+    torch.cuda.synchronize()
+    launches["bf16_encode"] = dict(sc.LAUNCHES)
+    expect_launches(launches["bf16_encode"], "flagship bf16 encode",
+                    segsum_acc_bf16=per_encode)
+    with torch.no_grad():
+        uv_ref, iv_ref = bf16_propagation_reference(
+            rec.params, rec.graphs, mc16, nu, ni, attr="spmm_src_sharded")
+    check_close(uv16, uv_ref, 1e-5, 1e-5, "flagship bf16 user_vec")
+    check_close(iv16, iv_ref, 1e-5, 1e-5, "flagship bf16 item_vec")
+    out["bf16_dev_from_f32_encode"] = max(max_err(fu16, fu),
+                                          max_err(fi16, fi))
+    del uv_ref, iv_ref, uv16, iv16, fu16, fi16, fu, fi
+    out["bf16_encode_ms"] = cuda_ms(lambda: m16.encode(rec.params,
+                                                       rec.graphs),
+                                    iters=3, warmup=1)
+    log(f"flagship bf16 encode {out['bf16_encode_ms']:.2f} ms; max abs "
+        f"deviation from the f32 encode {out['bf16_dev_from_f32_encode']:.3e}")
+    del rec
+
+    # one full-width step at keepRate 1 against the plain path
+    ids = trainer.sampler.epoch_user_ids(tc.trn_num)
+    t0 = time.perf_counter()
+    host_batch = trainer.sampler.train_batch(ids[:tc.batch])
+    out["host_sample_ms_one_batch"] = (time.perf_counter() - t0) * 1e3
+    batch = host_batch.to(device)
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in trainer.state["params"].items()}
+    keys = sorted(leaves)
+    mc1 = dataclasses.replace(mc, keep_rate=1.0)
+    recipe = selfgnn.SelfGNN(mc1, nu, ni)
+    kinks = []
+    sc.reset_launches()
+    with kernel_kinks(kinks):
+        got = loss_and_grads(recipe, leaves, trainer.graphs, batch, tc)
+    torch.cuda.synchronize()
+    launches["step"] = dict(sc.LAUNCHES)
+    log(f"flagship step launches: {launches['step']}")
+    # remat: every hop runs in the forward and again in the backward's
+    # recompute, then once backward
+    expect_launches(launches["step"], "flagship step",
+                    segsum_fold_acc_f32=2 * per_encode,
+                    segsum_fold_acc_f32_bwd=per_encode)
+    ref_model = selfgnn.SelfGNN(dataclasses.replace(
+        mc1, remat_propagation=False), nu, ni)
+    with f64_propagation(kinks):
+        want = loss_and_grads(ref_model, leaves, trainer.graphs, batch, tc)
+    torch.cuda.synchronize()
+    share, worst = check_step(got, want, "flagship step")
+    out["grad_check_share"], out["grad_check_worst"] = share, worst
+    g_max = max(float(g.abs().max()) for g in want[2].values())
+    del want
+
+    # the same step with the fold off (K3 alone) and on bf16 tables
+    for name, variant, want_launches in (
+            ("step_fold_off", dict(spmm_fold_gather=False),
+             dict(segsum_acc_f32=2 * per_encode,
+                  segsum_acc_f32_bwd=per_encode)),
+            ("step_bf16", dict(spmm_exact=False),
+             dict(segsum_fold_acc_bf16=2 * per_encode,
+                  segsum_fold_acc_bf16_bwd=per_encode)),
+            ("step_bf16_fold_off", dict(spmm_exact=False,
+                                        spmm_fold_gather=False),
+             dict(segsum_acc_bf16=2 * per_encode,
+                  segsum_acc_bf16_bwd=per_encode))):
+        model = selfgnn.SelfGNN(dataclasses.replace(mc1, **variant), nu, ni)
+        sc.reset_launches()
+        res = loss_and_grads(model, leaves, trainer.graphs, batch, tc)
+        torch.cuda.synchronize()
+        launches[name] = dict(sc.LAUNCHES)
+        expect_launches(launches[name], f"flagship {name}", **want_launches)
+        rtol = 1e-6 if name == "step_fold_off" else BF16_LOSS_RTOL
+        check_close(res[0].reshape(1), got[0].reshape(1), rtol, 0.0,
+                    f"flagship {name} preLoss vs the recipe's")
+        check_close(res[1].reshape(1), got[1].reshape(1), rtol, 0.0,
+                    f"flagship {name} sslloss vs the recipe's")
+        check(all(bool(torch.isfinite(g).all()) for g in res[2].values()),
+              f"flagship {name} gradients finite")
+        out[f"{name}_grad_dev_over_max_g"] = max(
+            max_err(res[2][k], got[2][k]) for k in keys) / g_max
+        log(f"  {name}: gradients' max abs deviation from the recipe's "
+            f"step {out[f'{name}_grad_dev_over_max_g']:.3e} x max|g|")
+        del res
+    del got, leaves, kinks
+
+    # Trainer steps at keepRate 0.5 (the recipe as it trains), timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_launches()
+    step_s, sample_ms, losses = [], [], []
+    for i in range(1, FLAGSHIP_STEPS + 2):
+        t0 = time.perf_counter()
+        b = trainer.sampler.train_batch(ids[i * tc.batch:(i + 1) * tc.batch])
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        b = b.to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = trainer.train_step(b)
+        losses.append({k: float(v) for k, v in stats.items()})
+        step_s.append(time.perf_counter() - t0)
+    launches["trainer_steps"] = dict(sc.LAUNCHES)
+    n_steps = FLAGSHIP_STEPS + 1
+    expect_launches(launches["trainer_steps"], "flagship Trainer steps",
+                    segsum_fold_acc_f32=2 * per_encode * n_steps,
+                    segsum_fold_acc_f32_bwd=per_encode * n_steps)
+    check(all(math.isfinite(v) for s in losses for v in s.values()),
+          "flagship Trainer losses finite")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["trainer_step_s"] = step_s
+    out["trainer_step_s_mean_after_first"] = sum(step_s[1:]) / len(step_s[1:])
+    out["host_sample_ms"] = sample_ms
+    out["trainer_losses"] = losses
+    # where a step's device time goes (the last batch, sampling apart)
+    out["profile"] = profile_steps(lambda: trainer.train_step(b), n=2)
+
+    # the step's K3 launches alone: the 2 x per_encode forward launches
+    # (forward and recompute) and per_encode backward launches on their
+    # plans, on random tables (a segment-sum's time does not depend on
+    # the values)
+    gen = torch.Generator(device=device).manual_seed(13)
+    tables = {"u": torch.randn((nu, 64), generator=gen, device=device),
+              "i": torch.randn((ni, 64), generator=gen, device=device)}
+    gss = trainer.graphs["plans_ss"]
+
+    def k3_step():
+        for k in range(mc.graph_num):
+            for _ in range(mc.gnn_layer):
+                for d, o in (("u", "i"), ("i", "u")):
+                    for plan, table in ((d, o), (d, o), (o, d)):
+                        sc.spmm_apply_src_sharded(
+                            tables[table], gss[f"{plan}_src"][k],
+                            gss[f"{plan}_ptr"][k], rows, True, True)
+
+    out["k3_per_step_ms"] = cuda_ms(k3_step, iters=2, warmup=1)
+    log(f"flagship Trainer steps (keepRate 0.5): "
+        + ", ".join(f"{t:.3f}" for t in step_s) + " s (the first included);"
+        f" K3 launches alone {out['k3_per_step_ms']:.1f} ms per step; peak "
+        f"device memory {out['peak_memory_gb']:.2f} GB; host sampling "
+        f"{sum(sample_ms) / len(sample_ms):.1f} ms per batch")
+    out["launches"] = {k: {n: c for n, c in v.items() if c}
+                       for k, v in launches.items()}
+    out["per_encode_launches"] = per_encode
+    out["shard_rows"], out["shards"] = rows, {"u": s_u, "i": s_i}
+    shutil.rmtree(root, ignore_errors=True)
+    return out, records
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1712,6 +2289,30 @@ def drive(device) -> None:
         f"item {err16_i:.3e}; max abs deviation from the exact encode "
         f"{bf16_dev:.3e}")
 
+    # K4 on the gowalla path: the encode with spmm_fold_gather on both
+    # table types; the fold reads the same rows in the same order, so the
+    # node states are K1's bit for bit
+    fold_launches, fold_encode_ms = {}, {}
+    for exact, states, mode in ((True, (uv, iv), "f32"),
+                                (False, (uv16, iv16), "bf16")):
+        fold_model = SelfGNN(dataclasses.replace(
+            mc, spmm_exact=exact, spmm_fold_gather=True), NUM_USERS,
+            NUM_ITEMS)
+        sc.reset_launches()
+        _, _, fuv, fiv = fold_model.encode(rec.params, rec.graphs)
+        torch.cuda.synchronize()
+        fold_launches[mode] = dict(sc.LAUNCHES)
+        log(f"{mode} fold encode launches: {fold_launches[mode]}")
+        expect_launches(fold_launches[mode], f"{mode} fold encode",
+                        **{f"segsum_fold_{mode}": hops})
+        check(torch.equal(fuv, states[0]) and torch.equal(fiv, states[1]),
+              f"{mode} fold encode: the unfolded node states bit for bit")
+        fold_encode_ms[mode] = cuda_ms(
+            lambda: fold_model.encode(rec.params, rec.graphs), iters=5,
+            warmup=1)
+    log(f"fold encode f32 {fold_encode_ms['f32']:.3f} ms, bf16 "
+        f"{fold_encode_ms['bf16']:.3f} ms")
+
     phase_s["serving"] = time.perf_counter() - t0
     log(f"phase serving: {phase_s['serving']:.1f} s")
 
@@ -1756,6 +2357,14 @@ def drive(device) -> None:
     vtraining = variant_training_phase(cfg, bundle, device)
     phase_s["variant training"] = time.perf_counter() - t0
     log(f"phase variant training: {phase_s['variant training']:.1f} s")
+
+    # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
+    # Recommender
+    t0 = time.perf_counter()
+    flagship, frecords = flagship_phase(device)
+    records.update(frecords)
+    phase_s["flagship"] = time.perf_counter() - t0
+    log(f"phase flagship: {phase_s['flagship']:.1f} s")
 
     # `launches`: the count on the path each kernel belongs to, read just
     # after it (the serving encode for the forward kernels, the training
@@ -1812,13 +2421,44 @@ def drive(device) -> None:
             records[name]["launches_per_encode"] = per_encode
         if name in att_run:
             records[name]["launches_attention_training_run"] = att_run[name]
+    # K3 and K4: the flagship's Recommender encode (K3), its bf16 encode,
+    # the gowalla fold encodes and fold steps (K4), the flagship Trainer
+    # steps (K3 with K4, f32) and its fold-off and bf16 steps
+    fl = flagship["launches"]
+    fold_steps = step["launches_per_fold_step"]
+    for name, count, path in (
+            ("segsum_acc_f32", fl["encode"], "flagship Recommender encode"),
+            ("segsum_acc_bf16", fl["bf16_encode"], "flagship bf16 encode"),
+            ("segsum_fold_f32", fold_launches["f32"], "gowalla fold encode"),
+            ("segsum_fold_bf16", fold_launches["bf16"],
+             "gowalla bf16 fold encode"),
+            ("segsum_fold_acc_f32", fl["trainer_steps"],
+             f"flagship Trainer, {FLAGSHIP_STEPS + 1} steps"),
+            ("segsum_fold_acc_f32_bwd", fl["trainer_steps"],
+             f"flagship Trainer, {FLAGSHIP_STEPS + 1} steps"),
+            ("segsum_fold_acc_bf16", fl["step_bf16"], "flagship bf16 step"),
+            ("segsum_fold_acc_bf16_bwd", fl["step_bf16"],
+             "flagship bf16 step"),
+            ("segsum_acc_f32_bwd", fl["step_fold_off"],
+             "flagship step, fold off"),
+            ("segsum_acc_bf16_bwd", fl["step_bf16_fold_off"],
+             "flagship bf16 step, fold off"),
+            ("segsum_fold_f32_bwd", fold_steps["f32"], "gowalla fold step"),
+            ("segsum_fold_bf16_bwd", fold_steps["bf16"],
+             "gowalla bf16 fold step")):
+        records[name].update(launches=count.get(name, 0), launches_path=path)
     kernels = []
     for r in records.values():
         r["kernel_ms"] = r["ms"]
         r["ok"] = True
-        r["timed"] = ("ms/plain_ms/library_ms/bound_ms: one user-target "
-                      "plus one item-target hop on interval 0 (the "
-                      "backward: K1 and K2 the dx of each, K5 the dw)")
+        r["timed"] = (
+            "ms/plain_ms/library_ms/bound_ms: one user-target plus one "
+            "item-target hop on interval 0 of the "
+            + ("flagship bundle (1,048,576 x 786,432, ~21.4M edges per "
+               "interval; k1_ms: K1 on the same hops)"
+               if r["name"].startswith(("segsum_acc", "segsum_fold"))
+               else "gowalla-scale bundle")
+            + " (the backward: K1 to K4 the dx of each, K5 the dw)")
         check(r["launches"] > 0, f"{r['name']}: launched on its path")
         kernels.append(r)
     main_path = {
@@ -1830,7 +2470,11 @@ def drive(device) -> None:
         "recommend_ms": recommend_ms, "recommend_users": len(users),
         "evaluate_s": evaluate_s, "evaluate_users": min(
             EVAL_USERS, len(bundle.tst_usrs)), "metrics": metrics,
-        "interval_edges": edges, "variants": variants}
+        "interval_edges": edges, "variants": variants,
+        "fold_encode_ms": fold_encode_ms,
+        "flagship": {k: v for k, v in flagship.items()
+                     if k not in ("launches", "trainer_losses")},
+        "flagship_launches": flagship["launches"]}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

@@ -50,12 +50,14 @@ class ModelConfig:
                                     # table accumulated in f32
     spmm_chunk_size: int = 0        # JAX chunk planner only; the port's CSR
                                     # plan has no chunks and ignores it
-    # JAX source-sharded SpMM for huge node tables (0 = auto, -1 = off,
-    # >0 = rows per shard). Not ported yet: the port accepts 0 and -1.
+    # source-sharded propagation for huge node tables (0 = auto, -1 = off,
+    # >0 = rows per shard): each hop sums shard by shard into its output
+    # (K3, "pallas" only). Auto turns it on past 32 MiB of f32 table
+    # (`resolve_src_sharding`), as the JAX Trainer does.
     spmm_src_shard_rows: int = 0
-    # JAX row-folded gathers, a TPU lane-padding workaround. The CUDA
-    # kernel reads [N, D] rows directly, so the flag changes no value and
-    # no code path in the port.
+    # gather through the [N/2, 2D] row-folded view of the table (K4, the
+    # unweighted "pallas" hops). A TPU lane-padding lever; on the card it
+    # reads the same bytes and gives the same values as the unfolded mode.
     spmm_fold_gather: bool = False
     # Q2 variant: degree-normalized propagation (DataHandler.py:50-59).
     # None = parity (unweighted); the weighted segment-sum (K2) otherwise.
@@ -69,16 +71,17 @@ class ModelConfig:
     # "pallas" backend only).
     edge_attention: bool = False
     # recompute propagation activations in the backward pass (training
-    # only; the port's training refuses it so far)
+    # only): one checkpoint per interval, and one around the fusion stack
+    # when it is not chunked
     remat_propagation: bool = False
     # run the temporal-fusion node axis in blocks of this many rows (the
     # stack is row-parallel per node): bounds the live LSTM/attention
-    # temporaries at huge node counts. 0 = unchunked. Serving only in the
-    # port so far.
+    # temporaries at huge node counts; in training each block is
+    # recomputed in the backward. 0 = unchunked.
     fusion_chunk_rows: int = 0
     # compute dtype for the temporal-fusion + sequence-attention stack:
     # "f32" | "bf16". Parity needs f32 (Q5's raw-exp attention overflows
-    # bf16). The port runs "f32" only so far.
+    # bf16). The port runs "f32" only so far (ROADMAP Queue A5).
     fusion_dtype: str = "f32"  # "f32" | "bf16"
 
     @property
@@ -172,6 +175,27 @@ class Config:
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         return cfg
+
+
+# the auto source-sharding threshold (JAX trainer.py:132-143): XLA's
+# gather-operand cliff on the TPU, kept so one config resolves alike in
+# both packages
+SRC_SHARD_BYTES = 32 * 2 ** 20
+
+
+def resolve_src_sharding(cfg: Config, num_users: int,
+                         num_items: int) -> Config:
+    """spmm_src_shard_rows=0 (auto) as the JAX Trainer resolves it, for the
+    "pallas" backend: the largest multiple of 128 rows whose f32 table
+    stays under 32 MiB when a node table is larger than that, else -1
+    (off). Explicit values and other backends are returned unchanged."""
+    mc = cfg.model
+    if mc.spmm_backend != "pallas" or mc.spmm_src_shard_rows != 0:
+        return cfg
+    cliff_rows = max(128, SRC_SHARD_BYTES // (4 * mc.latdim) // 128 * 128)
+    rows = cliff_rows if max(num_users, num_items) > cliff_rows else -1
+    return cfg.replace(model=dataclasses.replace(mc,
+                                                 spmm_src_shard_rows=rows))
 
 
 # Per-dataset presets, mirroring the launch scripts verbatim.

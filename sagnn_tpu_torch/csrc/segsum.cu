@@ -1,37 +1,61 @@
-// Segment-sum SpMM over target-sorted CSR rows, for Hopper (sm_90a),
-// unweighted (K1) and weighted (K2).
+// Segment-sum SpMM over target-sorted CSR rows, for Hopper (sm_90a):
+// unweighted (K1), weighted (K2), accumulating (K3) and row-folded (K4).
 //
 // Replaces sagnn_tpu/ops/spmm_pallas.py::_segsum_kernel (launched by
-// _segsum_pallas) in its unweighted mode (K1) and its weighted mode (K2,
-// `weighted=True`, spmm_pallas.py:241-242, 258-259: the weights ride the
-// transposed one-hot), each with an exact f32 table or a bf16 table with
-// f32 accumulation:
+// _segsum_pallas) in each of its modes, with an exact f32 table or a bf16
+// table with f32 accumulation:
 //
-//     out[t, :] = sum_{e in [ptr[t], ptr[t+1])} w[e] * x[src[e], :]   (f32)
+//     out[t, :] (+)= sum_{e in [ptr[t], ptr[t+1])} w[e] * x[src[e], :]  (f32)
 //
-// with w = 1 in K1. K2 is the forward of the weighted propagation
-// (edge_norm, edge_dropout_keep, edge attention) and the backward of both
-// it and the SDDMM (csrc/sddmm.cu): dx of a weighted hop is K2 on the
-// transpose plan, the SDDMM's dy and dx are K2 weighted by its cotangent.
-// The weights are f32 in both table modes and lie in the plan's edge
-// order (w[e] belongs to the edge whose source id is src[e]).
+//   * K1: w = 1, out written (`=`).
+//   * K2 (`weighted=True`, spmm_pallas.py:241-242, 258-259: the weights
+//     ride the transposed one-hot): f32 weights in the plan's edge order
+//     (w[e] belongs to the edge whose source id is src[e]). The forward of
+//     the weighted propagation (edge_norm, edge_dropout_keep, edge
+//     attention) and the backward of both it and the SDDMM
+//     (csrc/sddmm.cu).
+//   * K3 (`zero_init=True`, spmm_pallas.py:285-287, 327-334): one launch
+//     per source shard or edge slice adds that part's partial sum into the
+//     output, `out[t] = out[t] + partial`. The partial is summed from zero
+//     in registers exactly as K1 sums, then added once: the rounding order
+//     of JAX's `acc + partial` (spmm_pallas.py:433, 635). No atomics. A row
+//     with no edges in the part is left untouched (zero_init: blocks a
+//     slice never visits stay as they were). The caller offsets x to the
+//     shard's window, so the kernel sees shard-local ids only.
+//   * K4 (`folded=True`, spmm_pallas.py:233-239, 263-266): x is the
+//     [N/2, 2D] row-folded view of the table; edge e reads row
+//     src[e] >> 1 and its half src[e] & 1. On the TPU the fold removed the
+//     lane padding of the [N, 64] relayout copy. Here each lane loads only
+//     the D-wide half it needs, which is the same address as row src[e] of
+//     the [N, D] table: K4 reads the same bytes as K1 and exists so that
+//     the flag runs the mode it names, counted under its own name.
+//   * K3 with K4 (folded + accumulate) is the 1M-user flagship's mode, the
+//     fold inside each shard's window, as JAX does at spmm_pallas.py:612-634.
+// The flags compose in the code (K6's ring buckets will need weighted
+// accumulate); only the combinations the port launches are instantiated
+// below.
 //
 // The TPU kernel sums with a one-hot matmul per chunk of edges only to
 // avoid the TPU's serialized scatter. Here the edges are already sorted by
 // target, so each target row is a contiguous range [ptr[t], ptr[t+1]) and
 // one warp owns one row: no one-hot, no atomics, every row written once
-// (rows without edges get zeros). Each lane keeps kUnroll partial sums
-// (the j-th edge of each group of 32 goes to sum j % kUnroll) and adds
-// them by a fixed tree at the end, so the result is deterministic.
+// (K1/K2/K4 write zeros to rows without edges; K3 skips them). Each lane
+// keeps kUnroll partial sums (the j-th edge of each group of 32 goes to sum
+// j % kUnroll) and adds them by a fixed tree at the end, so the result is
+// deterministic.
 //
 // What bounds it: memory. Per hop the kernel reads E gathered rows of
 // D values (E*D*4 bytes in f32, half that in bf16), E source ids, the row
 // pointers, in K2 also E f32 weights (4 bytes per edge more), and writes
-// num_tgt*D*4 bytes. It does one add (K2: one multiply-add) per gathered
+// num_tgt*D*4 bytes; K3 reads and writes the output row once per (part,
+// row) pair that has edges, so S source shards cost up to S times K1's
+// output traffic. It does one add (K2: one multiply-add) per gathered
 // value, far below the card's arithmetic rate. At gowalla scale the
 // source table is 10-13 MB in f32 and fits in the 50 MB L2, so repeated
-// row gathers can be served from L2; the unique bytes (table once, ids,
-// weights, pointers, output) are the floor.
+// row gathers can be served from L2; a 131,072-row shard of a 64-wide f32
+// table (33.5 MB) fits too, where the flagship's 786k-row item table
+// (201 MB) does not. The unique bytes (table once, ids, weights, pointers,
+// output) are the floor.
 //
 // What the design does about it:
 //   * each lane owns two adjacent columns (float2 / bf16x2), so at D = 64
@@ -42,8 +66,9 @@
 //     by kUnroll so that many independent row loads are in flight before
 //     the adds consume them, into kUnroll independent sums (no serial
 //     chain of adds);
-//   * K2 is a template flag of the same kernel, so K1 compiles to the
-//     code it had and a later edge-balanced split of long rows fixes both;
+//   * K2, K3 and K4 are template flags of the same kernel, so K1 compiles
+//     to the code it had and a later edge-balanced split of long rows
+//     fixes every mode;
 //   * offsets are 64-bit ((int64_t)src[e] * d).
 // Degree skew (Zipf item popularity) makes some item rows thousands of
 // edges long, walked serially by one warp; an edge-balanced split is left
@@ -70,9 +95,23 @@ __device__ __forceinline__ float2 load_pair(
   return make_float2(__bfloat162float(v.x), __bfloat162float(v.y));
 }
 
+// Row `s` of the table: x + s*d in the [N, D] view; in the folded view
+// (kFolded, x is [N/2, 2D]) half `s & 1` of row `s >> 1`.
+template <bool kFolded, typename T>
+__device__ __forceinline__ const T* table_row(const T* __restrict__ x, int s,
+                                              int d) {
+  if constexpr (kFolded) {
+    return x + (int64_t)(s >> 1) * (2 * d) + (s & 1) * d;
+  } else {
+    return x + (int64_t)s * d;
+  }
+}
+
 // One warp per target row; lane `lane` owns column pairs lane, lane+32, ...
 // kWeighted: each gathered row is scaled by its edge's f32 weight w[e].
-template <typename T, bool kWeighted>
+// kAccumulate: the row's sum is added to out (rows without edges are not
+// touched). kFolded: x is the row-folded [N/2, 2D] view.
+template <typename T, bool kWeighted, bool kAccumulate, bool kFolded>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    const int* __restrict__ src, const int* __restrict__ ptr,
@@ -82,6 +121,7 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
   if (row >= num_tgt) return;  // whole warp leaves together
   const int beg = ptr[row];
   const int end = ptr[row + 1];
+  if (kAccumulate && beg == end) return;  // zero_init: left as it was
   const int pairs = d >> 1;
   float2* out_row = reinterpret_cast<float2*>(out + (int64_t)row * d);
 
@@ -108,7 +148,7 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
           if constexpr (kWeighted) {
             wt[u] = __shfl_sync(kFullMask, my_w, j + u);
           }
-          v[u] = active ? load_pair(x + (int64_t)s * d, c)
+          v[u] = active ? load_pair(table_row<kFolded>(x, s, d), c)
                         : make_float2(0.f, 0.f);
         }
 #pragma unroll
@@ -131,7 +171,7 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
           float wt = 1.f;
           if constexpr (kWeighted) wt = __shfl_sync(kFullMask, my_w, j + u);
           if (active) {
-            const float2 v = load_pair(x + (int64_t)s * d, c);
+            const float2 v = load_pair(table_row<kFolded>(x, s, d), c);
             if constexpr (kWeighted) {
               acc[u].x = fmaf(wt, v.x, acc[u].x);
               acc[u].y = fmaf(wt, v.y, acc[u].y);
@@ -151,22 +191,31 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
         acc[u].y += acc[u + half].y;
       }
     }
-    if (active) out_row[c] = acc[0];
+    if (active) {
+      if constexpr (kAccumulate) {
+        // JAX's `acc + partial`: one rounding of the finished partial
+        const float2 o = out_row[c];
+        out_row[c] = make_float2(o.x + acc[0].x, o.y + acc[0].y);
+      } else {
+        out_row[c] = acc[0];
+      }
+    }
   }
 }
 
-template <typename T, bool kWeighted>
+template <typename T, bool kWeighted, bool kAccumulate = false,
+          bool kFolded = false>
 int launch(const void* x, const void* w, const void* src, const void* ptr,
            void* out, int num_tgt, int d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (num_tgt <= 0) return (int)cudaSuccess;
   const dim3 grid((num_tgt + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  segsum_rows_kernel<T, kWeighted><<<grid, kWarpsPerBlock * 32, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const int*>(src), static_cast<const int*>(ptr),
-      static_cast<float*>(out), num_tgt, d);
+  segsum_rows_kernel<T, kWeighted, kAccumulate, kFolded>
+      <<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const float*>(w),
+          static_cast<const int*>(src), static_cast<const int*>(ptr),
+          static_cast<float*>(out), num_tgt, d);
   return (int)cudaGetLastError();
 }
 
@@ -206,6 +255,55 @@ int sagnn_wsegsum_bf16(const void* x, const void* w, const void* src,
                        int device, void* stream) {
   return launch<__nv_bfloat16, true>(x, w, src, ptr, out, num_tgt, d, device,
                                      stream);
+}
+
+// K3: K1's arguments, with out read and written: out[t] += the row's sum
+// for every row with edges; rows without edges are left untouched. x is
+// the part's window of the table (ids local to it).
+int sagnn_segsum_acc_f32(const void* x, const void* src, const void* ptr,
+                         void* out, int num_tgt, int d, int device,
+                         void* stream) {
+  return launch<float, false, true>(x, nullptr, src, ptr, out, num_tgt, d,
+                                    device, stream);
+}
+
+int sagnn_segsum_acc_bf16(const void* x, const void* src, const void* ptr,
+                          void* out, int num_tgt, int d, int device,
+                          void* stream) {
+  return launch<__nv_bfloat16, false, true>(x, nullptr, src, ptr, out,
+                                            num_tgt, d, device, stream);
+}
+
+// K4: K1's arguments with x the row-folded [N_src/2, 2d] view (N_src
+// even); d is the logical row width.
+int sagnn_segsum_fold_f32(const void* x, const void* src, const void* ptr,
+                          void* out, int num_tgt, int d, int device,
+                          void* stream) {
+  return launch<float, false, false, true>(x, nullptr, src, ptr, out,
+                                           num_tgt, d, device, stream);
+}
+
+int sagnn_segsum_fold_bf16(const void* x, const void* src, const void* ptr,
+                           void* out, int num_tgt, int d, int device,
+                           void* stream) {
+  return launch<__nv_bfloat16, false, false, true>(x, nullptr, src, ptr, out,
+                                                   num_tgt, d, device,
+                                                   stream);
+}
+
+// K3 + K4: accumulate from the folded view of the part's window.
+int sagnn_segsum_fold_acc_f32(const void* x, const void* src,
+                              const void* ptr, void* out, int num_tgt, int d,
+                              int device, void* stream) {
+  return launch<float, false, true, true>(x, nullptr, src, ptr, out, num_tgt,
+                                          d, device, stream);
+}
+
+int sagnn_segsum_fold_acc_bf16(const void* x, const void* src,
+                               const void* ptr, void* out, int num_tgt,
+                               int d, int device, void* stream) {
+  return launch<__nv_bfloat16, false, true, true>(x, nullptr, src, ptr, out,
+                                                  num_tgt, d, device, stream);
 }
 
 const char* sagnn_error_string(int code) {

@@ -1,9 +1,10 @@
 """Synthetic temporal bipartite datasets; the port's copy of
-`synthetic_dataset` from `sagnn_tpu/data/synthetic.py`.
+`synthetic_dataset` and `synthetic_large_dataset` from
+`sagnn_tpu/data/synthetic.py`.
 
-The generator draws from one numpy `Generator` in the same order as the
-JAX package's, so the same seed gives a byte-equal bundle (a test holds
-them equal).
+Each generator draws from one numpy `Generator` in the same order as the
+JAX package's, so the same arguments and seed give a byte-equal bundle (a
+test holds them equal).
 """
 
 from __future__ import annotations
@@ -136,4 +137,101 @@ def synthetic_dataset(
         sequences=train_seqs,
         tst_int=tst_int,
         test_dict=test_dict,
+    )
+
+
+def synthetic_large_dataset(
+    num_users: int,
+    num_items: int,
+    total_edges: int,
+    graph_num: int,
+    test_size: int = 100,
+    num_test_users: int = 4096,
+    seed: int = 0,
+    num_clusters: int = 64,
+    in_cluster: float = 0.6,
+) -> DatasetBundle:
+    """Fully VECTORIZED DatasetBundle generator for huge scale (1M+ users,
+    100M+ edges) — `synthetic_dataset`'s per-user Gumbel loop is O(U·I) and
+    unusable there. Same invariants: time-ordered train sequences, last item
+    held out (tst_int set for `num_test_users` sampled users), interval
+    matrices over equal time spans, 1-indexed test_dict negatives.
+
+    Item choice is power-law (cdf r^3) with an in-cluster preference
+    (user cluster = uid % num_clusters) so ranking stays learnable; exact
+    per-user dedup is skipped (duplicate interactions also occur in real
+    logs and the CSR structure dedups itself).
+    """
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, num_users, total_edges).astype(np.int64)
+    # guarantee every user >= 4 interactions (train sampler needs len >= 2,
+    # test protocol needs a held-out item + history)
+    u = np.concatenate([u, np.repeat(np.arange(num_users, dtype=np.int64),
+                                     4)])
+    E = len(u)
+    r = rng.random(E)
+    base = (num_items * r ** 3.0).astype(np.int64)      # power-law-ish
+    blk = max(1, num_items // num_clusters)
+    uc = u % num_clusters
+    inb = rng.random(E) < in_cluster
+    items = np.where(inb, uc * blk + base % blk, base)
+    items = np.minimum(items, num_items - 1)
+    # scatter popularity across the id space (like real preprocessed
+    # datasets, whose ids are first-appearance order): without this, hot
+    # items concentrate at low ids and source-sharded SpMM plans get one
+    # pathologically overloaded shard
+    perm = rng.permutation(num_items).astype(np.int32)
+    items = perm[items]
+    t = rng.integers(0, 10_000, E).astype(np.int64)
+    order = np.lexsort((t, u))
+    u, items, t = u[order], items[order], t[order]
+    bounds = np.searchsorted(u, np.arange(num_users + 1))
+
+    # train split: drop each user's LAST edge (leave-one-out)
+    keep = np.ones(E, dtype=bool)
+    keep[bounds[1:] - 1] = False
+    last = items[bounds[1:] - 1]
+    sequences = [items[bounds[x]:bounds[x + 1] - 1]
+                 for x in range(num_users)]
+
+    tst_int = np.empty(num_users, dtype=object)
+    tst_int[:] = None
+    test_users = rng.choice(num_users,
+                            size=min(num_test_users, num_users),
+                            replace=False)
+    test_dict = {}
+    need = test_size - 1
+    for tu in test_users:
+        tu = int(tu)
+        tst_int[tu] = int(last[tu])
+        seen = set(items[bounds[tu]:bounds[tu + 1]].tolist())
+        negs: List[int] = []
+        while len(negs) < need:
+            cands = rng.integers(0, num_items, 2 * need)
+            negs.extend(int(c) + 1 for c in cands
+                        if c not in seen)  # 1-indexed (Q8)
+        test_dict[tu + 1] = negs[:need]
+
+    tr_u, tr_i, tr_t = u[keep], items[keep], t[keep]
+    trn_mat = sp.csr_matrix(
+        (np.ones(len(tr_u), dtype=np.int8), (tr_u, tr_i)),
+        shape=(num_users, num_items))
+    trn_mat.data[:] = 1  # dedup summed duplicates to binary
+
+    t_min, t_max = int(tr_t.min()), int(tr_t.max())
+    span = max(1, t_max - t_min + 1)
+    interval = np.minimum(((tr_t - t_min) * graph_num) // span,
+                          graph_num - 1)
+    sub_mats = []
+    for k in range(graph_num):
+        m = interval == k
+        sub = sp.csr_matrix(
+            (tr_t[m] + 1, (tr_u[m], tr_i[m])),
+            shape=(num_users, num_items))
+        sub_mats.append(sub)
+
+    return DatasetBundle(
+        num_users=num_users, num_items=num_items, trn_mat=trn_mat,
+        sub_mats=sub_mats, time_mat=None, sequences=sequences,
+        tst_int=tst_int, test_dict=test_dict,
     )

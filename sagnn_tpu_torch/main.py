@@ -6,10 +6,12 @@ Params.py).
 
 The flags keep `main.py`'s names and destinations: a dataset preset plus
 overrides. `--device` (default cuda) picks the card or, when asked, the
-CPU. Flags of features the port does not carry yet are left out (mesh,
-supervisor, TF1 import, profiler trace, the large synthetic generator,
-`--bf16`); config options it does not carry raise NotImplementedError
-naming the ROADMAP item that will.
+CPU. `--synth_edges N` switches `--data synthetic` to the vectorised
+large-scale generator (the 1M-user flagship is `--synth_users 1048576
+--synth_items 786432 --synth_edges 60000000 --graphNum 3`). Flags of
+features the port does not carry yet are left out (mesh, supervisor, TF1
+import, profiler trace, `--bf16`); config options it does not carry
+raise NotImplementedError naming the ROADMAP item that will.
 """
 
 from __future__ import annotations
@@ -68,8 +70,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="accepted for the JAX package's flag set; the "
                         "port's CSR plan has no chunks")
     p.add_argument("--spmm_fold_gather", action="store_true", default=None,
-                   help="accepted; changes no value in the port")
-    p.add_argument("--spmm_src_shard_rows", type=int)
+                   help="row-folded gathers (the K4 mode; same values)")
+    p.add_argument("--spmm_src_shard_rows", type=int,
+                   help="source-sharded propagation: rows per shard (0 = "
+                        "auto past 32 MiB of table, -1 = off)")
     p.add_argument("--edge_norm", choices=["sym_sqrt", "mean"],
                    help="degree-normalised propagation (weighted "
                         "segment-sum)")
@@ -83,9 +87,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seq_parallel", action="store_true", default=None)
     p.add_argument("--full_sort", action="store_true", default=None)
     p.add_argument("--fusion_dtype", choices=["f32", "bf16"])
-    p.add_argument("--fusion_chunk_rows", type=int)
+    p.add_argument("--fusion_chunk_rows", type=int,
+                   help="run the fusion stack in node blocks of this size, "
+                        "each recomputed in the backward (0 = off)")
     p.add_argument("--remat", action="store_true", default=None,
-                   dest="remat_propagation")
+                   dest="remat_propagation",
+                   help="recompute propagation (and the unchunked fusion) "
+                        "in the backward pass")
     p.add_argument("--time_budget_h", type=float,
                    help="stop cleanly at an epoch boundary when the next "
                         "epoch (predicted from the measured mean) would "
@@ -94,6 +102,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="--data synthetic: number of users")
     p.add_argument("--synth_items", type=int, default=4096,
                    help="--data synthetic: number of items")
+    p.add_argument("--synth_edges", type=int, default=0,
+                   help="--data synthetic: total edge budget; >0 switches "
+                        "to the vectorised large-scale generator")
+    p.add_argument("--synth_test_users", type=int, default=4096,
+                   help="large-scale generator only: number of held-out "
+                        "test users")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -123,7 +137,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ns = parse_args(argv)
     cfg = build_config(ns)
     log("Start")
-    if ns.data == "synthetic":
+    if ns.data == "synthetic" and ns.synth_edges > 0:
+        from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
+        bundle = synthetic_large_dataset(
+            num_users=ns.synth_users, num_items=ns.synth_items,
+            total_edges=ns.synth_edges, graph_num=cfg.model.graph_num,
+            test_size=cfg.train.test_size,
+            num_test_users=ns.synth_test_users, seed=cfg.train.seed)
+    elif ns.data == "synthetic":
         from sagnn_tpu_torch.data.synthetic import synthetic_dataset
         bundle = synthetic_dataset(num_users=ns.synth_users,
                                    num_items=ns.synth_items,

@@ -13,7 +13,11 @@ Quirks kept (PARITY.md): Q1/Q2 unweighted propagation, Q3 pooled sequence
 branch, Q4 shared user/item LSTM, Q5 exp-attention. The opt-in variants of
 Q1/Q2 are carried too: degree-normalised edge weights (`edge_norm`),
 functional edge dropout in training (`edge_dropout_keep`) and GAT-style
-edge attention (`edge_attention`).
+edge attention (`edge_attention`). So are the options for huge graphs:
+source-sharded propagation (`spmm_src_shard_rows`), row-folded gathers
+(`spmm_fold_gather`), recomputing propagation and fusion in the backward
+(`remat_propagation`) and the node-blocked fusion with one checkpoint per
+block (`fusion_chunk_rows`).
 
 Precision: the encode runs in f32 throughout; the entry points turn TF32
 off on the card (`device.resolve_device`).
@@ -27,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sagnn_tpu_torch.config import ModelConfig
 from sagnn_tpu_torch.data.graph import (IntervalGraphs, direction_permutation,
@@ -35,10 +40,12 @@ from sagnn_tpu_torch.models.layers import l2_sum, leaky_relu, tf_glorot_uniform
 from sagnn_tpu_torch.ops.attention import (layer_norm,
                                            multi_head_self_attention)
 from sagnn_tpu_torch.ops.chunking import auto_chunk_rows, scatter_local_mask
-from sagnn_tpu_torch.ops.lstm import lstm_scan
+from sagnn_tpu_torch.ops.lstm import dropout_keep_mask, lstm_scan
 from sagnn_tpu_torch.ops.edge_attention import attention_propagate
 from sagnn_tpu_torch.ops.segment import edge_dropout_weights, propagate
-from sagnn_tpu_torch.ops.spmm_cuda import (build_stacked_plans, spmm,
+from sagnn_tpu_torch.ops.spmm_cuda import (build_stacked_plans,
+                                           build_stacked_plans_src_sharded,
+                                           spmm, spmm_src_sharded,
                                            spmm_weighted)
 
 Params = Dict[str, torch.Tensor]
@@ -155,9 +162,14 @@ def graphs_to_device(gb: IntervalGraphs, device: torch.device | str,
     pointers over them (the "pallas" backend's, with the same source
     ids), as int32 tensors on `device`.
 
-    With a `cfg` whose variant needs them, from the interval matrices
-    `sub_mats` the blocks were compiled from (the JAX Trainer's
-    attachments, trainer.py:155-233):
+    With a `cfg` whose variant needs them (the JAX Trainer's attachments,
+    trainer.py:155-233):
+      * "plans_ss" (spmm_backend "pallas" with spmm_src_shard_rows > 0):
+        the source-sharded plans, {"u_src", "u_ptr", "i_src", "i_ptr"}
+        ([g, E] local ids, [g, S, num_tgt + 1] row pointers;
+        `ops.spmm_cuda.build_stacked_plans_src_sharded`);
+    and, from the interval matrices `sub_mats` the blocks were compiled
+    from:
       * "edge_weights" [2, g, E] f32 (cfg.edge_norm): each direction's
         weights in its own COO order (`data.graph.edge_weights`);
       * "i_from_u" and "u_from_i" [g, E] int32 (any weighted variant or
@@ -177,6 +189,11 @@ def graphs_to_device(gb: IntervalGraphs, device: torch.device | str,
         "i_src": t(gb.i_src), "i_tgt": t(gb.i_tgt),
         "u_ptr": t(plans["u_ptr"]), "i_ptr": t(plans["i_ptr"]),
     }
+    if cfg is not None and _src_sharded(cfg):
+        ss = build_stacked_plans_src_sharded(
+            gb.u_src, gb.u_tgt, gb.i_src, gb.i_tgt, gb.num_users,
+            gb.num_items, cfg.spmm_src_shard_rows)
+        out["plans_ss"] = {k: t(v) for k, v in ss.items()}
     if cfg is None or not (_weighted(cfg) or cfg.edge_attention):
         return out
     if sub_mats is None:
@@ -188,6 +205,12 @@ def graphs_to_device(gb: IntervalGraphs, device: torch.device | str,
     if cfg.edge_norm is not None:
         out["edge_weights"] = t(edge_weights(gb, sub_mats, cfg.edge_norm))
     return out
+
+
+def _src_sharded(cfg: ModelConfig) -> bool:
+    """Whether propagation runs source-sharded (K3; "pallas" only, as in
+    JAX, selfgnn.py:430)."""
+    return cfg.spmm_backend == "pallas" and cfg.spmm_src_shard_rows > 0
 
 
 def _weighted(cfg: ModelConfig) -> bool:
@@ -245,8 +268,9 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LightGCN-style propagation per interval (model.py:118-129); JAX
     `_interval_propagation` for the "xla" and "pallas" backends, unweighted,
-    weighted and with edge attention. Returns user_vec [g, U, D], item_vec
-    [g, I, D], the layer-summed per-interval node states.
+    weighted, with edge attention and source-sharded. Returns user_vec
+    [g, U, D], item_vec [g, I, D], the layer-summed per-interval node
+    states.
 
     Both backends carry gradients: "xla" through autograd of the gather +
     index_add_, "pallas" through the kernels' autograd Functions, whose
@@ -262,8 +286,22 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
     cfg.edge_attention ("pallas" only and without edge weights, as
     `check_ported` holds it): each hop scores its edges from the current
     layer's embeddings (K5), normalises the scores per target (edge
-    softmax) and sums with them (K2), in its own direction's edge order."""
+    softmax) and sums with them (K2), in its own direction's edge order.
+
+    cfg.spmm_src_shard_rows > 0 ("pallas", unweighted only, as
+    `check_ported` holds it): every hop runs over graphs["plans_ss"], one
+    K3 launch per source shard, forward and backward (JAX selfgnn.py:
+    430-474). cfg.spmm_fold_gather gathers through the row-folded view
+    (K4) in both the sharded and the unsharded unweighted hops.
+
+    cfg.remat_propagation, with autograd on: each interval runs under
+    `torch.utils.checkpoint` (non-reentrant), so its backward recomputes
+    the interval's hops instead of keeping their g·gnn_layer·2 [N, D]
+    activations, as JAX checkpoints the scan body (selfgnn.py:273-276).
+    Propagation draws no random numbers (edge-dropout weights come in as
+    an argument), so the recompute repeats the forward exactly."""
     pallas = cfg.spmm_backend == "pallas"
+    sharded = _src_sharded(cfg)
     if edge_weights is None and cfg.edge_norm is not None:
         edge_weights = (graphs["edge_weights"][0], graphs["edge_weights"][1])
 
@@ -277,6 +315,14 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
             edge_weights[0 if side == "u" else 1][k]
         if not pallas:
             return propagate(x, src, tgt, num_tgt, cfg.leaky, w)
+        if sharded:
+            ss = graphs["plans_ss"]
+            agg = spmm_src_sharded(
+                x, ss[f"{side}_src"][k], ss[f"{side}_ptr"][k],
+                ss[f"{other}_src"][k], ss[f"{other}_ptr"][k],
+                cfg.spmm_src_shard_rows, cfg.spmm_exact,
+                cfg.spmm_fold_gather)
+            return leaky_relu(agg, cfg.leaky)
         plans = (graphs[f"{side}_ptr"][k], graphs[f"{other}_src"][k],
                  graphs[f"{other}_ptr"][k])
         if cfg.edge_attention:
@@ -288,20 +334,28 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
                                 graphs[f"{other}_from_{side}"][k],
                                 cfg.spmm_exact)
         else:
-            agg = spmm(x, src, *plans, cfg.spmm_exact)
+            agg = spmm(x, src, *plans, cfg.spmm_exact, cfg.spmm_fold_gather)
         return leaky_relu(agg, cfg.leaky)
 
-    users, items = [], []
-    for k in range(cfg.graph_num):
-        embs0 = [params["reg/u_embed"][k]]
-        embs1 = [params["reg/i_embed"][k]]
+    def interval(k, u0, i0):
+        embs0, embs1 = [u0], [i0]
         for _ in range(cfg.gnn_layer):
             a0 = hop(embs1[-1], embs0[-1], "u", k, num_users)
             a1 = hop(embs0[-1], embs1[-1], "i", k, num_items)
             embs0.append(a0 + embs0[-1])
             embs1.append(a1 + embs1[-1])
-        users.append(sum(embs0[1:], embs0[0]))  # tf.add_n over all layers
-        items.append(sum(embs1[1:], embs1[0]))
+        # tf.add_n over all layers
+        return sum(embs0[1:], embs0[0]), sum(embs1[1:], embs1[0])
+
+    remat = cfg.remat_propagation and torch.is_grad_enabled()
+    users, items = [], []
+    for k in range(cfg.graph_num):
+        args = (k, params["reg/u_embed"][k], params["reg/i_embed"][k])
+        user, item = (checkpoint(interval, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if remat else interval(*args))
+        users.append(user)
+        items.append(item)
     return torch.stack(users), torch.stack(items)
 
 
@@ -319,45 +373,78 @@ def edge_dropout(graphs: Dict, cfg: ModelConfig, gen: torch.Generator
                  for d in range(2))
 
 
+def fusion_keep_masks(user_vec: torch.Tensor, item_vec: torch.Tensor,
+                      cfg: ModelConfig, gen: Optional[torch.Generator]
+                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The LSTM output dropout's keep masks of one training step: [U, g, D]
+    for the users, then [I, g, D] for the items, drawn from `gen` (JAX
+    splits its key into ku/ki); None without dropout (no generator, or
+    keep_rate 1)."""
+    if gen is None or cfg.keep_rate >= 1.0:
+        return None
+    return tuple(dropout_keep_mask(gen, vec.transpose(0, 1).shape,
+                                   cfg.keep_rate, vec.device)
+                 for vec in (user_vec, item_vec))
+
+
 def _temporal_fusion(params: Params, user_vec: torch.Tensor,
                      item_vec: torch.Tensor, cfg: ModelConfig,
-                     gen: Optional[torch.Generator] = None
+                     keep: Optional[Tuple[torch.Tensor,
+                                          torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared LSTM + interval MHSA + mean (model.py:131-155).
     Returns final_user [U, D], final_item [I, D].
 
-    gen: training only. With keep_rate < 1 the LSTM's output dropout draws
-    one mask for the users, then one for the items, from `gen` (JAX splits
-    its key into ku/ki); None is inference.
+    keep: training only, the LSTM output dropout's masks
+    (`fusion_keep_masks`); None is inference (or keep_rate 1).
 
     fusion_chunk_rows > 0 runs the node axis in blocks of that many rows:
     the stack is row-parallel per node, so only one block's LSTM/attention
-    temporaries are live at a time. The values equal the unchunked ones.
-    Training refuses it (`check_ported`)."""
+    temporaries are live at a time (JAX selfgnn.py:614-653). With autograd
+    on, each block runs under its own `torch.utils.checkpoint`, so the
+    backward keeps only the states and recomputes the block; a checkpoint
+    around all blocks would keep every block's residuals. The blocks are
+    views from one `split` of the states, whose backward concatenates the
+    blocks' gradients once; a slice per block would make a zero-filled
+    full-size gradient per block and add them all. Block b gets rows
+    [b·rows, (b+1)·rows) of the one mask drawn for all nodes, the mask
+    the unchunked stack would use, so chunking changes no value. (JAX folds the block index
+    into its key, so its chunked masks differ from its unchunked ones; the
+    port's streams cannot match JAX's anyway, ROADMAP Queue C.) The caller
+    draws the masks outside every checkpoint, because a checkpoint's
+    recompute restores only the default generators and would draw other
+    masks from an explicit generator."""
     lstm_p = sub(params, "free/lstm")
 
-    def stream(x_t, mhsa_p, ln_p):
+    def stream(x_t, mhsa_p, ln_p, keep):
         """[n, g, D] -> [n, D]"""
         x_t = lstm_scan(lstm_p, x_t, keep_rate=cfg.keep_rate,
-                        dropout_gen=gen)
+                        keep_mask=keep)
         m = multi_head_self_attention(
             mhsa_p, layer_norm(x_t, ln_p["scale"], ln_p["shift"]),
             cfg.num_heads, stable=cfg.stable_softmax)
         return torch.mean(m, dim=1)
 
-    def fuse(vec, mhsa_p, ln_p):
+    def fuse(vec, mhsa_p, ln_p, keep):
         rows = cfg.fusion_chunk_rows
-        n = vec.shape[1]
-        if rows <= 0 or n <= rows:
-            return stream(vec.transpose(0, 1), mhsa_p, ln_p)
-        return torch.cat([stream(vec[:, s:s + rows].transpose(0, 1),
-                                 mhsa_p, ln_p)
-                          for s in range(0, n, rows)])
+        x_t = vec.transpose(0, 1)
+        if rows <= 0 or x_t.shape[0] <= rows:
+            return stream(x_t, mhsa_p, ln_p, keep)
+        blocks = x_t.split(rows)
+        keeps = keep.split(rows) if keep is not None else [None] * len(blocks)
+        if not torch.is_grad_enabled():
+            return torch.cat([stream(b, mhsa_p, ln_p, k)
+                              for b, k in zip(blocks, keeps)])
+        return torch.cat([checkpoint(stream, b, mhsa_p, ln_p, k,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+                          for b, k in zip(blocks, keeps)])
 
+    keep_u, keep_i = (None, None) if keep is None else keep
     mu = fuse(user_vec, sub(params, "free/mhsa_user"),
-              sub(params, "free/ln_user"))
+              sub(params, "free/ln_user"), keep_u)
     mi = fuse(item_vec, sub(params, "free/mhsa_item"),
-              sub(params, "free/ln_item"))
+              sub(params, "free/ln_item"), keep_i)
     return mu, mi
 
 
@@ -456,28 +543,19 @@ _NOT_PORTED = (
      "per-token sequence attention is not ported yet: ROADMAP Queue A5"),
     ("seq_parallel", lambda c: c.seq_parallel,
      "sequence-parallel attention is not ported yet: ROADMAP Queue A6"),
-    ("spmm_src_shard_rows", lambda c: c.spmm_src_shard_rows > 0,
-     "source-sharded propagation (K3) is not ported yet: ROADMAP Queue A5"),
     ("fusion_dtype", lambda c: c.fusion_dtype != "f32",
      "the port runs the fusion stack in f32 only: ROADMAP Queue A5"),
-)
-# options that change only training
-_NOT_PORTED_IN_TRAINING = (
-    ("fusion_chunk_rows", lambda c: c.fusion_chunk_rows > 0,
-     "the chunked fusion stack's per-block checkpointing in training is "
-     "not ported yet: ROADMAP Queue A5"),
-    ("remat_propagation", lambda c: c.remat_propagation,
-     "recomputing propagation in the backward is not ported yet: ROADMAP "
-     "Queue A5"),
 )
 
 
 def check_ported(cfg: ModelConfig, train: bool = False) -> None:
-    """Raise NotImplementedError for an option the port does not carry
-    (for serving, or with train=True for training), and ValueError for a
-    combination the JAX package refuses too (trainer.py:177-183)."""
-    checks = _NOT_PORTED + (_NOT_PORTED_IN_TRAINING if train else ())
-    for name, bad, why in checks:
+    """Raise NotImplementedError for an option the port does not carry, and
+    ValueError for a combination the JAX package refuses too
+    (trainer.py:177-201, selfgnn.py:436-438): edge attention off "pallas"
+    or with edge weights; source sharding with edge weights or edge
+    attention, and with train=True also with edge dropout (which weights
+    training only)."""
+    for name, bad, why in _NOT_PORTED:
         if bad(cfg):
             raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: "
                                       f"{why}")
@@ -489,6 +567,12 @@ def check_ported(cfg: ModelConfig, train: bool = False) -> None:
             raise ValueError("edge_attention is exclusive with edge_norm and "
                              "edge_dropout_keep < 1 (attention is the edge "
                              "weighting)")
+    if _src_sharded(cfg) and (
+            cfg.edge_norm is not None or cfg.edge_attention
+            or (train and cfg.edge_dropout_keep < 1.0)):
+        raise ValueError("spmm_src_shard_rows > 0 supports only unweighted "
+                         "parity propagation (no edge_norm/edge_dropout/"
+                         "edge_attention)")
 
 
 class SelfGNN:
@@ -533,8 +617,19 @@ class SelfGNN:
         user_vec, item_vec = _interval_propagation(
             params, graphs, self.cfg, self.num_users, self.num_items,
             weights)
-        final_user, final_item = _temporal_fusion(params, user_vec, item_vec,
-                                                  self.cfg, gen)
+        # drawn outside any checkpoint, so a recompute applies these masks
+        keep = fusion_keep_masks(user_vec, item_vec, self.cfg, gen)
+        args = (params, user_vec, item_vec, self.cfg, keep)
+        if (self.cfg.remat_propagation and self.cfg.fusion_chunk_rows <= 0
+                and torch.is_grad_enabled()):
+            # remat covers the unchunked fusion too (JAX selfgnn.py:850-859):
+            # its LSTM/MHSA over every node keeps O(g·N·D) intermediates for
+            # the backward. The chunked stack checkpoints each block itself.
+            final_user, final_item = checkpoint(
+                _temporal_fusion, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            final_user, final_item = _temporal_fusion(*args)
         return final_user, final_item, user_vec, item_vec
 
     def train_losses(self, params: Params, graphs: Dict, batch: TrainBatch,

@@ -119,7 +119,8 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
         # x, src, ptr, out, num_tgt, d, device, stream
-        ("sagnn_segsum_f32", "sagnn_segsum_bf16"):
+        tuple(f"sagnn_segsum{mode}_{t}" for t in ("f32", "bf16")
+              for mode in ("", "_acc", "_fold", "_fold_acc")):
             [p, p, p, p, i, i, i, p],
         # x, w, src, ptr, out, num_tgt, d, device, stream
         ("sagnn_wsegsum_f32", "sagnn_wsegsum_bf16"):

@@ -1,7 +1,11 @@
-"""Segment-sum SpMM (unweighted K1, weighted K2) and SDDMM (K5) through the
-hand-written CUDA kernels; the port of `sagnn_tpu/ops/spmm_pallas.py`
-(`plan_spmm`, `spmm_apply`, `build_stacked_plans`, the differentiable
-`spmm`, `spmm_weighted` and `sddmm`, spmm_pallas.py:459-492, 689-892).
+"""Segment-sum SpMM (unweighted K1, weighted K2, accumulating K3,
+row-folded K4) and SDDMM (K5) through the hand-written CUDA kernels; the
+port of `sagnn_tpu/ops/spmm_pallas.py` (`plan_spmm`, `spmm_apply` with
+its slices and folded gathers, `build_stacked_plans`, the source-sharded
+`plan_spmm_src_sharded` / `build_stacked_plans_src_sharded` /
+`spmm_apply_src_sharded`, the differentiable `spmm`, `spmm_src_sharded`,
+`spmm_weighted` and `sddmm`, spmm_pallas.py:362-437, 459-492, 533-686,
+689-892, 1062-1112).
 
 The plan is CSR row pointers over the target-sorted COO that
 `data.graph.compile_interval_graphs` emits: `ptr = searchsorted(tgt,
@@ -14,11 +18,25 @@ to the edge (src[e], tgt[e]). The TPU's canonical-order indirection
 other direction's plan, it is gathered through the cross-direction
 permutation (`data.graph.direction_permutation`).
 
+A source-sharded plan (`build_stacked_plans_src_sharded`) splits each
+plan's edges by source shard [s·shard_rows, (s+1)·shard_rows): one flat
+array of shard-local source ids, shard after shard, each shard's edges in
+target order, and row pointers [S, num_tgt + 1] over all targets per
+shard, absolute into that array. Each part is a CSR plan of its own.
+
 Kernels (each on a CUDA tensor launches `csrc/*.cu` or raises; on a CPU
 tensor runs its plain PyTorch version, which the tests and
 `chip_smoke.py` hold the kernel against):
   * `spmm_apply(x, src, ptr, exact)`: out[t] = Σ_{e in row t} x[src[e]]
-    (K1, `csrc/segsum.cu`).
+    (K1, `csrc/segsum.cu`); with `num_slices > 1` the plan's edges are
+    cut into that many contiguous ranges (the row pointers clipped to
+    each), and each range's partial sum is added into the output in order
+    (K3, the accumulating mode); with `folded=True` and an even row
+    count the gathers read the [N/2, 2D] row-folded view (K4).
+  * `spmm_apply_src_sharded(x, src, ptr, shard_rows, exact, folded)`:
+    the same sum, one K3 launch per source shard in shard order, each on
+    the shard's window of x (K3 with K4 when folded and shard_rows is
+    even).
   * `spmm_weighted_apply(x, w, src, ptr, exact)`: out[t] = Σ w[e]·x[src[e]]
     (K2, the weighted mode of the same kernel).
   * `sddmm_apply(x, y, src, tgt, ptr, exact)`: s[e] = x[src[e]]·y[tgt[e]]
@@ -28,9 +46,12 @@ to bf16 first (as the JAX package does) and keeps weights in f32.
 
 Differentiable forms (`torch.autograd.Function`s whose backwards are the
 same kernels; JAX's `jax.custom_vjp`s):
-  * `spmm` (`SpmmFunction`): A @ x, dx = Aᵀ g, K1 on the transpose plan.
-    For a bipartite interval graph the transpose plan is the other
-    direction's CSR of the same interval.
+  * `spmm` (`SpmmFunction`): A @ x, dx = Aᵀ g, K1 (K4 when folded) on the
+    transpose plan. For a bipartite interval graph the transpose plan is
+    the other direction's CSR of the same interval.
+  * `spmm_src_sharded` (`SpmmSrcShardedFunction`): A @ x over the
+    source-sharded plan; dx is the transpose direction's sharded plan,
+    whose shards partition the forward's targets.
   * `spmm_weighted` (`SpmmWeightedFunction`): A_w @ x, differentiable in x
     and w: dx = K2 on the transpose plan with w gathered into its order;
     dw = K5(x, g) over the forward plan, only when w needs a gradient.
@@ -49,9 +70,11 @@ from sagnn_tpu_torch.ops.segment import gather_segment_sum
 
 # Kernel launches per kernel name, incremented only where a launch happens;
 # the "_bwd" names count the launches made by the autograd Functions'
-# backwards. segsum: K1; wsegsum: K2; sddmm: K5.
+# backwards. segsum: K1; segsum_acc: K3; segsum_fold: K4; segsum_fold_acc:
+# K3 with K4; wsegsum: K2; sddmm: K5.
 LAUNCHES = {f"{kernel}_{mode}{bwd}": 0
-            for kernel in ("segsum", "wsegsum", "sddmm")
+            for kernel in ("segsum", "segsum_acc", "segsum_fold",
+                           "segsum_fold_acc", "wsegsum", "sddmm")
             for bwd in ("", "_bwd") for mode in ("f32", "bf16")}
 
 
@@ -91,6 +114,78 @@ def build_stacked_plans(u_src: np.ndarray, u_tgt: np.ndarray,
             "i_ptr": row_ptrs(i_src, i_tgt, num_items, num_users)}
 
 
+def num_shards(num_src: int, shard_rows: int) -> int:
+    return max(1, -(-num_src // shard_rows))
+
+
+def plan_src_sharded(src: np.ndarray, tgt: np.ndarray, num_tgt: int,
+                     num_src: int, shard_rows: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """One target-sorted COO's source-sharded plan (JAX
+    `plan_spmm_src_sharded`, spmm_pallas.py:533-579, in CSR form):
+    (src_local [len(src)] int32, ptr [S, num_tgt + 1] int32) with
+    S = ceil(num_src / shard_rows). The real edges are reordered shard by
+    shard (stable, so each shard's edges stay in target order) and their
+    ids made local to the shard; ptr[s] are the row pointers of shard s
+    over all targets, absolute into src_local (ptr[s, 0] is where shard s
+    starts, ptr[s, -1] where it ends). Pad slots follow, holding 0.
+
+    Not carried from the TPU plan: the chunk padding, `_strip_empty_chunks`
+    and the sub-slicing of `_subslice_stacked` (spmm_pallas.py:518-530,
+    1022-1059). They bound the TPU's materialised [slots, D] message
+    stream; the CUDA kernel gathers each row as it sums and builds no such
+    stream. Each real id is checked against the table here, once."""
+    src = np.asarray(src)
+    tgt = np.asarray(tgt)
+    if shard_rows <= 0:
+        raise ValueError(f"shard_rows must be > 0, got {shard_rows}")
+    n = int(np.searchsorted(tgt, num_tgt))
+    real_src, real_tgt = src[:n].astype(np.int64), tgt[:n].astype(np.int64)
+    if n and (np.diff(real_tgt) < 0).any():
+        raise ValueError("edges must be sorted by target")
+    if n and (real_src.min() < 0 or real_src.max() >= num_src):
+        raise ValueError("source id out of range")
+    if len(src) >= 2 ** 31:
+        raise ValueError("the kernel indexes edges with int32")
+    S = num_shards(num_src, shard_rows)
+    sid = real_src // shard_rows
+    # numpy's stable sort is a radix sort for 16-bit keys
+    order = np.argsort(sid.astype(np.uint16 if S < 2 ** 16 else np.int64),
+                       kind="stable")
+    src_local = np.zeros(len(src), np.int32)
+    src_local[:n] = real_src[order] - sid[order] * shard_rows
+    # edges per (shard, target) in (shard, target) order, which is the
+    # order of src_local: their running sum is every shard's row pointers
+    counts = np.bincount(sid * num_tgt + real_tgt, minlength=S * num_tgt)
+    starts = np.zeros(S * num_tgt + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    rows = np.arange(S)[:, None] * num_tgt + np.arange(num_tgt + 1)[None, :]
+    return src_local, starts[rows].astype(np.int32)
+
+
+def build_stacked_plans_src_sharded(u_src: np.ndarray, u_tgt: np.ndarray,
+                                    i_src: np.ndarray, i_tgt: np.ndarray,
+                                    num_users: int, num_items: int,
+                                    shard_rows: int) -> dict:
+    """Source-sharded plans for every interval in both directions (JAX
+    `build_stacked_plans_src_sharded`, spmm_pallas.py:1062-1112):
+    {"u_src": [g, E], "u_ptr": [g, S_u, U + 1], "i_src": [g, E],
+    "i_ptr": [g, S_i, I + 1]}, int32, each interval as `plan_src_sharded`
+    gives it. shard_rows applies to both source tables: the u-direction
+    (user targets) shards the item table, S_u = ceil(I / shard_rows); the
+    i-direction the user table."""
+    out = {}
+    for d, src, tgt, n_tgt, n_src in (("u", u_src, u_tgt, num_users,
+                                       num_items),
+                                      ("i", i_src, i_tgt, num_items,
+                                       num_users)):
+        plans = [plan_src_sharded(src[k], tgt[k], n_tgt, n_src, shard_rows)
+                 for k in range(src.shape[0])]
+        out[f"{d}_src"] = np.stack([p[0] for p in plans])
+        out[f"{d}_ptr"] = np.stack([p[1] for p in plans])
+    return out
+
+
 def _plain_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
     """The table a plain version gathers from: bf16-rounded in bf16 mode,
     held in f64 when x is f64 (a reference for the kernels' own f32
@@ -100,26 +195,95 @@ def _plain_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
 
 
 def _plan_edges(src: torch.Tensor, ptr: torch.Tensor
-                ) -> tuple[int, torch.Tensor]:
-    """(real edge count, per-edge target ids) of a CSR plan."""
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(source ids, per-edge target ids) of a CSR plan's edges
+    src[ptr[0]:ptr[-1]] (ptr[0] is 0 but for a slice or a shard)."""
     counts = (ptr[1:] - ptr[:-1]).long()
-    n_edges = int(ptr[-1])
-    if src.numel() < n_edges:
-        raise ValueError(f"the plan has {n_edges} edges, src {src.numel()}")
+    beg, end = int(ptr[0]), int(ptr[-1])
+    if src.numel() < end:
+        raise ValueError(f"the plan has {end} edges, src {src.numel()}")
     tgt = torch.repeat_interleave(
         torch.arange(ptr.numel() - 1, device=ptr.device), counts)
-    return n_edges, tgt
+    return src[beg:end].long(), tgt
 
 
 def spmm_apply_plain(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
                      exact: bool = True) -> torch.Tensor:
-    """The plain PyTorch version of K1: expand the row pointers to per-edge
-    targets, then gather + index_add_. bf16 mode sums the bf16-rounded
-    table, as the kernel does. The sum runs in f32, or in f64 when x is
-    f64."""
-    n_edges, tgt = _plan_edges(src, ptr)
-    return gather_segment_sum(_plain_table(x, exact), src[:n_edges].long(),
-                              tgt, ptr.numel() - 1)
+    """The plain PyTorch version of K1 (and of K4, whose fold changes no
+    value): expand the row pointers to per-edge targets, then gather +
+    index_add_. bf16 mode sums the bf16-rounded table, as the kernel does.
+    The sum runs in f32, or in f64 when x is f64."""
+    ids, tgt = _plan_edges(src, ptr)
+    return gather_segment_sum(_plain_table(x, exact), ids, tgt,
+                              ptr.numel() - 1)
+
+
+def _accumulate_plain(out: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
+                      ptr: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The plain version of K3: out[t] += Σ_{e in row t} x[src[e]] (the
+    part's gather + scatter_add_ into the accumulator). scatter_add_, not
+    index_add_: autograd keeps index_add_'s whole [E, D] source for its
+    backward, scatter_add_ only the index (here a stride-0 view), which is
+    what lets a training step at the 1M-user scale differentiate through
+    this version."""
+    ids, tgt = _plan_edges(src, ptr)
+    rows = _plain_table(x, exact).index_select(0, ids)
+    return out.scatter_add_(0, tgt[:, None].expand_as(rows), rows)
+
+
+def _accumulator(x: torch.Tensor, num_tgt: int) -> torch.Tensor:
+    """Zeros [num_tgt, D] in the dtype the sums run in (f64 for an f64 x,
+    else f32)."""
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return torch.zeros((num_tgt, x.shape[1]), dtype=dtype, device=x.device)
+
+
+def _slice_ptrs(ptr: torch.Tensor, num_slices: int) -> list[torch.Tensor]:
+    """The plan's edges cut into `num_slices` contiguous ranges
+    [k·E/n, (k+1)·E/n): each slice's row pointers are ptr clipped to its
+    range (its rows outside it become empty), with the same source ids.
+    The bounds stay on ptr's device (no copy to the host)."""
+    p = ptr.long()
+    first, n = p[:1], p[-1:] - p[:1]
+    bounds = [first + n * k // num_slices for k in range(num_slices + 1)]
+    return [torch.clamp(p, lo, hi).to(torch.int32)
+            for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def spmm_apply_sliced_plain(x: torch.Tensor, src: torch.Tensor,
+                            ptr: torch.Tensor, num_slices: int,
+                            exact: bool = True) -> torch.Tensor:
+    """The plain version of `spmm_apply(num_slices=)`: per slice, gather +
+    scatter_add_ into the accumulator."""
+    out = _accumulator(x, ptr.numel() - 1)
+    for p in _slice_ptrs(ptr, num_slices):
+        _accumulate_plain(out, x, src, p, exact)
+    return out
+
+
+def spmm_apply_src_sharded_plain(x: torch.Tensor, src: torch.Tensor,
+                                 ptr: torch.Tensor, shard_rows: int,
+                                 exact: bool = True) -> torch.Tensor:
+    """The plain version of `spmm_apply_src_sharded`: per source shard,
+    gather from the shard's window of x + scatter_add_ into the
+    accumulator, in shard order."""
+    _check_shards(x, ptr, shard_rows)
+    out = _accumulator(x, ptr.shape[1] - 1)
+    for s in range(ptr.shape[0]):
+        _accumulate_plain(out, x[s * shard_rows:(s + 1) * shard_rows], src,
+                          ptr[s], exact)
+    return out
+
+
+def _check_shards(x: torch.Tensor, ptr: torch.Tensor,
+                  shard_rows: int) -> None:
+    if ptr.dim() != 2 or ptr.shape[1] < 1:
+        raise ValueError(f"a sharded plan's ptr is [S, num_tgt + 1], got "
+                         f"{tuple(ptr.shape)}")
+    if shard_rows <= 0 or ptr.shape[0] != num_shards(x.shape[0],
+                                                     shard_rows):
+        raise ValueError(f"the plan has {ptr.shape[0]} shards, x "
+                         f"{x.shape[0]} rows in shards of {shard_rows}")
 
 
 def spmm_weighted_apply_plain(x: torch.Tensor, w: torch.Tensor,
@@ -127,11 +291,11 @@ def spmm_weighted_apply_plain(x: torch.Tensor, w: torch.Tensor,
                               exact: bool = True) -> torch.Tensor:
     """The plain version of K2: as `spmm_apply_plain`, each gathered row
     scaled by its edge's weight (kept in f32, or f64 with an f64 x)."""
-    n_edges, tgt = _plan_edges(src, ptr)
+    ids, tgt = _plan_edges(src, ptr)
     table = _plain_table(x, exact)
-    return gather_segment_sum(table, src[:n_edges].long(), tgt,
-                              ptr.numel() - 1,
-                              weights=w[:n_edges].to(table.dtype))
+    beg, end = int(ptr[0]), int(ptr[-1])
+    return gather_segment_sum(table, ids, tgt, ptr.numel() - 1,
+                              weights=w[beg:end].to(table.dtype))
 
 
 def sddmm_apply_plain(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
@@ -170,6 +334,9 @@ def _check_ids(device: torch.device, **ids: torch.Tensor) -> None:
 
 def _check_cuda_args(x: torch.Tensor, src: torch.Tensor,
                      ptr: torch.Tensor) -> None:
+    """Raise unless x, src and ptr are what a CUDA launch takes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernels run on cuda or cpu, not {x.device}")
     _check_table("x", x)
     _check_ids(x.device, src=src, ptr=ptr)
     if ptr.numel() < 1 or ptr.numel() - 1 >= 2 ** 31:
@@ -205,18 +372,41 @@ def _launch(name: str, device: torch.device, backward: bool,
 
 
 def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
-               exact: bool = True) -> torch.Tensor:
+               exact: bool = True, num_slices: int = 1,
+               folded: bool = False) -> torch.Tensor:
     """out [num_tgt, D] f32 = Σ over each CSR row of x[src] (K1; see module
     docstring). CUDA: launches the kernel on the current stream without
     synchronising; CPU: the plain version. No gradient flows through it:
     `spmm` is the differentiable form.
+
+    num_slices > 1: the out-of-core path of JAX's `spmm_apply`
+    (spmm_pallas.py:411-437), one K3 launch per contiguous edge range in
+    order. folded: gather through the [N/2, 2D] row-folded view (K4), as
+    JAX does only for an even row count (spmm_pallas.py:392); an odd count
+    runs the unfolded mode and counts it under that mode's name.
 
     `ptr`/`src` must be a plan as `build_stacked_plans` makes and checks
     it: ptr non-decreasing from 0, ptr[-1] <= len(src), every id in
     src[:ptr[-1]] a row of x. The CPU path checks the length; the kernel
     checks none of it (that would cost a read of ptr back to the host on
     every launch) and reads out of bounds on a malformed plan."""
-    return _segsum(x, src, ptr, exact, backward=False)
+    return _spmm_apply(x, src, ptr, exact, num_slices, folded,
+                       backward=False)
+
+
+def _spmm_apply(x, src, ptr, exact, num_slices, folded, backward):
+    fold = folded and x.shape[0] % 2 == 0
+    if num_slices <= 1:
+        return _segsum(x, src, ptr, exact, backward, folded=fold)
+    if x.device.type == "cpu":
+        return spmm_apply_sliced_plain(x, src, ptr, num_slices, exact)
+    _check_cuda_args(x, src, ptr)
+    table = _kernel_table(x, exact)
+    out = _accumulator(x, ptr.numel() - 1)
+    for p in _slice_ptrs(ptr, num_slices):
+        _launch_segsum(table, src, p, out, exact, backward, accumulate=True,
+                       folded=fold)
+    return out
 
 
 def spmm_weighted_apply(x: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
@@ -229,37 +419,84 @@ def spmm_weighted_apply(x: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
     return _segsum(x, src, ptr, exact, backward=False, w=w)
 
 
+def spmm_apply_src_sharded(x: torch.Tensor, src: torch.Tensor,
+                           ptr: torch.Tensor, shard_rows: int,
+                           exact: bool = True, folded: bool = False
+                           ) -> torch.Tensor:
+    """out [num_tgt, D] f32 = Σ over each row of every shard's plan of
+    x[shard start + src] (JAX `spmm_apply_src_sharded`,
+    spmm_pallas.py:582-640). src, ptr: one interval's sharded plan
+    (`plan_src_sharded`): [E] shard-local ids, [S, num_tgt + 1] row
+    pointers, S = ceil(len(x) / shard_rows). CUDA: zeros, then one K3
+    launch per shard in shard order on the current stream, the table
+    pointer moved to the shard's window; with `folded` and an even
+    shard_rows (JAX's condition, :612) the launches gather through the
+    folded view of the window (K3 with K4). Never K1 over the whole
+    table. CPU: the plain version."""
+    return _src_sharded(x, src, ptr, shard_rows, exact, folded,
+                        backward=False)
+
+
+def _src_sharded(x, src, ptr, shard_rows, exact, folded, backward):
+    if x.device.type == "cpu":
+        return spmm_apply_src_sharded_plain(x, src, ptr, shard_rows, exact)
+    _check_shards(x, ptr, shard_rows)
+    _check_cuda_args(x, src, ptr[0])
+    table = _kernel_table(x, exact)
+    out = _accumulator(x, ptr.shape[1] - 1)
+    fold = folded and shard_rows % 2 == 0
+    for s in range(ptr.shape[0]):
+        _launch_segsum(table, src, ptr[s], out, exact, backward,
+                       accumulate=True, folded=fold, row0=s * shard_rows)
+    return out
+
+
 def _segsum(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
-            exact: bool, backward: bool,
-            w: torch.Tensor | None = None) -> torch.Tensor:
-    """K1 (w None) or K2, counting a CUDA launch under the forward or the
-    backward name."""
+            exact: bool, backward: bool, w: torch.Tensor | None = None,
+            folded: bool = False) -> torch.Tensor:
+    """K1 (K4 when folded) or K2 (w given) into a new output, counting a
+    CUDA launch under the forward or the backward name."""
     if x.device.type == "cpu":
         if w is None:
             return spmm_apply_plain(x, src, ptr, exact)
         return spmm_weighted_apply_plain(x, w, src, ptr, exact)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmm_apply runs on cuda or cpu, not {x.device}")
     _check_cuda_args(x, src, ptr)
     if w is not None:
         if w.device != x.device or w.dim() != 1 or w.numel() != src.numel():
             raise ValueError(f"w must be [{src.numel()}] on {x.device}, got "
                              f"{tuple(w.shape)} on {w.device}")
         w = w.float().contiguous()
-    table = _kernel_table(x, exact)
-    num_tgt, d = ptr.numel() - 1, x.shape[1]
-    out = torch.empty((num_tgt, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((ptr.numel() - 1, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    _launch_segsum(_kernel_table(x, exact), src, ptr, out, exact, backward,
+                   w=w, folded=folded)
+    return out
+
+
+def _launch_segsum(table: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
+                   out: torch.Tensor, exact: bool, backward: bool,
+                   w: torch.Tensor | None = None, accumulate: bool = False,
+                   folded: bool = False, row0: int = 0) -> None:
+    """One launch of the segment-sum kernel's mode for (w, accumulate,
+    folded) into `out` [num_tgt, D] f32, reading the table from row `row0`
+    on (a shard's window; folded, row0 is even and the window is its
+    [rows/2, 2D] view)."""
+    num_tgt, d = ptr.numel() - 1, table.shape[1]
     if num_tgt == 0:
-        return out
-    kernel = "segsum" if w is None else "wsegsum"
+        return
+    _check_ids(table.device, ptr=ptr)
+    if w is not None:
+        kernel = "wsegsum"
+    else:
+        kernel = ("segsum" + ("_fold" if folded else "")
+                  + ("_acc" if accumulate else ""))
     name = f"{kernel}_{'f32' if exact else 'bf16'}"
+    x = table.data_ptr() + row0 * d * table.element_size()
     ids = (src.data_ptr(), ptr.data_ptr(), out.data_ptr(), num_tgt, d)
     if w is None:
-        _launch(name, x.device, backward, table.data_ptr(), *ids)
+        _launch(name, table.device, backward, x, *ids)
     else:
-        _launch(name, x.device, backward, table.data_ptr(), w.data_ptr(),
-                *ids)
-    return out
+        _launch(name, table.device, backward, x, w.data_ptr(), *ids)
 
 
 def sddmm_apply(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
@@ -281,8 +518,6 @@ def _sddmm(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
                          f"{ptr.numel() - 1} targets")
     if x.device.type == "cpu":
         return sddmm_apply_plain(x, y, src, tgt, ptr, exact)
-    if x.device.type != "cuda":
-        raise ValueError(f"sddmm_apply runs on cuda or cpu, not {x.device}")
     _check_cuda_args(x, src, ptr)
     _check_table("y", y)
     _check_ids(x.device, tgt=tgt)
@@ -307,40 +542,84 @@ class SpmmFunction(torch.autograd.Function):
     """A @ x with dx = Aᵀ g; JAX `spmm`/`_spmm_fwd`/`_spmm_bwd`
     (`sagnn_tpu/ops/spmm_pallas.py:459-492`). The plans get no gradient.
     In bf16 mode the backward casts the cotangent to bf16 before the
-    gather, as `_spmm_bwd` does through `spmm_apply(g, ..., exact)`."""
+    gather, as `_spmm_bwd` does through `spmm_apply(g, ..., exact)`.
+    folded: row-folded gathers (K4) both ways, each where its table's row
+    count is even."""
 
     @staticmethod
-    def forward(ctx, x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact):
-        _check_transpose_plan(bwd_ptr, x)
+    def forward(ctx, x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact, folded):
+        _check_transpose_plan(bwd_ptr.shape[-1] - 1, x)
         ctx.save_for_backward(bwd_src, bwd_ptr)
-        ctx.exact = exact
-        return _segsum(x, fwd_src, fwd_ptr, exact, backward=False)
+        ctx.exact, ctx.folded = exact, folded
+        return _spmm_apply(x, fwd_src, fwd_ptr, exact, 1, folded,
+                           backward=False)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 6
+            return (None,) * 7
         bwd_src, bwd_ptr = ctx.saved_tensors
-        dx = _segsum(g.contiguous(), bwd_src, bwd_ptr, ctx.exact,
-                     backward=True)
-        return dx, None, None, None, None, None
+        dx = _spmm_apply(g.contiguous(), bwd_src, bwd_ptr, ctx.exact, 1,
+                         ctx.folded, backward=True)
+        return (dx,) + (None,) * 6
 
 
-def _check_transpose_plan(bwd_ptr: torch.Tensor, x: torch.Tensor) -> None:
-    if bwd_ptr.numel() - 1 != x.shape[0]:
-        raise ValueError(f"the backward plan has {bwd_ptr.numel() - 1} "
-                         f"targets, x {x.shape[0]} rows")
+def _check_transpose_plan(num_tgt: int, x: torch.Tensor) -> None:
+    if num_tgt != x.shape[0]:
+        raise ValueError(f"the backward plan has {num_tgt} targets, x "
+                         f"{x.shape[0]} rows")
 
 
 def spmm(x: torch.Tensor, fwd_src: torch.Tensor, fwd_ptr: torch.Tensor,
          bwd_src: torch.Tensor, bwd_ptr: torch.Tensor,
-         exact: bool = True) -> torch.Tensor:
+         exact: bool = True, folded: bool = False) -> torch.Tensor:
     """Differentiable out = A @ x: (fwd_src, fwd_ptr) is A's plan,
     (bwd_src, bwd_ptr) Aᵀ's (the transpose direction's plan of the same
     graph, whose targets are x's rows). Both plans follow `spmm_apply`'s
     contract."""
-    return SpmmFunction.apply(x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact)
+    return SpmmFunction.apply(x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, exact,
+                              folded)
+
+
+class SpmmSrcShardedFunction(torch.autograd.Function):
+    """Source-sharded A @ x; JAX `spmm_src_sharded`/`_spmm_ss_bwd`
+    (`sagnn_tpu/ops/spmm_pallas.py:657-686`). The backward is the
+    transpose direction's sharded plan: its shards partition the forward's
+    targets (g's rows), its targets are x's rows, so dx has exactly
+    len(x) rows (JAX slices its padded dx to num_src). Both directions
+    launch K3 per shard (with K4 when folded)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd_src, fwd_ptr, bwd_src, bwd_ptr, shard_rows,
+                exact, folded):
+        _check_transpose_plan(bwd_ptr.shape[-1] - 1, x)
+        ctx.save_for_backward(bwd_src, bwd_ptr)
+        ctx.args = (shard_rows, exact, folded)
+        return _src_sharded(x, fwd_src, fwd_ptr, shard_rows, exact, folded,
+                            backward=False)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 8
+        bwd_src, bwd_ptr = ctx.saved_tensors
+        dx = _src_sharded(g.contiguous(), bwd_src, bwd_ptr, *ctx.args,
+                          backward=True)
+        return (dx,) + (None,) * 7
+
+
+def spmm_src_sharded(x: torch.Tensor, fwd_src: torch.Tensor,
+                     fwd_ptr: torch.Tensor, bwd_src: torch.Tensor,
+                     bwd_ptr: torch.Tensor, shard_rows: int,
+                     exact: bool = True, folded: bool = False
+                     ) -> torch.Tensor:
+    """Differentiable source-sharded out = A @ x: (fwd_src, fwd_ptr) is
+    A's sharded plan over x's rows, (bwd_src, bwd_ptr) Aᵀ's over A's
+    targets, both in shards of `shard_rows` (`plan_src_sharded`)."""
+    return SpmmSrcShardedFunction.apply(x, fwd_src, fwd_ptr, bwd_src,
+                                        bwd_ptr, shard_rows, exact, folded)
 
 
 class SpmmWeightedFunction(torch.autograd.Function):
@@ -356,7 +635,7 @@ class SpmmWeightedFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, fwd_src, fwd_tgt, fwd_ptr, bwd_src, bwd_ptr,
                 to_bwd, exact):
-        _check_transpose_plan(bwd_ptr, x)
+        _check_transpose_plan(bwd_ptr.numel() - 1, x)
         if to_bwd.numel() != w.numel():
             raise ValueError(f"to_bwd has {to_bwd.numel()} slots, w "
                              f"{w.numel()}")
@@ -406,7 +685,7 @@ class SddmmFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, fwd_src, fwd_tgt, fwd_ptr, bwd_src, bwd_ptr,
                 to_bwd, exact):
-        _check_transpose_plan(bwd_ptr, x)
+        _check_transpose_plan(bwd_ptr.numel() - 1, x)
         ctx.save_for_backward(x, y, fwd_src, fwd_ptr, bwd_src, bwd_ptr,
                               to_bwd)
         ctx.exact = exact

@@ -10,7 +10,8 @@ prints one JSON line per user: {"user", "items", "scores"}. Without
 `--edge_norm sym_sqrt|mean` serves degree-normalised propagation and
 `--edge_attention` edge attention. It propagates through the CUDA kernels
 on the card (the segment-sum, weighted with edge_norm, with the SDDMM
-for edge attention) and through their plain versions on the CPU. The
+for edge attention; source-sharded past 32 MiB of node table, as the
+Trainer resolves it) and through their plain versions on the CPU. The
 graph is encoded once per `Recommender`; recommendations and evaluation
 reuse it (eval is deterministic, keepRate=1).
 """
@@ -25,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sagnn_tpu_torch.config import PRESETS, Config
+from sagnn_tpu_torch.config import PRESETS, Config, resolve_src_sharding
 from sagnn_tpu_torch.data.graph import compile_interval_graphs
 from sagnn_tpu_torch.data.io import DatasetBundle
 from sagnn_tpu_torch.data.sampler import test_batch, user_sequences
@@ -43,11 +44,14 @@ class Recommender:
                  device: torch.device | str = "cuda"):
         """params: the port's flat dict (`convert.py`); None draws random
         weights from a CPU `torch.Generator` seeded with cfg.train.seed, so
-        every device gets the same weights."""
+        every device gets the same weights. spmm_src_shard_rows=0 resolves
+        as the Trainer resolves it; explicit or resolved shard rows serve
+        through the source-sharded plans."""
         self.device = resolve_device(device)
         if bundle.graph_num != cfg.model.graph_num:
             raise ValueError(f"dataset has {bundle.graph_num} interval "
                              f"graphs, config says {cfg.model.graph_num}")
+        cfg = resolve_src_sharding(cfg, bundle.num_users, bundle.num_items)
         self.cfg = cfg
         self.bundle = bundle
         self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items)

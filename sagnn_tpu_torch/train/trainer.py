@@ -8,19 +8,22 @@ losses), the backward, and the TF1 Adam update, eagerly on one device:
 the card by default, the CPU when asked. With spmm_backend="pallas" the
 propagation's forward and backward both go through the CUDA kernels
 (`ops/spmm_cuda`): the segment-sum (K1) unweighted, its weighted mode (K2)
-with `edge_norm` or `edge_dropout_keep < 1`, and K2 with the SDDMM (K5)
-with `edge_attention`. The edge weights and the cross-direction
-permutation are attached from `bundle.sub_mats` as the JAX Trainer does
-(trainer.py:155-233); the edge-dropout masks are drawn each step from
-the dropout generator, so checkpoints cover them. Not here yet: meshes
-and multi-process runs (ROADMAP Queue A6), `load_imported_params` (A3),
-full-sort evaluation (A1).
+with `edge_norm` or `edge_dropout_keep < 1`, K2 with the SDDMM (K5) with
+`edge_attention`, and past 32 MiB of node table (or with an explicit
+`spmm_src_shard_rows`) its source-sharded accumulating mode (K3), with
+row-folded gathers (K4) under `spmm_fold_gather`. The edge weights, the
+cross-direction permutation and the sharded plans are attached as the
+JAX Trainer does (trainer.py:132-233); the edge-dropout and LSTM dropout
+masks are drawn each step from the dropout generator, so checkpoints
+cover them. `remat_propagation` and `fusion_chunk_rows` bound the step's
+memory at the 1M-user scale. Not here yet: meshes and multi-process runs
+(ROADMAP Queue A6), `load_imported_params` (A3), full-sort evaluation
+(A1), `fusion_dtype="bf16"` (A5).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-import dataclasses
 import signal
 import time
 from typing import Dict, Optional
@@ -28,7 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from sagnn_tpu_torch.config import Config
+from sagnn_tpu_torch.config import Config, resolve_src_sharding
 from sagnn_tpu_torch.data.graph import compile_interval_graphs
 from sagnn_tpu_torch.data.io import DatasetBundle
 from sagnn_tpu_torch.data.sampler import Sampler
@@ -40,28 +43,6 @@ from sagnn_tpu_torch.train.metrics import MetricsHistory, topk_metrics
 from sagnn_tpu_torch.train.optim import TF1Adam
 from sagnn_tpu_torch.utils.logger import log
 from sagnn_tpu_torch.utils.profiling import StepTimer
-
-# JAX's auto source-sharding threshold (trainer.py:132-143): the largest
-# multiple of 128 rows whose f32 table stays under 32 MiB
-_SRC_SHARD_BYTES = 32 * 2 ** 20
-
-
-def _resolve_src_sharding(cfg: Config, bundle: DatasetBundle) -> Config:
-    """spmm_src_shard_rows=0 (auto) as the JAX Trainer resolves it: on
-    past the threshold, which the port cannot run yet, else -1."""
-    mc = cfg.model
-    if mc.spmm_backend != "pallas" or mc.spmm_src_shard_rows != 0:
-        return cfg
-    cliff_rows = max(128, _SRC_SHARD_BYTES // (4 * mc.latdim) // 128 * 128)
-    big = max(bundle.num_users, bundle.num_items)
-    if big > cliff_rows:
-        raise NotImplementedError(
-            f"spmm_src_shard_rows=0 resolves to source sharding for a "
-            f"{big}-row node table (threshold {cliff_rows} rows); "
-            f"source-sharded propagation (K3) is not ported yet: ROADMAP "
-            f"Queue A5")
-    return cfg.replace(model=dataclasses.replace(mc, spmm_src_shard_rows=-1))
-
 
 class Trainer:
     """End-to-end trainer over one DatasetBundle on one device."""
@@ -76,7 +57,7 @@ class Trainer:
         if cfg.train.full_sort:
             raise NotImplementedError("full_sort=True: full-sort evaluation "
                                       "is not ported yet: ROADMAP Queue A1")
-        cfg = _resolve_src_sharding(cfg, bundle)
+        cfg = resolve_src_sharding(cfg, bundle.num_users, bundle.num_items)
         check_ported(cfg.model, train=True)
         self.cfg = cfg
         self.bundle = bundle

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card against their plain versions: the
-segment-sum (K1) forward and backward, its weighted mode (K2) and the
-SDDMM (K5) with both autograd Functions; the serving encode (parity and
-each edge variant) and a training step on the card against the CPU.
+segment-sum (K1) forward and backward, its weighted mode (K2), its
+accumulating (K3) and row-folded (K4) modes on sharded and sliced plans,
+and the SDDMM (K5) with both autograd Functions; the serving encode
+(parity and each edge variant) and a training step on the card against
+the CPU.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. They import
 neither JAX nor the JAX package, so they run on a machine with PyTorch
@@ -447,3 +449,147 @@ def test_weighted_functions_backward_match_plain(dev, exact, side):
         # so the f32 tolerance holds
         torch.testing.assert_close(a.cpu().double(), b.detach().double(),
                                    rtol=1e-5, atol=scale, msg=name)
+
+
+# -- K3 and K4 -------------------------------------------------------------------
+
+def _sharded(n_tgt, n_src, n_edges, shard_rows, seed, skew=True):
+    """A padded target-sorted COO with an unused source range (an empty
+    shard) and a hot row of a tenth of the edges, as its K1 plan and its
+    sharded plan (CPU). The hot row stays at a tenth of the edges because
+    the atol of `_tol` grows as sqrt(degree) while the f32 rounding of a
+    row's sum of N(0, 1) rows grows about as the degree."""
+    rng = np.random.default_rng(seed)
+    tgt = np.sort(rng.integers(0, n_tgt, n_edges))
+    if skew:
+        tgt[: n_edges // 10] = n_tgt // 2
+        tgt = np.sort(tgt)
+    # sources drawn uniformly outside [shard_rows, 2 * shard_rows)
+    src = rng.integers(0, n_src - shard_rows, n_edges)
+    src = np.where(src >= shard_rows, src + shard_rows, src)
+    src = np.concatenate([src, np.zeros(11, np.int64)]).astype(np.int32)
+    tgt = np.concatenate([tgt, np.full(11, n_tgt)]).astype(np.int32)
+    local, ptr_ss = sc.plan_src_sharded(src, tgt, n_tgt, n_src, shard_rows)
+    return (torch.from_numpy(src), torch.from_numpy(sc.csr_row_ptr(tgt,
+                                                                   n_tgt)),
+            torch.from_numpy(local), torch.from_numpy(ptr_ss))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("shard_rows", [256, 333])
+def test_src_sharded_kernel_matches_plain(dev, exact, folded, shard_rows):
+    """K3 (with K4 when folded and shard_rows is even) against the plain
+    sharded version summed in f64, one launch per shard under the mode's
+    name; bit-equal with and without the fold."""
+    src, ptr, local, ptr_ss = _sharded(1200, 1000, 30_000, shard_rows,
+                                       seed=shard_rows)
+    x = torch.randn((1000, 64), generator=torch.Generator().manual_seed(3))
+    want = sc.spmm_apply_src_sharded_plain(x.double(), local, ptr_ss,
+                                           shard_rows, exact)
+    before = dict(sc.LAUNCHES)
+    got = sc.spmm_apply_src_sharded(x.to(dev), local.to(dev),
+                                    ptr_ss.to(dev), shard_rows, exact,
+                                    folded)
+    torch.cuda.synchronize()
+    mode = "f32" if exact else "bf16"
+    name = f"segsum_{'fold_' if folded and shard_rows % 2 == 0 else ''}" \
+        f"acc_{mode}"
+    n_shards = ptr_ss.shape[0]
+    assert sc.LAUNCHES[name] == before[name] + n_shards
+    assert sc.LAUNCHES[f"segsum_{mode}"] == before[f"segsum_{mode}"]
+    torch.testing.assert_close(got.cpu().double(), want, **_tol(ptr))
+    other = sc.spmm_apply_src_sharded(x.to(dev), local.to(dev),
+                                      ptr_ss.to(dev), shard_rows, exact,
+                                      not folded)
+    assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_folded_kernel_is_bit_equal_to_unfolded(dev, exact):
+    """K4 gives K1's bits; an odd row count runs (and counts) K1."""
+    src, ptr, _, _ = _sharded(900, 700, 25_000, 128, seed=1)
+    x = torch.randn((700, 64), generator=torch.Generator().manual_seed(4))
+    mode = "f32" if exact else "bf16"
+    before = dict(sc.LAUNCHES)
+    fold = sc.spmm_apply(x.to(dev), src.to(dev), ptr.to(dev), exact,
+                         folded=True)
+    plain = sc.spmm_apply(x.to(dev), src.to(dev), ptr.to(dev), exact)
+    torch.cuda.synchronize()
+    assert torch.equal(fold, plain)
+    assert sc.LAUNCHES[f"segsum_fold_{mode}"] == \
+        before[f"segsum_fold_{mode}"] + 1
+    torch.testing.assert_close(
+        fold.cpu().double(), sc.spmm_apply_plain(x.double(), src, ptr,
+                                                 exact), **_tol(ptr))
+    odd = torch.cat([x, x[:1]]).to(dev)                 # 701 rows
+    before = dict(sc.LAUNCHES)
+    sc.spmm_apply(odd, src.to(dev), ptr.to(dev), exact, folded=True)
+    assert sc.LAUNCHES[f"segsum_{mode}"] == before[f"segsum_{mode}"] + 1
+    assert sc.LAUNCHES[f"segsum_fold_{mode}"] == \
+        before[f"segsum_fold_{mode}"]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("folded", [False, True])
+def test_sliced_kernel_matches_plain(dev, exact, folded):
+    src, ptr, _, _ = _sharded(1000, 800, 20_000, 100, seed=2)
+    x = torch.randn((800, 64), generator=torch.Generator().manual_seed(5))
+    mode = "f32" if exact else "bf16"
+    name = f"segsum_{'fold_' if folded else ''}acc_{mode}"
+    before = dict(sc.LAUNCHES)
+    got = sc.spmm_apply(x.to(dev), src.to(dev), ptr.to(dev), exact,
+                        num_slices=3, folded=folded)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES[name] == before[name] + 3
+    want = sc.spmm_apply_sliced_plain(x.double(), src, ptr, 3, exact)
+    torch.testing.assert_close(got.cpu().double(), want, **_tol(ptr))
+
+
+def test_accumulate_leaves_rows_without_edges(dev):
+    """K3 adds each row's sum once and does not touch rows without edges
+    (zero_init): a prefilled output keeps those rows' values bit for
+    bit."""
+    src, ptr, _, _ = _sharded(500, 300, 3_000, 100, seed=6, skew=False)
+    deg = (ptr[1:] - ptr[:-1])
+    ptr = ptr.clone()
+    ptr[1:] = torch.cumsum(torch.where(torch.arange(500) % 3 == 0, 0, deg),
+                           0).to(torch.int32)
+    x = torch.randn((300, 64), generator=torch.Generator().manual_seed(7))
+    base = torch.randn((500, 64), generator=torch.Generator().manual_seed(8))
+    out = base.to(dev).clone()
+    sc._launch_segsum(x.to(dev).contiguous(), src.to(dev), ptr.to(dev), out,
+                      True, False, accumulate=True)
+    torch.cuda.synchronize()
+    empty = (ptr[1:] == ptr[:-1])
+    assert bool(empty[::3].all())
+    assert torch.equal(out.cpu()[empty], base[empty])
+    want = base.double() + sc.spmm_apply_plain(x.double(), src, ptr)
+    torch.testing.assert_close(out.cpu().double(), want, **_tol(ptr))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("folded", [False, True])
+def test_src_sharded_backward_matches_plain(dev, exact, folded):
+    """dx of `spmm_src_sharded` (K3 per shard of the transpose direction's
+    sharded plan) against the plain transpose sum in f64."""
+    g = _bipartite("cpu", 600, 800, 20_000, seed=9)
+    shard_rows = 128
+    plans = {}
+    for side, n_t, n_s in (("u", 600, 800), ("i", 800, 600)):
+        src, tgt = g[f"{side}_src"].numpy(), g[f"{side}_tgt"].numpy()
+        plans[side] = [torch.from_numpy(a).to(dev) for a in
+                       sc.plan_src_sharded(src, tgt, n_t, n_s, shard_rows)]
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn((800, 64), generator=gen).to(dev).requires_grad_()
+    cot = torch.randn((600, 64), generator=gen)
+    out = sc.spmm_src_sharded(x, *plans["u"], *plans["i"], shard_rows,
+                              exact, folded)
+    mode = "f32" if exact else "bf16"
+    name = f"segsum_{'fold_' if folded else ''}acc_{mode}_bwd"
+    before = dict(sc.LAUNCHES)
+    dx, = torch.autograd.grad(out, x, cot.to(dev))
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES[name] == before[name] + plans["i"][1].shape[0]
+    want = sc.spmm_apply_plain(cot.double(), g["i_src"], g["i_ptr"], exact)
+    torch.testing.assert_close(dx.cpu().double(), want, **_tol(g["i_ptr"]))

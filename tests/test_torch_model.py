@@ -208,8 +208,7 @@ def test_chunked_topk_matches_jax(chunk):
 
 @pytest.mark.parametrize("field,value", [
     ("spmm_backend", "ring"), ("seq_parallel", True),
-    ("spmm_src_shard_rows", 131_072), ("per_token_seq_attention", True),
-    ("spmm_src_shard_rows", 1024), ("fusion_dtype", "bf16")])
+    ("per_token_seq_attention", True), ("fusion_dtype", "bf16")])
 def test_options_not_ported_raise(field, value):
     cfg = dataclasses.replace(torch_cfg(MCFG), **{field: value})
     with pytest.raises(NotImplementedError, match=field):

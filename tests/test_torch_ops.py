@@ -176,8 +176,9 @@ def test_lstm_dropout_only_with_generator():
     x = torch.ones((4, 3, 8))
     p = {"kernel": torch.full((16, 32), 0.1), "bias": torch.zeros(32)}
     a = tlstm.lstm_scan(p, x, keep_rate=0.5)
-    b = tlstm.lstm_scan(p, x, keep_rate=0.5,
-                        dropout_gen=torch.Generator().manual_seed(0))
+    keep = tlstm.dropout_keep_mask(torch.Generator().manual_seed(0),
+                                   (4, 3, 8), 0.5, "cpu")
+    b = tlstm.lstm_scan(p, x, keep_rate=0.5, keep_mask=keep)
     kept = b != 0
     assert torch.allclose(b[kept], a[kept] / 0.5)
     assert 0 < kept.float().mean() < 1

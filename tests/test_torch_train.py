@@ -42,7 +42,7 @@ from sagnn_tpu_torch.data.graph import compile_interval_graphs
 from sagnn_tpu_torch.models.selfgnn import (SelfGNN, TrainBatch,
                                             graphs_to_device, reg_loss)
 from sagnn_tpu_torch.ops import spmm_cuda
-from sagnn_tpu_torch.ops.lstm import lstm_scan
+from sagnn_tpu_torch.ops.lstm import dropout_keep_mask, lstm_scan
 from sagnn_tpu_torch.train.optim import TF1Adam
 
 from tests.test_tf_fixture import CHECKS, build_batch, build_model_cfg
@@ -152,12 +152,13 @@ def test_spmm_function_rejects_a_mismatched_backward_plan():
 def test_lstm_dropout_masks_come_from_the_generator():
     x = torch.ones((6, 3, 8))
     p = {"kernel": torch.full((16, 32), 0.1), "bias": torch.zeros(32)}
-    a = lstm_scan(p, x, keep_rate=0.5,
-                  dropout_gen=torch.Generator().manual_seed(4))
-    b = lstm_scan(p, x, keep_rate=0.5,
-                  dropout_gen=torch.Generator().manual_seed(4))
-    c = lstm_scan(p, x, keep_rate=0.5,
-                  dropout_gen=torch.Generator().manual_seed(5))
+
+    def scan(seed):
+        keep = dropout_keep_mask(torch.Generator().manual_seed(seed),
+                                 (6, 3, 8), 0.5, "cpu")
+        return lstm_scan(p, x, keep_rate=0.5, keep_mask=keep)
+
+    a, b, c = scan(4), scan(4), scan(5)
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
@@ -240,11 +241,25 @@ def test_train_losses_need_a_generator_for_dropout(env):
     ("fusion_chunk_rows", 1), ("fusion_chunk_rows", 16),
     ("remat_propagation", True)])
 def test_training_options_not_ported_raise(env, field, value):
+    """fusion_chunk_rows (one row per block, and 16) and remat_propagation,
+    which training refused until they were ported (hence the name), now
+    train and give the losses and gradients of the step without them."""
     bundle, _jg, _jp, tg, tp, jbatch = env
-    cfg = dataclasses.replace(torch_cfg(MCFG), **{field: value})
-    model = SelfGNN(cfg, bundle.num_users, bundle.num_items)  # serving: ok
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-        model.train_losses(tp, tg, _torch_batch(jbatch))
+    batch = _torch_batch(jbatch)
+    cfg = torch_cfg(MCFG)
+    want = _port_loss_and_grads(SelfGNN(cfg, bundle.num_users,
+                                        bundle.num_items),
+                                tp, tg, batch, 1e-2, 1e-3)
+    got = _port_loss_and_grads(
+        SelfGNN(dataclasses.replace(cfg, **{field: value}),
+                bundle.num_users, bundle.num_items), tp, tg, batch, 1e-2,
+        1e-3)
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a.item(), b.item(), rtol=1e-6)
+    g_max = max(float(g.abs().max()) for g in want[3].values())
+    for k, w in want[3].items():
+        np.testing.assert_allclose(got[3][k].numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6 * g_max, err_msg=k)
 
 
 # -- the executed TF1 reference ----------------------------------------------

@@ -9,7 +9,6 @@ import json
 import os
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -17,9 +16,9 @@ import torch
 
 from sagnn_tpu.train.metrics import MetricsHistory as JMetricsHistory
 from sagnn_tpu.utils.profiling import StepTimer as JStepTimer
-from sagnn_tpu_torch.config import Config, ModelConfig, TrainConfig
+from sagnn_tpu_torch.config import (Config, ModelConfig, TrainConfig,
+                                    resolve_src_sharding)
 from sagnn_tpu_torch.data.synthetic import synthetic_dataset
-from sagnn_tpu_torch.train import trainer as trainer_mod
 from sagnn_tpu_torch.train.checkpoint import CheckpointManager
 from sagnn_tpu_torch.train.metrics import MetricsHistory
 from sagnn_tpu_torch.train.trainer import Trainer
@@ -147,8 +146,8 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(bundle, tmp_path):
 
 @pytest.mark.parametrize("train,model,match", [
     ({"full_sort": True}, {}, "full_sort.*ROADMAP"),
-    ({}, {"remat_propagation": True}, "remat_propagation.*ROADMAP"),
-    ({}, {"fusion_chunk_rows": 8}, "fusion_chunk_rows.*ROADMAP"),
+    ({}, {"fusion_dtype": "bf16"}, "fusion_dtype.*ROADMAP"),
+    ({}, {"seq_parallel": True}, "seq_parallel.*ROADMAP"),
     ({}, {"per_token_seq_attention": True},
      "per_token_seq_attention.*ROADMAP"),
 ])
@@ -159,20 +158,43 @@ def test_unported_options_raise(bundle, tmp_path, train, model, match):
         Trainer(cfg, bundle, ckpt_root=str(tmp_path), device="cpu")
 
 
+@pytest.mark.parametrize("model", [{"remat_propagation": True},
+                                   {"fusion_chunk_rows": 8}])
+def test_memory_options_train_on_the_cpu(bundle, tmp_path, model):
+    """remat_propagation and fusion_chunk_rows (48 users, 64 items: 6 and 8
+    blocks) train: finite losses, every weight moved."""
+    cfg = _cfg(epoch=1)
+    tr = Trainer(cfg.replace(model=dataclasses.replace(cfg.model, **model)),
+                 bundle, ckpt_root=str(tmp_path), device="cpu")
+    before = {k: v.detach().clone() for k, v in tr.state["params"].items()}
+    res = tr.train_epoch(verbose=False)
+    assert np.isfinite(res["Loss"]) and tr.state["step"] == 2
+    assert all(not torch.equal(v.detach(), before[k])
+               for k, v in tr.state["params"].items())
+
+
 def test_auto_source_sharding_past_the_threshold_raises():
-    """spmm_src_shard_rows=0 resolves as the JAX Trainer does: off below
-    the 32 MiB table threshold, source sharding (not ported) above it."""
+    """spmm_src_shard_rows=0 resolves as the JAX Trainer does: off up to
+    the 32 MiB table threshold, source sharding in shards of that many
+    rows above it (where it raised until K3 was ported, hence the name);
+    explicit values and the "xla" backend stay as given."""
     cfg = _cfg()
-    small = types.SimpleNamespace(num_users=48, num_items=64)
-    assert trainer_mod._resolve_src_sharding(
-        cfg, small).model.spmm_src_shard_rows == -1
+    assert resolve_src_sharding(cfg, 48, 64).model.spmm_src_shard_rows == -1
     # latdim 16: 32 MiB / (4 B * 16) = 524,288 rows
-    big = types.SimpleNamespace(num_users=524_289, num_items=10)
-    with pytest.raises(NotImplementedError, match="K3.*ROADMAP"):
-        trainer_mod._resolve_src_sharding(cfg, big)
-    edge = types.SimpleNamespace(num_users=524_288, num_items=10)
-    assert trainer_mod._resolve_src_sharding(
-        cfg, edge).model.spmm_src_shard_rows == -1
+    assert resolve_src_sharding(
+        cfg, 524_289, 10).model.spmm_src_shard_rows == 524_288
+    assert resolve_src_sharding(
+        cfg, 10, 524_289).model.spmm_src_shard_rows == 524_288
+    assert resolve_src_sharding(
+        cfg, 524_288, 10).model.spmm_src_shard_rows == -1
+    # the flagship: latdim 64, 1,048,576 users -> 131,072-row shards
+    wide = cfg.replace(model=dataclasses.replace(cfg.model, latdim=64))
+    assert resolve_src_sharding(
+        wide, 1_048_576, 786_432).model.spmm_src_shard_rows == 131_072
+    for mc in (dataclasses.replace(cfg.model, spmm_src_shard_rows=16),
+               dataclasses.replace(cfg.model, spmm_backend="xla")):
+        assert resolve_src_sharding(cfg.replace(model=mc), 10 ** 6,
+                                    10).model == mc
 
 
 def test_test_epoch_limits_users_and_gives_rates(bundle, tmp_path):
