@@ -33,8 +33,11 @@ the script exits non-zero; it prints no result line then):
                its propagation summed in f64: preLoss, sslloss and every
                parameter's gradient; 12 forward and 12 backward launches;
                the same step on the bf16 table (12 + 12 of its launches);
-               both steps with spmm_fold_gather (K4, 12 + 12); the device
-               time of the step and of its parts.
+               both steps with spmm_fold_gather (K4, 12 + 12); at keepRate
+               0.5, the step with remat_propagation and fusion_chunk_rows
+               16,384 (24 + 12 launches) against the step without them
+               from one dropout-generator state; the device time of the
+               step and of its parts.
   7. training — `Trainer(...).run()` with the unchanged gowalla preset
                (keepRate 0.5) for one epoch of ceil(trn_num / batch) = 20
                steps, its evaluation over every test user and its
@@ -116,6 +119,9 @@ EVAL_USERS = 4096
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# a segment-sum against its plain version summed in f64 (`seg_tol`)
+F32_EPS = 2.0 ** -23
+SEG_TOL = "rtol 1e-5, atol f32 eps * max degree * max|term|"
 KERNEL_SOURCE = "sagnn_tpu_torch/csrc/segsum.cu"
 KERNEL_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:218"   # _segsum_kernel
 BWD_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:485"      # _spmm_bwd
@@ -197,11 +203,21 @@ def sharded_row_ptr(ptr_ss):
     return torch.cat([deg.new_zeros(1), torch.cumsum(deg, 0)])
 
 
-def seg_tol(ptr) -> tuple[float, float]:
-    """(rtol, atol) for a segment-sum in f32: the stated tolerance,
-    rtol 1e-5 and atol 1e-5 * sqrt(max degree)."""
+def seg_tol(ptr, term_max: float) -> tuple[float, float]:
+    """(rtol, atol) for a segment-sum in f32 against its sum in f64: rtol
+    1e-5, and an atol that bounds the f32 rounding of the hottest row's
+    sum, the f32 epsilon times max degree * `term_max` (the largest |term|:
+    max|x| of the table, times max|w| where the sum is weighted), a bound
+    on that row's sum of absolute values. The rounding grows with the
+    row's length (about as the degree for N(0, 1) terms), so the bound
+    does too."""
     deg = int((ptr[1:] - ptr[:-1]).max()) if ptr.numel() > 1 else 0
-    return 1e-5, 1e-5 * math.sqrt(max(1, deg))
+    return 1e-5, F32_EPS * max(1, deg) * term_max
+
+
+def amax(t) -> float:
+    """max |t|, the largest term a segment-sum over `t` adds."""
+    return float(t.abs().max()) if t.numel() else 0.0
 
 
 def expect_launches(got: dict, what: str, **want) -> None:
@@ -431,7 +447,7 @@ def kernel_phase(graphs, device) -> dict:
             out_p = sc.spmm_apply_plain(x.double(), src, ptr, exact)
             out_p32 = sc.spmm_apply_plain(x, src, ptr, exact)
             torch.cuda.synchronize()
-            rtol, atol = seg_tol(ptr)
+            rtol, atol = seg_tol(ptr, amax(x))
             err = check_close(out_k, out_p, rtol, atol, f"{name}[{d}]")
             log(f"  plain f32[{d}] vs f64: max abs err "
                 f"{max_err(out_p32, out_p):.3e}")
@@ -486,7 +502,7 @@ def kernel_phase(graphs, device) -> dict:
         out = sc.spmm_apply(x, src, ptr, exact)
         want = sc.spmm_apply_plain(x.double(), src, ptr, exact)
         torch.cuda.synchronize()
-        rtol, atol = seg_tol(ptr)
+        rtol, atol = seg_tol(ptr, amax(x))
         err = check_close(out, want, rtol, atol, f"{name}: empty rows")
         check(not bool(out[::2].any()), f"{name}: empty rows must be zero")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -496,7 +512,7 @@ def kernel_phase(graphs, device) -> dict:
                                "ids and row pointers once, the f32 output "
                                "once, at 3.35e12 B/s; operations: one f32 "
                                "add per gathered value at 67e12 FLOP/s")
-        rec["tolerance"] = "rtol 1e-5, atol 1e-5*sqrt(max degree)"
+        rec["tolerance"] = SEG_TOL
         records[name] = rec
         log(f"{name}: u {rec['per_direction']['u']['ms']:.4f} ms, "
             f"i {rec['per_direction']['i']['ms']:.4f} ms; plain "
@@ -543,7 +559,7 @@ def backward_phase(graphs, device) -> dict:
             dx, = torch.autograd.grad(out, x, g, retain_graph=True)
             want = sc.spmm_apply_plain(g.double(), bsrc, bptr, exact)
             torch.cuda.synchronize()
-            rtol, atol = seg_tol(bptr)
+            rtol, atol = seg_tol(bptr, amax(g))
             err = check_close(dx, want, rtol, atol, f"{name}[{d}-hop dx]")
             ms = cuda_ms(lambda: sc.spmm_apply(g, bsrc, bptr, exact))
             autograd_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -579,8 +595,7 @@ def backward_phase(graphs, device) -> dict:
                 totals[key] += rec["per_direction"][d][key]
         rec.update(totals)
         rec["bound_by"] = "bytes"
-        rec["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree of the "
-                            "transpose plan)")
+        rec["tolerance"] = SEG_TOL + " (of the transpose plan)"
         records[name] = rec
         log(f"{name}: u-hop dx {rec['per_direction']['u']['ms']:.4f} ms, "
             f"i-hop dx {rec['per_direction']['i']['ms']:.4f} ms; autograd "
@@ -609,13 +624,13 @@ def bf16_propagation_reference(params, graphs, mc, num_users, num_items,
     if attr == "spmm":
         def plain(x, src, ptr, _bwd_src, _bwd_ptr, exact, _folded=False):
             return (sc.spmm_apply_plain(x.double(), src, ptr, exact),
-                    seg_tol(ptr))
+                    seg_tol(ptr, amax(x)))
     elif attr == "spmm_src_sharded":
         def plain(x, src, ptr, _bwd_src, _bwd_ptr, shard_rows, exact,
                   _folded=False):
             return (sc.spmm_apply_src_sharded_plain(x.double(), src, ptr,
                                                     shard_rows, exact),
-                    seg_tol(sharded_row_ptr(ptr)))
+                    seg_tol(sharded_row_ptr(ptr), amax(x)))
     else:
         def plain(x, x_tgt, *plans, exact):
             return (plain_attention(x.double(), x_tgt.double(), *plans,
@@ -751,6 +766,44 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
         log(f"  {mode} fold step gradients: max abs deviation from the "
             f"unfolded step {fold_dev[mode]:.3e} x max|g|")
 
+    # keepRate 0.5: remat and chunked fusion (the flagship's memory
+    # options) give the same losses and gradients as the step without
+    # them from one state of the dropout generator; the recompute must
+    # apply the forward's masks
+    dropout = dataclasses.replace(mc, keep_rate=0.5)
+    remat = dataclasses.replace(dropout, remat_propagation=True,
+                                fusion_chunk_rows=16_384)
+
+    def dropout_step(model_cfg, seed):
+        model = selfgnn.SelfGNN(model_cfg, nu, ni)
+        gen_d = torch.Generator(device=device).manual_seed(seed)
+        return loss_and_grads(model, leaves, graphs, batch, tc, gen_d)
+
+    want_d = dropout_step(dropout, 21)
+    other_d = dropout_step(dropout, 22)
+    sc.reset_launches()
+    got_d = dropout_step(remat, 21)
+    torch.cuda.synchronize()
+    remat_launches = dict(sc.LAUNCHES)
+    expect_launches(remat_launches, "keepRate 0.5 remat step",
+                    segsum_f32=2 * hops, segsum_f32_bwd=hops)
+    check(float(other_d[0]) != float(want_d[0]),
+          "keepRate 0.5: another dropout seed gives another loss")
+    check_close(got_d[0].reshape(1), want_d[0].reshape(1), LOSS_RTOL, 0.0,
+                "keepRate 0.5 remat + chunked fusion preLoss vs without")
+    check_close(got_d[1].reshape(1), want_d[1].reshape(1), LOSS_RTOL, 0.0,
+                "keepRate 0.5 remat + chunked fusion sslloss vs without")
+    gd_max = max(float(g.abs().max()) for g in want_d[2].values())
+    remat_share = max(tolerance_used(got_d[2][k], want_d[2][k], GRAD_RTOL,
+                                     GRAD_ATOL_SHARE * gd_max)[1]
+                      for k in keys)
+    check(remat_share <= 1.0, f"keepRate 0.5 remat + chunked fusion "
+          f"gradients: {remat_share:.2f} of the tolerance")
+    log(f"  keepRate 0.5 remat + chunked fusion vs without: gradients at "
+        f"{remat_share:.2f} of the step tolerance; launches "
+        f"{ {k: v for k, v in remat_launches.items() if v} }")
+    del want_d, other_d, got_d
+
     # device time of the step (forward + backward of the whole loss) and
     # of its parts, with CUDA events, on the kernel path
     step_ms = cuda_ms(lambda: loss_and_grads(kernel, leaves, graphs, batch,
@@ -804,6 +857,9 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
         "launches_per_fold_step": {m: {k: v for k, v in f.items() if v}
                                    for m, f in fold_launches.items()},
         "fold_grad_dev_over_max_g": fold_dev,
+        "dropout_remat_grad_check_share": remat_share,
+        "launches_per_dropout_remat_step": {
+            k: v for k, v in remat_launches.items() if v},
         "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
         "grad_atol": grad_atol, "grad_check_share": grad_share,
         "grad_check_worst": grad_worst,
@@ -1088,8 +1144,7 @@ def edge_kernel_phase(graphs, device) -> dict:
             want = sc.spmm_weighted_apply_plain(x.double(), w.double(), src,
                                                 ptr, exact)
             torch.cuda.synchronize()
-            rtol, atol = seg_tol(ptr)
-            atol *= float(w.abs().max())
+            rtol, atol = seg_tol(ptr, amax(x) * amax(w))
             err = check_close(out, want, rtol, atol, f"{k2['name']}[{d}]")
             a = _csr(ptr, src, w[:n], (n_tgt, n_src))
             _add(k2, d, err, edges=n, max_degree=int((ptr[1:] - ptr[:-1])
@@ -1160,14 +1215,14 @@ def edge_kernel_phase(graphs, device) -> dict:
         want5 = sc.sddmm_apply_plain(x.double(), y.double(), src, tgt, ptr,
                                      exact)
         torch.cuda.synchronize()
-        rtol, atol = seg_tol(ptr)
+        rtol, atol = seg_tol(ptr, amax(x) * amax(w))
         err = check_close(out, want, rtol, atol, f"{k2['name']}: empty rows")
         check(not bool(out[::2].any()), f"{k2['name']}: empty rows zero")
         k2["max_abs_err"] = max(k2["max_abs_err"], err)
         atol = 1e-5 * math.sqrt(D) * float(x.abs().max() * y.abs().max())
         err = check_close(s, want5, 1e-5, atol, f"{k5['name']}: empty rows")
         k5["max_abs_err"] = max(k5["max_abs_err"], err)
-        k2["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree)*max|w|")
+        k2["tolerance"] = SEG_TOL + " (max|x| * max|w| the largest term)"
         k2["bound_counts"] = ("bytes: the table once, the source ids, the "
                               "f32 weights and the row pointers once, the "
                               "f32 output once, at 3.35e12 B/s; operations:"
@@ -1255,14 +1310,14 @@ def edge_backward_phase(graphs, device) -> dict:
                 rdy = sc.spmm_weighted_apply_plain(x64, gs64, fsrc, fptr,
                                                    exact)
             torch.cuda.synchronize()
-            rtol, atol = seg_tol(bptr)
-            err2 = check_close(dx, rdx, rtol, atol * float(w.abs().max()),
+            rtol, atol = seg_tol(bptr, amax(g) * amax(w))
+            err2 = check_close(dx, rdx, rtol, atol,
                                f"{k2['name']}[{d}-hop dx]")
-            gmax = float(gs.abs().max())
-            err2 = max(err2, check_close(dxs, rdxs, rtol, atol * gmax,
-                                         f"{k2['name']}[{d}-hop sddmm dx]"))
             err2 = max(err2, check_close(
-                dy, rdy, rtol, seg_tol(fptr)[1] * gmax,
+                dxs, rdxs, rtol, seg_tol(bptr, amax(y) * amax(gs))[1],
+                f"{k2['name']}[{d}-hop sddmm dx]"))
+            err2 = max(err2, check_close(
+                dy, rdy, rtol, seg_tol(fptr, amax(x) * amax(gs))[1],
                 f"{k2['name']}[{d}-hop sddmm dy]"))
             atol5 = 1e-5 * math.sqrt(D) * float(x.abs().max()
                                                 * g.abs().max())
@@ -1279,8 +1334,7 @@ def edge_backward_phase(graphs, device) -> dict:
                      g, w_b, bsrc, bptr, exact)),
                  library_ms=_library_ms(
                      f"{k2['name']}[{d}-hop dx]",
-                     lambda: torch.sparse.mm(at, gl), rdx, rtol,
-                     atol * float(w.abs().max())),
+                     lambda: torch.sparse.mm(at, gl), rdx, rtol, atol),
                  bound_ms=_bound_ms(_k2_bytes(n_t, n_x, n, D, elem),
                                     2 * n * D))
             pattern = _csr(fptr, fsrc, torch.ones(n, device=device),
@@ -1302,8 +1356,8 @@ def edge_backward_phase(graphs, device) -> dict:
                 out, (xv, wv), g, retain_graph=True))
             k5["autograd_ms"] += cuda_ms(lambda: torch.autograd.grad(
                 s, (xv, yv), gs, retain_graph=True))
-        k2["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree of the "
-                           "plan)*max|weight|")
+        k2["tolerance"] = (SEG_TOL + " of the plan (the table's max|x| * "
+                           "max|weight| the largest term)")
         k5["tolerance"] = "rtol 1e-5, atol 1e-5*sqrt(D)*max|x|*max|g|"
         k2["autograd"] = "autograd_ms: the whole SpmmWeightedFunction backward"
         k5["autograd"] = "autograd_ms: the whole SddmmFunction backward"
@@ -1704,8 +1758,8 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
             n = int(ptr[-1])
             x = torch.randn((n_src, D), generator=gen, device=device)
             g = torch.randn((n_tgt, D), generator=gen, device=device)
-            rtol, atol = seg_tol(ptr)
-            brtol, batol = seg_tol(bptr)
+            rtol, atol = seg_tol(ptr, amax(x))
+            brtol, batol = seg_tol(bptr, amax(g))
 
             # forwards
             want_ss = sc.spmm_apply_src_sharded_plain(x.double(), lsrc, lptr,
@@ -1813,8 +1867,7 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
         for rec in (k3, k4, k34, b3, b4, b34):
             rec["k1_ms"] = sum(v["k1_ms"]
                                for v in rec["per_direction"].values())
-            rec["tolerance"] = ("rtol 1e-5, atol 1e-5*sqrt(max degree of "
-                                "the whole plan)")
+            rec["tolerance"] = SEG_TOL + " (of the whole plan)"
             rec["bound_counts"] = (
                 "K3: the table once, the ids, the S row-pointer arrays, and "
                 "a read and a write of the f32 output row per (shard, row) "

@@ -11,13 +11,12 @@ The same cell serves users and items (Q4).
     h' = sigmoid(o) * tanh(c')
 
 Output dropout (a fresh mask per timestep, scaled by 1/keep) applies only
-in training, when a generator or a keep mask is given; inference passes
-neither. The mask is drawn on the output's device, from a generator on
-that device (`dropout_keep_mask`). A caller that recomputes the scan in
-the backward (`torch.utils.checkpoint`) draws the mask once, outside the
-recomputed region, and passes it as `keep_mask`: the checkpoint restores
-only the default generators, so a mask drawn inside from an explicit
-generator would differ between the forward and its recompute.
+in training, when a keep mask is given; inference passes none. The caller
+draws the mask with `dropout_keep_mask`, on the output's device, from a
+generator on that device, outside any region that is recomputed in the
+backward (`torch.utils.checkpoint`): the checkpoint restores only the
+default generators, so a mask drawn inside from an explicit generator
+would differ between the forward and its recompute.
 """
 
 from __future__ import annotations
@@ -36,12 +35,10 @@ def dropout_keep_mask(gen: torch.Generator, shape, keep_rate: float,
 
 def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
               forget_bias: float = 1.0, keep_rate: float = 1.0,
-              dropout_gen: Optional[torch.Generator] = None,
               keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: [N, T, D] -> outputs [N, T, H] (all h_t, like dynamic_rnn).
-    With keep_rate < 1 the outputs are dropped where `keep_mask` [N, T, H]
-    is False, or where a mask drawn from `dropout_gen` is, and scaled by
-    1/keep_rate."""
+    With keep_rate < 1 and a `keep_mask` [N, T, H], the outputs are dropped
+    where the mask is False and scaled by 1/keep_rate."""
     N, T, D = x.shape
     kernel, bias = params["kernel"], params["bias"]
     H = kernel.shape[1] // 4
@@ -60,9 +57,6 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
     out = torch.stack(hs, dim=1)
-    if keep_rate < 1.0 and keep_mask is None and dropout_gen is not None:
-        keep_mask = dropout_keep_mask(dropout_gen, out.shape, keep_rate,
-                                      out.device)
     if keep_rate < 1.0 and keep_mask is not None:
         out = torch.where(keep_mask, out / keep_rate, torch.zeros_like(out))
     return out
