@@ -4,7 +4,7 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11, 12 (any failure raises and
+Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11, 13, 12 (any failure raises and
 the script exits non-zero; it prints no result line then):
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile sagnn_tpu_torch/csrc/*.cu, one nvcc per source in
@@ -85,6 +85,25 @@ the script exits non-zero; it prints no result line then):
                step with the fold off and on bf16 tables; four
                `Trainer.train_step`s at keepRate 0.5, timed, with the peak
                device memory; a torch.profiler pass over two more.
+ 13. ring — the preset with spmm_backend="ring" on a one-card mesh of
+               four model ranks, all on the card (rows_u 12,288, rows_i
+               10,240; NCCL refuses two ranks on one card, so one process
+               drives the ring and each exchange copies a block into a new
+               buffer on a side stream); the same bundle and weights. K6
+               (`ring_segsum_f32`, and `ring_wsegsum_f32` with sym_sqrt
+               weights) on interval 0, both directions, against its plain
+               ring in f64 and the unsharded K1/K2 sum, its backward (the
+               ring on the transpose plans) against the plain transpose
+               ring in f64; ring, plain, K1/K2 and library times and the
+               bound. The ring encode (192 K6 launches, no K1) against the
+               "pallas" encode (rtol 1e-4, atol 1e-5 x max|value|) and the
+               plain propagation in f64; a keepRate-1 step against the
+               "pallas" step (192 + 192 launches; each hop's leaky-relu on
+               the ring's side of the kink); the sym_sqrt encode and step
+               and the 'mean' encode (no K6 launch) against the plain path
+               in f64; `Trainer(mesh=...).run()` for one epoch with its
+               evaluations, its checkpoint restored into a "pallas"
+               `Trainer` bit for bit (params and Adam moments).
 Each phase prints its time. Prints a `main_path` line, a `train` JSON line,
 the card's name and power limit, and a `kernels` JSON line, then as the
 last line
@@ -292,6 +311,13 @@ def _plain_spmm_weighted(x, w, src, _tgt, ptr, _bwd_src, _bwd_ptr, _to_bwd,
     return sc.spmm_weighted_apply_plain(x, w, src, ptr, exact)
 
 
+def _plain_ring_spmm(blocks, fwd, _bwd, k, mesh):
+    """`ring_spmm` through K6's plain version, the same ring
+    (differentiable by autograd)."""
+    from sagnn_tpu_torch.parallel.edge_partition import ring_spmm_apply_plain
+    return ring_spmm_apply_plain(blocks, fwd, k, mesh)
+
+
 @contextlib.contextmanager
 def _hop_relu(relu):
     """While active, each propagation hop's leaky-relu (and nothing else's)
@@ -333,8 +359,8 @@ def kernel_kinks(kinks: list):
 @contextlib.contextmanager
 def f64_propagation(kinks: list | None = None):
     """While active, `_interval_propagation` is the plain reference of the
-    kernel path: every hop through the plain versions (K1, K2, and K5 with
-    the edge softmax), on the embedding tables cast to f64; the node states
+    kernel path: every hop through the plain versions (K1, K2, K3, K6, and
+    K5 with the edge softmax), on the embedding tables cast to f64; the node states
     come back in f32. The model it serves runs the "pallas" backend.
 
     kinks: the kernel path's hop signs (`kernel_kinks`), for a gradient
@@ -349,15 +375,17 @@ def f64_propagation(kinks: list | None = None):
 
     patched = {"spmm": _plain_spmm, "spmm_weighted": _plain_spmm_weighted,
                "attention_propagate": plain_attention,
-               "spmm_src_sharded": _plain_spmm_src_sharded}
+               "spmm_src_sharded": _plain_spmm_src_sharded,
+               "ring_spmm": _plain_ring_spmm}
     saved = {name: getattr(selfgnn, name) for name in patched}
     propagation = selfgnn._interval_propagation
 
-    def f64(p, graphs_, cfg_, nu_, ni_, edge_weights=None):
+    def f64(p, graphs_, cfg_, nu_, ni_, edge_weights=None, mesh=None):
         p64 = dict(p)
         for key in ("reg/u_embed", "reg/i_embed"):
             p64[key] = p[key].double()
-        uv, iv = propagation(p64, graphs_, cfg_, nu_, ni_, edge_weights)
+        uv, iv = propagation(p64, graphs_, cfg_, nu_, ni_, edge_weights,
+                             mesh=mesh)
         return uv.float(), iv.float()
 
     def replay(x, leaky):
@@ -881,43 +909,48 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
     return out, batch
 
 
-def profile_steps(step, n: int = PROFILE_STEPS) -> dict:
-    """torch.profiler over `n` calls of `step` (after one unprofiled
-    call): the device's busy share of the window's wall time (the sum of
-    the kernels' and copies' device times; the profiler's own host cost
-    lengthens the window, so the share is a lower bound) and the top
-    kernels by device time, in ms per step. Without device events (a
-    profiler that cannot trace the card) it records that and no share."""
+def profiled_ms(fn, n: int) -> tuple[float, dict]:
+    """torch.profiler over `n` calls of fn (after one unprofiled call):
+    (wall ms per call, {device activity name: device ms per call}), the
+    kernels' and copies' own device times; {} where the profiler saw no
+    device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step()
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    return wall_ms / n, {
+        e.key: getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / n
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def profile_steps(step, n: int = PROFILE_STEPS) -> dict:
+    """torch.profiler over `n` calls of `step` (`profiled_ms`): the
+    device's busy share of the window's wall time (the sum of the kernels'
+    and copies' device times; the profiler's own host cost lengthens the
+    window, so the share is a lower bound) and the top kernels by device
+    time, in ms per step. Without device events (a profiler that cannot
+    trace the card) it records that and no share."""
+    wall_ms, by_name = profiled_ms(step, n)
+    if not by_name:
         log("profile: no device events in the trace; busy share not "
             "measured")
-        return {"steps": n, "wall_ms_per_step": wall_ms / n,
+        return {"steps": n, "wall_ms_per_step": wall_ms,
                 "busy_share": None}
-
-    def device_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / n
-
-    busy = sum(device_ms(e) for e in kernels)
-    top = sorted(kernels, key=device_ms, reverse=True)[:PROFILE_TOP]
-    out = {"steps": n, "wall_ms_per_step": wall_ms / n,
-           "device_ms_per_step": busy, "busy_share": busy * n / wall_ms,
-           "top_ms_per_step": {e.key[:100]: device_ms(e) for e in top}}
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    out = {"steps": n, "wall_ms_per_step": wall_ms,
+           "device_ms_per_step": busy, "busy_share": busy / wall_ms,
+           "top_ms_per_step": {k[:100]: v for k, v in top}}
     log(f"profile of {n} train steps: wall {out['wall_ms_per_step']:.2f} "
         f"ms, device {busy:.2f} ms per step (busy "
         f"{out['busy_share']:.2f}); top kernels by device time per step:")
@@ -1681,6 +1714,450 @@ def variant_training_phase(cfg, bundle, device) -> dict:
     return out
 
 
+# the ring backend (K6) on a one-card mesh: four model ranks, all on the
+# card (NCCL refuses two ranks on one card; one process drives the ring);
+# K6 is _segsum_pallas(zero_init, weights) per ring bucket, its backward the
+# custom VJP's ring on the transpose plans
+RING_MODEL = 4
+K6_SOURCE = KERNEL_SOURCE
+K6_REPLACES = "sagnn_tpu/parallel/edge_partition.py:440"   # per-bucket call
+K6_BWD_REPLACES = "sagnn_tpu/parallel/edge_partition.py:507"  # _ring_pl_bwd
+
+
+def _ring_bytes_and_ops(plan, n_edges, d, weighted):
+    """K6's bytes for one ring hop of interval 0, counted from the plan:
+    the source table once, the ids (and f32 weights), the P² row-pointer
+    arrays, a read and a write of the f32 output row for every (bucket,
+    row) pair with edges, and each rank's P − 1 block copies (a read and a
+    write each); operations: one add (weighted: a multiply-add) per
+    gathered value and one per accumulated output value."""
+    P = plan.num_shards
+    touched = sum(int((plan.ptr[p][0, :, 1:] > plan.ptr[p][0, :, :-1]).sum())
+                  for p in range(P))
+    nbytes = (P * plan.src_rows * d * 4 + n_edges * 4 * (2 if weighted else 1)
+              + P * P * (plan.rows + 1) * 4 + touched * 2 * d * 4
+              + 2 * P * (P - 1) * plan.src_rows * d * 4)
+    ops = n_edges * d * (2 if weighted else 1) + touched * d
+    return nbytes, ops, touched
+
+
+def _ring_serial_edges(plan) -> int:
+    """Σ over the P² K6 launches of a hop on interval 0 of the launch's
+    longest row: one warp walks a row, and on one card the launches run
+    one after another, so this is the edges the hop walks in series
+    (K1's in series: the whole CSR's longest row)."""
+    return sum(int((plan.ptr[p][0, :, 1:] - plan.ptr[p][0, :, :-1])
+                   .max(dim=-1).values.sum())
+               for p in range(plan.num_shards))
+
+
+def _ring_device_ms(hop) -> tuple[float | None, float, float]:
+    """(the K6 launches' device time, the block copies', all device work's)
+    per call of a ring hop, from the profiler over 10 calls; (None, 0, 0)
+    where it saw no device events."""
+    _wall, by_name = profiled_ms(hop, 10)
+    if not by_name:
+        return None, 0.0, 0.0
+    return (sum(v for k, v in by_name.items() if "segsum_rows_kernel" in k),
+            sum(v for k, v in by_name.items() if "Memcpy" in k),
+            sum(by_name.values()))
+
+
+def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
+    """K6 on interval 0, both directions, unweighted and sym_sqrt-weighted:
+    each ring hop (`ring_spmm_apply`) against its plain version
+    (`ring_spmm_apply_plain`) summed in f64 and against the unsharded K1 /
+    K2 sum of the same hop; its backward (`ring_spmm`, the ring on the
+    transpose plan) against the plain transpose ring in f64. Times the
+    ring hop, its plain version, K1/K2 and the library call
+    (torch.sparse.mm on the hop's whole CSR) on the same hop. Returns
+    per-kernel records. `ms` is the 16 K6 launches' device time per hop
+    (torch.profiler); `hop_ms` the hop as called, with CUDA events, which
+    the host's launch cost paces."""
+    import torch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel import edge_partition as ep
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    D = 64
+    records = {}
+    for norm, name, whole in ((None, "ring_segsum_f32", graphs),
+                              ("sym_sqrt", "ring_wsegsum_f32", sym_graphs)):
+        weighted = norm is not None
+        ring = plans[norm]
+        mode = ("sym_sqrt bucket weights, " if weighted else "") + \
+            f"accumulate per ring bucket, {RING_MODEL} ranks on one card"
+        fw = _record(name, K6_SOURCE, K6_REPLACES, mode)
+        bw = _record(name + "_bwd", K6_SOURCE, K6_BWD_REPLACES,
+                     "backward: dx, the ring on the transpose plan; " + mode)
+        for rec in (fw, bw):
+            rec["k12_ms"] = 0.0
+        for d, n_src, n_tgt in (("u", NUM_ITEMS, NUM_USERS),
+                                ("i", NUM_USERS, NUM_ITEMS)):
+            o = "i" if d == "u" else "u"
+            fwd, bwd = ring[d], ring[o]
+            src, ptr = whole[f"{d}_src"][0], whole[f"{d}_ptr"][0]
+            bsrc, bptr = whole[f"{o}_src"][0], whole[f"{o}_ptr"][0]
+            n = int(ptr[-1])
+            w = bw_ = None
+            if weighted:
+                w = whole["edge_weights"][0 if d == "u" else 1][0]
+                bw_ = whole["edge_weights"][1 if d == "u" else 0][0]
+            wmax = amax(w) if weighted else 1.0
+            x = torch.randn((n_src, D), generator=gen, device=device)
+            g = torch.randn((n_tgt, D), generator=gen, device=device)
+            xb = ep.shard(x, fwd.src_rows, mesh)
+            gb = ep.shard(g, fwd.rows, mesh)
+            got = ep.unshard(ep.ring_spmm_apply(xb, fwd, 0, mesh), n_tgt,
+                             device)
+            want = ep.unshard(ep.ring_spmm_apply_plain(
+                ep.shard(x.double(), fwd.src_rows, mesh), fwd, 0, mesh),
+                n_tgt, device)
+            if weighted:
+                k12 = sc.spmm_weighted_apply(x, w, src, ptr)
+            else:
+                k12 = sc.spmm_apply(x, src, ptr)
+            xv = [b.clone().requires_grad_() for b in xb]
+            dx = torch.autograd.grad(ep.ring_spmm(xv, fwd, bwd, 0, mesh),
+                                     xv, gb)
+            dx = ep.unshard(list(dx), n_src, device)
+            want_dx = ep.unshard(ep.ring_spmm_apply_plain(
+                ep.shard(g.double(), bwd.src_rows, mesh), bwd, 0, mesh),
+                n_src, device)
+            torch.cuda.synchronize()
+            rtol, atol = seg_tol(ptr, amax(x) * wmax)
+            err = check_close(got, want, rtol, atol, f"{name}[{d}]")
+            # K1/K2 and the ring both carry their own f32 rounding
+            check_close(got, k12, rtol, 2 * atol,
+                        f"{name}[{d}] vs the unsharded K1/K2 sum")
+            brtol, batol = seg_tol(bptr, amax(g) * wmax)
+            berr = check_close(dx, want_dx, brtol, batol,
+                               f"{name}_bwd[{d}-hop dx]")
+            values = w[:n] if weighted else torch.ones(n, device=device)
+            a = _csr(ptr, src, values, (n_tgt, n_src))
+            bn = int(bptr[-1])
+            bvalues = bw_[:bn] if weighted else torch.ones(bn, device=device)
+            at = _csr(bptr, bsrc, bvalues, (n_src, n_tgt))
+            nbytes, ops, touched = _ring_bytes_and_ops(fwd, n, D, weighted)
+            bbytes, bops, btouched = _ring_bytes_and_ops(bwd, n, D, weighted)
+            if weighted:
+                k12_ms = cuda_ms(lambda: sc.spmm_weighted_apply(x, w, src,
+                                                                ptr))
+                bk12_ms = cuda_ms(lambda: sc.spmm_weighted_apply(
+                    g, bw_, bsrc, bptr))
+            else:
+                k12_ms = cuda_ms(lambda: sc.spmm_apply(x, src, ptr))
+                bk12_ms = cuda_ms(lambda: sc.spmm_apply(g, bsrc, bptr))
+            gbb = ep.shard(g, bwd.src_rows, mesh)
+            times = {}
+            for key, hop in (
+                    ("fw", lambda: ep.ring_spmm_apply(xb, fwd, 0, mesh)),
+                    ("bw", lambda: ep.ring_spmm_apply(gbb, bwd, 0, mesh,
+                                                      backward=True))):
+                hop_ms = cuda_ms(hop)
+                k6_ms, copy_ms, device_ms = _ring_device_ms(hop)
+                times[key] = dict(
+                    ms=hop_ms if k6_ms is None else k6_ms, hop_ms=hop_ms,
+                    hop_device_ms=device_ms, copy_ms=copy_ms)
+            _add(fw, d, err, edges=n, touched_bucket_rows=touched,
+                 serial_edges=_ring_serial_edges(fwd),
+                 k12_serial_edges=int((ptr[1:] - ptr[:-1]).max()),
+                 unique_bytes=nbytes, k12_ms=k12_ms, **times["fw"],
+                 plain_ms=cuda_ms(lambda: ep.ring_spmm_apply_plain(
+                     xb, fwd, 0, mesh), iters=5),
+                 library_ms=_library_ms(f"{name}[{d}]",
+                                        lambda: torch.sparse.mm(a, x),
+                                        got, rtol, 2 * atol),
+                 bound_ms=_bound_ms(nbytes, ops))
+            _add(bw, d, berr, plan=o, edges=n, touched_bucket_rows=btouched,
+                 serial_edges=_ring_serial_edges(bwd),
+                 k12_serial_edges=int((bptr[1:] - bptr[:-1]).max()),
+                 unique_bytes=bbytes, k12_ms=bk12_ms, **times["bw"],
+                 plain_ms=cuda_ms(lambda: ep.ring_spmm_apply_plain(
+                     gbb, bwd, 0, mesh), iters=5),
+                 library_ms=cuda_ms(lambda: torch.sparse.mm(at, g)),
+                 bound_ms=_bound_ms(bbytes, bops))
+        for rec in (fw, bw):
+            for key in ("k12_ms", "hop_ms", "hop_device_ms", "copy_ms"):
+                rec[key] = sum(v[key] for v in rec["per_direction"].values())
+            rec["ms_measured"] = (
+                "ms: the 16 K6 launches' device time per hop "
+                "(torch.profiler, 10 hops); hop_ms: the ring hop as called "
+                "(CUDA events, mean of 20), paced by the host; "
+                "hop_device_ms: all its device work (K6, block copies, "
+                "zero fills)")
+            rec["tolerance"] = SEG_TOL + " of the hop's whole CSR (max|x| * "
+            rec["tolerance"] += "max|weight| the largest term)" if weighted \
+                else "1)"
+            rec["bound_counts"] = (
+                "the source table once, the ids (and f32 weights), the P^2 "
+                "row-pointer arrays, a read and a write of the f32 output "
+                "row per (bucket, row) pair with edges, and a read and a "
+                "write of each of the P(P-1) block copies, at 3.35e12 B/s; "
+                "operations: one f32 add (weighted: multiply-add) per "
+                "gathered value and one per accumulated value at 67e12 "
+                "FLOP/s")
+            records[rec["name"]] = rec
+            log(f"{rec['name']}: K6 u {rec['per_direction']['u']['ms']:.4f}"
+                f" ms, i {rec['per_direction']['i']['ms']:.4f} ms of device "
+                f"time; the hops as called {rec['hop_ms']:.4f} ms ("
+                f"{rec['hop_device_ms']:.4f} ms of device work, copies "
+                f"{rec['copy_ms']:.4f} ms); K1/K2 {rec['k12_ms']:.4f} ms; "
+                f"plain {rec['plain_ms']:.4f} ms; library "
+                f"{rec['library_ms']} ms; bound {rec['bound_ms']:.4f} ms; "
+                f"max abs err {rec['max_abs_err']:.3e}; edges in series "
+                + ", ".join(f"{d} {v['serial_edges']} (K1/K2 "
+                            f"{v['k12_serial_edges']})"
+                            for d, v in rec["per_direction"].items()))
+    return records
+
+
+def _ring_hop_kinks(kinks: list, model_ranks: int) -> list:
+    """The ring path's recorded kinks, one per block, as one mask per hop
+    (the blocks of a hop laid end to end), for a replay on a path that
+    takes each hop whole; the replay slices off the pad rows."""
+    import torch
+    return [torch.cat(kinks[i:i + model_ranks])
+            for i in range(0, len(kinks), model_ranks)]
+
+
+def ring_phase(cfg, bundle, params, batch, rec, vrecs, device):
+    """The ring backend at the preset's full width on a one-card mesh of
+    RING_MODEL ranks: K6 against its plain version
+    (`ring_kernel_phase`); the ring encode (192 K6 launches, no K1)
+    against the "pallas" encode on the same weights and against the plain
+    propagation in f64; one keepRate-1 step against the "pallas" step
+    (192 + 192 launches; each hop's leaky-relu on the ring's side of the
+    kink); the sym_sqrt encode and step (`ring_wsegsum_f32`) and the
+    'mean' encode (no K6 launch) against the plain path in f64;
+    `Trainer(mesh=...).run()` for one epoch with its evaluations and a
+    checkpoint, restored into a "pallas" Trainer bit for bit. Returns
+    (results, records)."""
+    import torch
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs, \
+        edge_weights
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.models.selfgnn import _temporal_fusion
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel.edge_partition import ring_graphs
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    tc = cfg.train
+    mesh = make_mesh(model=RING_MODEL, devices=[device] * RING_MODEL)
+    mc = dataclasses.replace(cfg.model, spmm_backend="ring")
+    per_hop = RING_MODEL * RING_MODEL
+    launches_per_encode = mc.graph_num * mc.gnn_layer * 2 * per_hop
+    out = {"mesh": {"data": 1, "model": RING_MODEL,
+                    "devices": [str(dv) for dv in mesh.model_devices]},
+           "launches": {}}
+    t0 = time.perf_counter()
+    gb = compile_interval_graphs(bundle.sub_mats)
+    plans = {norm: ring_graphs(gb, mesh, None if norm is None else
+                               edge_weights(gb, bundle.sub_mats, norm))
+             for norm in (None, "sym_sqrt", "mean")}
+    torch.cuda.synchronize()
+    out["plans_s"] = time.perf_counter() - t0
+    pu = plans[None]["u"]
+    out["rows_u"], out["rows_i"] = pu.rows, pu.src_rows
+    out["bucket_edges"] = {d: [[int(plans[None][d].ptr[p][0, q, -1])
+                                for q in range(RING_MODEL)]
+                               for p in range(RING_MODEL)]
+                           for d in ("u", "i")}
+    log(f"ring plans: {out['plans_s']:.1f} s; rows_u {pu.rows}, rows_i "
+        f"{pu.src_rows}; interval-0 u-bucket edges "
+        f"{out['bucket_edges']['u']}")
+
+    records = ring_kernel_phase(plans, rec.graphs, vrecs["sym_sqrt"].graphs,
+                                mesh, device)
+
+    # the ring encode against the "pallas" encode and the plain f64 path
+    model = selfgnn.SelfGNN(mc, NUM_USERS, NUM_ITEMS, mesh=mesh)
+    graphs = {"ring": plans[None]}
+    sc.reset_launches()
+    fu, fi, uv, iv = model.encode(params, graphs)
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    out["launches"]["encode"] = {k: v for k, v in launches.items() if v}
+    log(f"ring encode launches: {out['launches']['encode']}")
+    expect_launches(launches, "ring encode",
+                    ring_segsum_f32=launches_per_encode)
+    pfu, pfi = rec.encodings
+    for name, got, want in (("final_user", fu, pfu), ("final_item", fi, pfi)):
+        check_close(got, want, 1e-4, 1e-5 * amax(want),
+                    f"ring {name} vs pallas")
+    with f64_propagation():
+        uv64, iv64 = selfgnn._interval_propagation(
+            params, graphs, mc, NUM_USERS, NUM_ITEMS, mesh=mesh)
+    ru, ri = _temporal_fusion(params, uv64, iv64, mc)
+    torch.cuda.synchronize()
+    check_close(uv, uv64, 1e-5, 1e-5, "ring user_vec vs plain f64")
+    check_close(iv, iv64, 1e-5, 1e-5, "ring item_vec vs plain f64")
+    err = max(check_close(fu, ru, 1e-4, 1e-5, "ring final_user vs plain"),
+              check_close(fi, ri, 1e-4, 1e-5, "ring final_item vs plain"))
+    out["encode_ms"] = cuda_ms(lambda: model.encode(params, graphs), iters=5,
+                               warmup=1)
+    out["propagation_ms"] = cuda_ms(
+        lambda: selfgnn._interval_propagation(params, graphs, mc, NUM_USERS,
+                                              NUM_ITEMS, mesh=mesh),
+        iters=5, warmup=1)
+    out["max_abs_err_final"] = err
+    wall, by_name = profiled_ms(lambda: model.encode(params, graphs), 3)
+    busy = sum(by_name.values())
+    out["encode_profile"] = {
+        "wall_ms": wall, "device_ms": busy if by_name else None,
+        "busy_share": busy / wall if by_name else None,
+        "k6_ms": sum(v for k, v in by_name.items()
+                     if "segsum_rows_kernel" in k),
+        "copy_ms": sum(v for k, v in by_name.items() if "Memcpy" in k)}
+    log(f"ring encode {out['encode_ms']:.3f} ms: propagation "
+        f"{out['propagation_ms']:.3f} ms; profiled: {out['encode_profile']}")
+
+    # one keepRate-1 step against the "pallas" step
+    mc1 = dataclasses.replace(mc, keep_rate=1.0)
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    ring1 = selfgnn.SelfGNN(mc1, NUM_USERS, NUM_ITEMS, mesh=mesh)
+    kinks = []
+    sc.reset_launches()
+    with kernel_kinks(kinks):
+        got = loss_and_grads(ring1, leaves, graphs, batch, tc)
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    out["launches"]["step"] = {k: v for k, v in launches.items() if v}
+    log(f"ring step launches: {out['launches']['step']}")
+    expect_launches(launches, "ring step",
+                    ring_segsum_f32=launches_per_encode,
+                    ring_segsum_f32_bwd=launches_per_encode)
+    hop_kinks = _ring_hop_kinks(kinks, RING_MODEL)
+
+    def replay(x, leaky):
+        return torch.where(hop_kinks.pop(0)[:x.shape[0]], x, leaky * x)
+
+    pallas1 = selfgnn.SelfGNN(dataclasses.replace(mc1, spmm_backend="pallas"),
+                              NUM_USERS, NUM_ITEMS)
+    with _hop_relu(replay):
+        want = loss_and_grads(pallas1, leaves, rec.graphs, batch, tc)
+    torch.cuda.synchronize()
+    check(not hop_kinks, "every ring hop replayed on the pallas step")
+    share, worst = check_step(got, want, "ring step vs pallas")
+    out["step_grad_check_share"], out["step_grad_check_worst"] = share, worst
+    out["step_ms"] = cuda_ms(
+        lambda: loss_and_grads(ring1, leaves, graphs, batch, tc), iters=3,
+        warmup=1)
+    out["pallas_step_ms"] = cuda_ms(
+        lambda: loss_and_grads(pallas1, leaves, rec.graphs, batch, tc),
+        iters=3, warmup=1)
+    log(f"ring step {out['step_ms']:.3f} ms, pallas step "
+        f"{out['pallas_step_ms']:.3f} ms (forward + backward)")
+    del got, want
+
+    # sym_sqrt (K6 weighted) and 'mean' (the plain ring, no K6)
+    for norm, kernel in (("sym_sqrt", "ring_wsegsum_f32"), ("mean", None)):
+        vmc = dataclasses.replace(mc, edge_norm=norm)
+        vmodel = selfgnn.SelfGNN(vmc, NUM_USERS, NUM_ITEMS, mesh=mesh)
+        vgraphs = {"ring": plans[norm]}
+        sc.reset_launches()
+        vfu, vfi, vuv, viv = vmodel.encode(params, vgraphs)
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        out["launches"][f"{norm}_encode"] = {k: v for k, v in
+                                             launches.items() if v}
+        expect_launches(launches, f"ring {norm} encode",
+                        **({kernel: launches_per_encode} if kernel else {}))
+        with f64_propagation():
+            uv64, iv64 = selfgnn._interval_propagation(
+                params, vgraphs, vmc, NUM_USERS, NUM_ITEMS, mesh=mesh)
+        ru, ri = _temporal_fusion(params, uv64, iv64, vmc)
+        torch.cuda.synchronize()
+        check_close(vuv, uv64, 1e-5, 1e-5, f"ring {norm} user_vec vs f64")
+        check_close(viv, iv64, 1e-5, 1e-5, f"ring {norm} item_vec vs f64")
+        check_close(vfu, ru, 1e-4, 1e-5, f"ring {norm} final_user vs plain")
+        check_close(vfi, ri, 1e-4, 1e-5, f"ring {norm} final_item vs plain")
+        out[f"{norm}_encode_ms"] = cuda_ms(
+            lambda: vmodel.encode(params, vgraphs), iters=3, warmup=1)
+        log(f"ring {norm} encode {out[f'{norm}_encode_ms']:.3f} ms; "
+            f"launches {out['launches'][f'{norm}_encode']}")
+        if kernel is None:
+            continue
+        vstep = selfgnn.SelfGNN(dataclasses.replace(vmc, keep_rate=1.0),
+                                NUM_USERS, NUM_ITEMS, mesh=mesh)
+        kinks = []
+        sc.reset_launches()
+        with kernel_kinks(kinks):
+            got = loss_and_grads(vstep, leaves, vgraphs, batch, tc)
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        out["launches"][f"{norm}_step"] = {k: v for k, v in
+                                           launches.items() if v}
+        expect_launches(launches, f"ring {norm} step",
+                        **{kernel: launches_per_encode,
+                           kernel + "_bwd": launches_per_encode})
+        with f64_propagation(kinks):
+            want = loss_and_grads(vstep, leaves, vgraphs, batch, tc)
+        torch.cuda.synchronize()
+        out[f"{norm}_step_grad_check_share"] = check_step(
+            got, want, f"ring {norm} step")[0]
+        del got, want
+
+    # Trainer(mesh=...).run(): one epoch, its evaluations, a checkpoint
+    # restored into a "pallas" Trainer
+    steps = -(-tc.trn_num // tc.batch)
+    run_cfg = cfg.replace(model=mc, train=dataclasses.replace(
+        tc, epoch=1, tst_epoch=1, save_path="ring"))
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        trainer = Trainer(run_cfg, bundle, ckpt_root=root, mesh=mesh)
+        out["trainer_init_s"] = time.perf_counter() - t0
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        best = trainer.run()
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        launches = dict(sc.LAUNCHES)
+        out["launches"]["trainer_run"] = {k: v for k, v in launches.items()
+                                          if v}
+        log(f"ring training run launches: {out['launches']['trainer_run']}")
+        check(trainer.state["step"] == steps, f"one epoch of {steps} steps")
+        # per step 192 + 192; per evaluation (the epoch's and the final) 192
+        expect_launches(launches, "ring training run",
+                        ring_segsum_f32=launches_per_encode * (steps + 2),
+                        ring_segsum_f32_bwd=launches_per_encode * steps)
+        stats = trainer.step_stats
+        check(all(math.isfinite(s[k]) for s in stats for k in s),
+              "every ring training loss finite")
+        for k, v in best.items():
+            check(math.isfinite(v) and 0.0 <= v <= 1.0, f"metric {k}={v}")
+        trainer.ckpt.save(trainer.state, trainer.history, trainer.cfg,
+                          rng_state=trainer.capture_rng_state(1))
+        pallas_cfg = run_cfg.replace(
+            model=dataclasses.replace(mc, spmm_backend="pallas"),
+            train=dataclasses.replace(run_cfg.train, epoch=2,
+                                      load_model="ring"))
+        back = Trainer(pallas_cfg, bundle, ckpt_root=root, device=device)
+        check(back.restore_checkpoint() == 1
+              and back.state["step"] == steps
+              and back.state["opt_state"].count == steps,
+              "ring checkpoint restored into a pallas Trainer at epoch 1")
+        for k, v in trainer.state["params"].items():
+            check(torch.equal(back.state["params"][k], v),
+                  f"restored param {k} bit for bit")
+        for part in ("mu", "nu"):
+            for k, v in getattr(trainer.state["opt_state"], part).items():
+                check(torch.equal(getattr(back.state["opt_state"], part)[k],
+                                  v), f"restored Adam {part} {k}")
+        times = trainer.step_timer.times[1:]
+        out.update(steps=steps, step_ms_mean=sum(times) / len(times) * 1e3,
+                   first_preloss=stats[0]["preLoss"],
+                   last_preloss=stats[-1]["preLoss"],
+                   metrics={k: best[k] for k in ("HR", "NDCG")})
+    log(f"ring training: run {out['run_s']:.2f} s (one epoch of {steps} "
+        f"steps and two evaluations), step {out['step_ms_mean']:.2f} ms "
+        f"mean after the first; preLoss {out['first_preloss']:.4f} -> "
+        f"{out['last_preloss']:.4f}; checkpoint restored into pallas")
+    return out, records
+
+
 def flagship_config():
     """scripts/bench_1m.py's exact_b512 recipe on the "pallas" backend,
     spmm_src_shard_rows left at 0 (auto)."""
@@ -2411,6 +2888,14 @@ def drive(device) -> None:
     phase_s["variant training"] = time.perf_counter() - t0
     log(f"phase variant training: {phase_s['variant training']:.1f} s")
 
+    # 13. the ring backend (K6) on a one-card mesh of four ranks
+    t0 = time.perf_counter()
+    ring, rrecords = ring_phase(cfg, bundle, rec.params, batch, rec, vrecs,
+                                device)
+    records.update(rrecords)
+    phase_s["ring"] = time.perf_counter() - t0
+    log(f"phase ring: {phase_s['ring']:.1f} s")
+
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
     t0 = time.perf_counter()
@@ -2500,6 +2985,20 @@ def drive(device) -> None:
             ("segsum_fold_bf16_bwd", fold_steps["bf16"],
              "gowalla bf16 fold step")):
         records[name].update(launches=count.get(name, 0), launches_path=path)
+    # K6: the ring encode (unweighted), the sym_sqrt ring encode and step
+    # (weighted), the ring Trainer run (the unweighted backward)
+    rl = ring["launches"]
+    for name, count, path, step_path in (
+            ("ring_segsum_f32", rl["encode"], "ring encode", "step"),
+            ("ring_segsum_f32_bwd", rl["trainer_run"],
+             f"ring Trainer run, {ring['steps']} steps", "step"),
+            ("ring_wsegsum_f32", rl["sym_sqrt_encode"],
+             "ring sym_sqrt encode", "sym_sqrt_step"),
+            ("ring_wsegsum_f32_bwd", rl["sym_sqrt_step"],
+             "ring sym_sqrt step", "sym_sqrt_step")):
+        records[name].update(
+            launches=count.get(name, 0), launches_path=path,
+            launches_per_train_step=rl[step_path].get(name, 0))
     kernels = []
     for r in records.values():
         r["kernel_ms"] = r["ms"]
@@ -2510,7 +3009,10 @@ def drive(device) -> None:
             + ("flagship bundle (1,048,576 x 786,432, ~21.4M edges per "
                "interval; k1_ms: K1 on the same hops)"
                if r["name"].startswith(("segsum_acc", "segsum_fold"))
-               else "gowalla-scale bundle")
+               else "gowalla-scale bundle"
+               + (f" over a one-card mesh of {RING_MODEL} ranks (k12_ms: "
+                  "K1/K2 on the same hops, unsharded)"
+                  if r["name"].startswith("ring") else ""))
             + " (the backward: K1 to K4 the dx of each, K5 the dw)")
         check(r["launches"] > 0, f"{r['name']}: launched on its path")
         kernels.append(r)
@@ -2525,6 +3027,7 @@ def drive(device) -> None:
             EVAL_USERS, len(bundle.tst_usrs)), "metrics": metrics,
         "interval_edges": edges, "variants": variants,
         "fold_encode_ms": fold_encode_ms,
+        "ring": ring,
         "flagship": {k: v for k, v in flagship.items()
                      if k not in ("launches", "trainer_losses")},
         "flagship_launches": flagship["launches"]}

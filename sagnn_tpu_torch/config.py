@@ -4,7 +4,8 @@ The dataclasses and presets are field-for-field the JAX package's (a test
 holds them equal). `ModelConfig.spmm_backend` selects the propagation
 path: "xla" runs the plain PyTorch gather + segment-sum
 (`ops/segment.py`), "pallas" runs the hand-written CUDA kernels
-(`ops/spmm_cuda.py`). The names are kept so one flag set drives both
+(`ops/spmm_cuda.py`), "ring" runs them edge-partitioned over a mesh
+(`parallel/edge_partition.py`). The names are kept so one flag set drives both
 packages.
 
 Dead reference flags (memosize, rank, hyperNum, hyperReg, target, nfs,
@@ -40,11 +41,13 @@ class ModelConfig:
     # "fixed" variants (stable softmax, per-token sequence attention).
     stable_softmax: bool = False    # Q5: ref uses raw exp attention
     per_token_seq_attention: bool = False  # Q3: ref pools seq to 1 token
-    # Propagation backend: "xla" (plain PyTorch gather + index_add_) or
+    # Propagation backend: "xla" (plain PyTorch gather + scatter_add_),
     # "pallas" (the hand-written CUDA segment-sum, ops/spmm_cuda.py; on a
-    # CPU tensor it runs the same plain version). The JAX package's names
-    # are kept so one flag set drives both packages. "ring" (multi-device)
-    # is not ported yet.
+    # CPU tensor it runs the same plain version) or "ring" (the segment-
+    # sum per ring bucket, K6, edge-partitioned over a mesh's 'model' axis;
+    # needs Trainer(mesh=...), f32 tables only, no edge dropout or edge
+    # attention). The JAX package's names are kept so one flag set drives
+    # both packages.
     spmm_backend: str = "xla"
     spmm_exact: bool = True         # pallas: f32 table (parity) vs a bf16
                                     # table accumulated in f32

@@ -31,9 +31,24 @@
 //     the flag runs the mode it names, counted under its own name.
 //   * K3 with K4 (folded + accumulate) is the 1M-user flagship's mode, the
 //     fold inside each shard's window, as JAX does at spmm_pallas.py:612-634.
-// The flags compose in the code (K6's ring buckets will need weighted
-// accumulate); only the combinations the port launches are instantiated
-// below.
+//   * K6, the ring SpMM's bucket aggregation (replaces
+//     sagnn_tpu/parallel/edge_partition.py::ring_spmm_pallas_arrays, whose
+//     every bucket calls _segsum_pallas(zero_init=True, weights=..., exact
+//     =True), edge_partition.py:408-471): the accumulating mode on an f32
+//     table, unweighted (`sagnn_ring_segsum_f32`) or weighted
+//     (`sagnn_ring_wsegsum_f32`, sym_sqrt edge norms). Per model rank p and
+//     ring step s the caller launches it once on bucket (p, q = (p - s) mod
+//     P): x is the source block the rank holds at that step, src the
+//     bucket's block-local ids in target order, out the rank's f32
+//     accumulator. Empty buckets launch too (every row returns at once), so
+//     the launch count is P*P per hop. Its entry points are its own so that
+//     its launches count under its names; the code is K3's (K2's flag on).
+//     What bounds it: K3's bytes per bucket (the gathered rows, ids and
+//     weights, and a read and a write of every touched output row), plus the
+//     ring's P - 1 block copies per rank, made by the caller on a side
+//     stream so that they overlap the previous bucket's launch.
+// The flags compose in the code; only the combinations the port launches
+// are instantiated below.
 //
 // The TPU kernel sums with a one-hot matmul per chunk of edges only to
 // avoid the TPU's serialized scatter. Here the edges are already sorted by
@@ -304,6 +319,24 @@ int sagnn_segsum_fold_acc_bf16(const void* x, const void* src,
                                int d, int device, void* stream) {
   return launch<__nv_bfloat16, false, true, true>(x, nullptr, src, ptr, out,
                                                   num_tgt, d, device, stream);
+}
+
+// K6: K3's arguments on an f32 source block, one ring bucket's partial
+// added into the rank's accumulator; rows without edges are untouched.
+int sagnn_ring_segsum_f32(const void* x, const void* src, const void* ptr,
+                          void* out, int num_tgt, int d, int device,
+                          void* stream) {
+  return launch<float, false, true>(x, nullptr, src, ptr, out, num_tgt, d,
+                                    device, stream);
+}
+
+// K6, weighted: the bucket's f32 weights w: [len(src)] in its edge order,
+// out[t] += sum_e w[e] * x[src[e]].
+int sagnn_ring_wsegsum_f32(const void* x, const void* w, const void* src,
+                           const void* ptr, void* out, int num_tgt, int d,
+                           int device, void* stream) {
+  return launch<float, true, true>(x, w, src, ptr, out, num_tgt, d, device,
+                                   stream);
 }
 
 const char* sagnn_error_string(int code) {

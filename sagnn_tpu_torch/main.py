@@ -8,10 +8,13 @@ The flags keep `main.py`'s names and destinations: a dataset preset plus
 overrides. `--device` (default cuda) picks the card or, when asked, the
 CPU. `--synth_edges N` switches `--data synthetic` to the vectorised
 large-scale generator (the 1M-user flagship is `--synth_users 1048576
---synth_items 786432 --synth_edges 60000000 --graphNum 3`). Flags of
-features the port does not carry yet are left out (mesh, supervisor, TF1
-import, profiler trace, `--bf16`); config options it does not carry
-raise NotImplementedError naming the ROADMAP item that will.
+--synth_items 786432 --synth_edges 60000000 --graphNum 3`).
+`--spmm_backend ring --mesh_model N` trains over a mesh of N model ranks:
+the visible cards (`--mesh_data` x N of them), or with `--device cpu` N
+ranks on the CPU. Flags of features the port does not carry yet are left
+out (supervisor, TF1 import, profiler trace, `--bf16`); config options it
+does not carry raise NotImplementedError naming the ROADMAP item that
+will.
 """
 
 from __future__ import annotations
@@ -63,9 +66,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    "(reference --uid debug mode, model.py:460-461)")
     p.add_argument("--spmm_backend", choices=["xla", "pallas", "ring"],
                    help="propagation: xla = plain PyTorch gather + "
-                        "index_add_, pallas = the CUDA kernels (their "
-                        "plain versions on the CPU); ring is not ported "
-                        "yet")
+                        "scatter_add_, pallas = the CUDA kernels (their "
+                        "plain versions on the CPU), ring = the kernels "
+                        "edge-partitioned over --mesh_model ranks")
     p.add_argument("--spmm_chunk_size", type=int,
                    help="accepted for the JAX package's flag set; the "
                         "port's CSR plan has no chunks")
@@ -108,6 +111,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--synth_test_users", type=int, default=4096,
                    help="large-scale generator only: number of held-out "
                         "test users")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="mesh 'data' axis size (0 = no explicit mesh)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="mesh 'model' axis size (the ring's ranks)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -159,7 +166,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, graph_num=bundle.graph_num))
     from sagnn_tpu_torch.train.trainer import Trainer
-    trainer = Trainer(cfg, bundle, ckpt_root=ns.ckpt_root, device=ns.device)
+    mesh = None
+    if ns.mesh_data or ns.mesh_model > 1:
+        import torch
+
+        from sagnn_tpu_torch.parallel.mesh import make_mesh
+        if torch.device(ns.device).type == "cpu":
+            data_ax = ns.mesh_data or 1
+            mesh = make_mesh(data=data_ax, model=ns.mesh_model,
+                             devices=["cpu"] * (data_ax * ns.mesh_model))
+        else:
+            data_ax = ns.mesh_data or max(
+                1, torch.cuda.device_count() // ns.mesh_model)
+            mesh = make_mesh(data=data_ax, model=ns.mesh_model)
+        log(f"Mesh: data={data_ax} model={ns.mesh_model}")
+    trainer = Trainer(cfg, bundle, ckpt_root=ns.ckpt_root, device=ns.device,
+                      mesh=mesh)
     trainer.debug_uid = ns.uid
     log("Model Prepared")
     trainer.run(resume=cfg.train.load_model is not None)

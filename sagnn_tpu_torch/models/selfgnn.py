@@ -17,7 +17,8 @@ edge attention (`edge_attention`). So are the options for huge graphs:
 source-sharded propagation (`spmm_src_shard_rows`), row-folded gathers
 (`spmm_fold_gather`), recomputing propagation and fusion in the backward
 (`remat_propagation`) and the node-blocked fusion with one checkpoint per
-block (`fusion_chunk_rows`).
+block (`fusion_chunk_rows`). So is the "ring" backend: propagation edge-
+partitioned over a mesh's 'model' axis (`parallel/edge_partition.py`).
 
 Precision: the encode runs in f32 throughout; the entry points turn TF32
 off on the card (`device.resolve_device`).
@@ -47,6 +48,9 @@ from sagnn_tpu_torch.ops.spmm_cuda import (build_stacked_plans,
                                            build_stacked_plans_src_sharded,
                                            spmm, spmm_src_sharded,
                                            spmm_weighted)
+from sagnn_tpu_torch.parallel.edge_partition import (ring_spmm,
+                                                     ring_spmm_apply_plain,
+                                                     shard, unshard)
 
 Params = Dict[str, torch.Tensor]
 
@@ -264,16 +268,19 @@ def chunked_topk(queries: torch.Tensor, item_table: torch.Tensor,
 def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
                           num_users: int, num_items: int,
                           edge_weights: Optional[Tuple[torch.Tensor,
-                                                       torch.Tensor]] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                                                       torch.Tensor]] = None,
+                          mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """LightGCN-style propagation per interval (model.py:118-129); JAX
-    `_interval_propagation` for the "xla" and "pallas" backends, unweighted,
-    weighted, with edge attention and source-sharded. Returns user_vec
-    [g, U, D], item_vec [g, I, D], the layer-summed per-interval node
-    states.
+    `_interval_propagation` for the "xla", "pallas" and "ring" backends,
+    unweighted, weighted, with edge attention and source-sharded. Returns
+    user_vec [g, U, D], item_vec [g, I, D], the layer-summed per-interval
+    node states.
 
-    Both backends carry gradients: "xla" through autograd of the gather +
-    index_add_, "pallas" through the kernels' autograd Functions, whose
+    "ring" (with the model's `mesh`) runs every hop over graphs["ring"]
+    (`_ring_interval`).
+
+    Every backend carries gradients: "xla" through autograd of the gather +
+    scatter_add_, "pallas" through the kernels' autograd Functions, whose
     backward runs on the other direction's plan of the same interval
     (A_i = A_uᵀ, as JAX pairs fu/fi, selfgnn.py:503-506).
 
@@ -300,6 +307,10 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
     activations, as JAX checkpoints the scan body (selfgnn.py:273-276).
     Propagation draws no random numbers (edge-dropout weights come in as
     an argument), so the recompute repeats the forward exactly."""
+    if cfg.spmm_backend == "ring":
+        return _per_interval(params, cfg, _ring_interval(
+            graphs["ring"], cfg, num_users, num_items, mesh,
+            params["reg/u_embed"].device))
     pallas = cfg.spmm_backend == "pallas"
     sharded = _src_sharded(cfg)
     if edge_weights is None and cfg.edge_norm is not None:
@@ -347,6 +358,53 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
         # tf.add_n over all layers
         return sum(embs0[1:], embs0[0]), sum(embs1[1:], embs1[0])
 
+    return _per_interval(params, cfg, interval)
+
+
+def _ring_interval(ring: Dict, cfg: ModelConfig, num_users: int,
+                   num_items: int, mesh, device: torch.device):
+    """interval(k, u0, i0) of the "ring" backend (JAX selfgnn.py:278-369):
+    pad each node table to P·rows rows and split it into the mesh's
+    'model' ranks' blocks; every hop is a ring over ring["u"] (user
+    targets) or ring["i"], then the leaky-relu and the residual sum per
+    block; the layer sums come back to `device`, sliced to the true
+    counts. Unweighted and sym_sqrt hops go through K6 (`ring_spmm`,
+    backward on the other direction's plan); 'mean' through the plain ring
+    (`ring_spmm_apply_plain`, differentiated by autograd), as JAX keeps
+    direction-dependent weights off its kernel ring."""
+    if mesh is None:
+        raise ValueError("spmm_backend='ring' needs the model's mesh")
+    pu, pi = ring["u"], ring["i"]
+    if (cfg.edge_norm is not None) != (pu.weights is not None):
+        raise ValueError(f"edge_norm={cfg.edge_norm!r} but the ring plans "
+                         f"{'carry' if pu.weights is not None else 'lack'} "
+                         "bucketed weights")
+    kernel = cfg.edge_norm != "mean"
+
+    def hop(blocks, k, fwd, bwd):
+        agg = (ring_spmm(blocks, fwd, bwd, k, mesh) if kernel
+               else ring_spmm_apply_plain(blocks, fwd, k, mesh))
+        return [leaky_relu(a, cfg.leaky) for a in agg]
+
+    def interval(k, u0, i0):
+        embs0, embs1 = [shard(u0, pu.rows, mesh)], [shard(i0, pi.rows, mesh)]
+        for _ in range(cfg.gnn_layer):
+            a0 = hop(embs1[-1], k, pu, pi)
+            a1 = hop(embs0[-1], k, pi, pu)
+            embs0.append([a + e for a, e in zip(a0, embs0[-1])])
+            embs1.append([a + e for a, e in zip(a1, embs1[-1])])
+        user = [sum(layers[1:], layers[0]) for layers in zip(*embs0)]
+        item = [sum(layers[1:], layers[0]) for layers in zip(*embs1)]
+        return (unshard(user, num_users, device),
+                unshard(item, num_items, device))
+
+    return interval
+
+
+def _per_interval(params: Params, cfg: ModelConfig, interval
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """interval(k, u0, i0) for every interval k, stacked; with
+    remat_propagation and autograd on, each under its checkpoint."""
     remat = cfg.remat_propagation and torch.is_grad_enabled()
     users, items = [], []
     for k in range(cfg.graph_num):
@@ -536,9 +594,9 @@ def _ssl_loss(params: Params, batch: TrainBatch, final_user: torch.Tensor,
 
 
 _NOT_PORTED = (
-    ("spmm_backend", lambda c: c.spmm_backend not in ("xla", "pallas"),
-     "only 'xla' and 'pallas' are ported ('ring' is multi-device): ROADMAP "
-     "Queue A6"),
+    ("spmm_backend", lambda c: c.spmm_backend not in ("xla", "pallas",
+                                                      "ring"),
+     "the port has the 'xla', 'pallas' and 'ring' backends"),
     ("per_token_seq_attention", lambda c: c.per_token_seq_attention,
      "per-token sequence attention is not ported yet: ROADMAP Queue A5"),
     ("seq_parallel", lambda c: c.seq_parallel,
@@ -551,10 +609,11 @@ _NOT_PORTED = (
 def check_ported(cfg: ModelConfig, train: bool = False) -> None:
     """Raise NotImplementedError for an option the port does not carry, and
     ValueError for a combination the JAX package refuses too
-    (trainer.py:177-201, selfgnn.py:436-438): edge attention off "pallas"
-    or with edge weights; source sharding with edge weights or edge
-    attention, and with train=True also with edge dropout (which weights
-    training only)."""
+    (trainer.py:157-201, selfgnn.py:279-280, 436-438): edge attention off
+    "pallas" or with edge weights; source sharding with edge weights or
+    edge attention, and with train=True also with edge dropout (which
+    weights training only); with train=True, edge dropout on the "ring"
+    backend, whose weights are bucketed on the host."""
     for name, bad, why in _NOT_PORTED:
         if bad(cfg):
             raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: "
@@ -567,6 +626,10 @@ def check_ported(cfg: ModelConfig, train: bool = False) -> None:
             raise ValueError("edge_attention is exclusive with edge_norm and "
                              "edge_dropout_keep < 1 (attention is the edge "
                              "weighting)")
+    if train and cfg.spmm_backend == "ring" and cfg.edge_dropout_keep < 1.0:
+        raise ValueError("edge_dropout_keep < 1 needs the xla or pallas "
+                         "backend (the ring's weights are bucketed on the "
+                         "host)")
     if _src_sharded(cfg) and (
             cfg.edge_norm is not None or cfg.edge_attention
             or (train and cfg.edge_dropout_keep < 1.0)):
@@ -578,15 +641,23 @@ def check_ported(cfg: ModelConfig, train: bool = False) -> None:
 class SelfGNN:
     """Model facade binding a config and graph sizes (JAX `SelfGNN`).
 
-    Graphs are a dict from `graphs_to_device`. Serving and scoring run
-    under no_grad with dropout off, as the JAX package's
-    `encode(train=False)`; `train_losses` carries gradients."""
+    Graphs are a dict from `graphs_to_device` (the "ring" backend's:
+    {"ring": `parallel.edge_partition.ring_graphs(...)`}). Serving and
+    scoring run under no_grad with dropout off, as the JAX package's
+    `encode(train=False)`; `train_losses` carries gradients.
 
-    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
+    mesh: a `parallel.mesh.Mesh`, needed by the "ring" backend only, whose
+    hops run over its 'model' axis."""
+
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 mesh=None):
         check_ported(cfg)
+        if cfg.spmm_backend == "ring" and mesh is None:
+            raise ValueError("spmm_backend='ring' needs the model's mesh")
         self.cfg = cfg
         self.num_users = num_users
         self.num_items = num_items
+        self.mesh = mesh
 
     def init(self, gen: torch.Generator,
              device: torch.device | str = "cpu") -> Params:
@@ -616,7 +687,7 @@ class SelfGNN:
             weights = edge_dropout(graphs, self.cfg, gen)
         user_vec, item_vec = _interval_propagation(
             params, graphs, self.cfg, self.num_users, self.num_items,
-            weights)
+            weights, mesh=self.mesh)
         # drawn outside any checkpoint, so a recompute applies these masks
         keep = fusion_keep_masks(user_vec, item_vec, self.cfg, gen)
         args = (params, user_vec, item_vec, self.cfg, keep)

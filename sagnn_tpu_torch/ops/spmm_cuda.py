@@ -1,6 +1,7 @@
 """Segment-sum SpMM (unweighted K1, weighted K2, accumulating K3,
-row-folded K4) and SDDMM (K5) through the hand-written CUDA kernels; the
-port of `sagnn_tpu/ops/spmm_pallas.py` (`plan_spmm`, `spmm_apply` with
+row-folded K4, the ring buckets' accumulating modes K6) and SDDMM (K5)
+through the hand-written CUDA kernels; the port of
+`sagnn_tpu/ops/spmm_pallas.py` (`plan_spmm`, `spmm_apply` with
 its slices and folded gathers, `build_stacked_plans`, the source-sharded
 `plan_spmm_src_sharded` / `build_stacked_plans_src_sharded` /
 `spmm_apply_src_sharded`, the differentiable `spmm`, `spmm_src_sharded`,
@@ -41,6 +42,10 @@ tensor runs its plain PyTorch version, which the tests and
     (K2, the weighted mode of the same kernel).
   * `sddmm_apply(x, y, src, tgt, ptr, exact)`: s[e] = x[src[e]]·y[tgt[e]]
     for the plan's real edges, 0 on pad slots (K5, `csrc/sddmm.cu`).
+  * `ring_bucket_accumulate(out, x, src, ptr, w)`: out[t] += Σ w[e]·x[src[e]]
+    over one ring bucket's CSR rows (K6, the f32 accumulating modes,
+    unweighted or weighted), the launch that
+    `parallel/edge_partition.ring_spmm_apply` makes per (rank, ring step).
 In every one the sums run in f32; exact=False casts the gathered tables
 to bf16 first (as the JAX package does) and keeps weights in f32.
 
@@ -71,11 +76,16 @@ from sagnn_tpu_torch.ops.segment import gather_segment_sum
 # Kernel launches per kernel name, incremented only where a launch happens;
 # the "_bwd" names count the launches made by the autograd Functions'
 # backwards. segsum: K1; segsum_acc: K3; segsum_fold: K4; segsum_fold_acc:
-# K3 with K4; wsegsum: K2; sddmm: K5.
+# K3 with K4; wsegsum: K2; sddmm: K5; ring_segsum, ring_wsegsum: K6's
+# unweighted and weighted bucket launches (f32 only, as JAX's ring runs
+# exact=True only).
 LAUNCHES = {f"{kernel}_{mode}{bwd}": 0
             for kernel in ("segsum", "segsum_acc", "segsum_fold",
                            "segsum_fold_acc", "wsegsum", "sddmm")
             for bwd in ("", "_bwd") for mode in ("f32", "bf16")}
+LAUNCHES.update({f"{kernel}_f32{bwd}": 0
+                 for kernel in ("ring_segsum", "ring_wsegsum")
+                 for bwd in ("", "_bwd")})
 
 
 def reset_launches() -> None:
@@ -476,16 +486,20 @@ def _segsum(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
 def _launch_segsum(table: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
                    out: torch.Tensor, exact: bool, backward: bool,
                    w: torch.Tensor | None = None, accumulate: bool = False,
-                   folded: bool = False, row0: int = 0) -> None:
+                   folded: bool = False, row0: int = 0,
+                   ring: bool = False) -> None:
     """One launch of the segment-sum kernel's mode for (w, accumulate,
     folded) into `out` [num_tgt, D] f32, reading the table from row `row0`
     on (a shard's window; folded, row0 is even and the window is its
-    [rows/2, 2D] view)."""
+    [rows/2, 2D] view). ring: K6's entry points (K3's code on an f32
+    table, w optional), counted under their own names."""
     num_tgt, d = ptr.numel() - 1, table.shape[1]
     if num_tgt == 0:
         return
     _check_ids(table.device, ptr=ptr)
-    if w is not None:
+    if ring:
+        kernel = "ring_segsum" if w is None else "ring_wsegsum"
+    elif w is not None:
         kernel = "wsegsum"
     else:
         kernel = ("segsum" + ("_fold" if folded else "")
@@ -497,6 +511,52 @@ def _launch_segsum(table: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
         _launch(name, table.device, backward, x, *ids)
     else:
         _launch(name, table.device, backward, x, w.data_ptr(), *ids)
+
+
+def ring_bucket_accumulate(acc: torch.Tensor, x: torch.Tensor,
+                           src: torch.Tensor, ptr: torch.Tensor,
+                           w: torch.Tensor | None = None,
+                           backward: bool = False) -> torch.Tensor:
+    """acc [num_tgt, D] plus one ring bucket's sum over each CSR row of
+    w[e]·x[src[e]] (w = 1 when None): the bucket's partial is summed from
+    zero and added once, the rounding order of JAX's `acc + partial`
+    (`sagnn_tpu/parallel/edge_partition.py:444`). x is the source block the
+    rank holds, src its block-local ids. CUDA: one K6 launch into acc, in
+    place, rows without edges untouched; f32 only, as JAX's ring runs
+    exact=True only. CPU: the plain version, which returns a new tensor
+    (autograd can differentiate it). The plan's contract is
+    `spmm_apply`'s."""
+    if x.device.type == "cpu":
+        return ring_bucket_accumulate_plain(acc, x, src, ptr, w)
+    _check_cuda_args(x, src, ptr)
+    if (acc.device != x.device or acc.dtype != torch.float32
+            or tuple(acc.shape) != (ptr.numel() - 1, x.shape[1])
+            or not acc.is_contiguous()):
+        raise ValueError(f"acc must be a contiguous f32 [{ptr.numel() - 1}, "
+                         f"{x.shape[1]}] on {x.device}, got {acc.dtype} "
+                         f"{tuple(acc.shape)} on {acc.device}")
+    if w is not None:
+        if w.device != x.device or w.dim() != 1 or w.numel() != src.numel():
+            raise ValueError(f"w must be [{src.numel()}] on {x.device}, got "
+                             f"{tuple(w.shape)} on {w.device}")
+        w = w.float().contiguous()
+    _launch_segsum(_kernel_table(x, True), src, ptr, acc, True, backward,
+                   w=w, accumulate=True, ring=True)
+    return acc
+
+
+def ring_bucket_accumulate_plain(acc: torch.Tensor, x: torch.Tensor,
+                                 src: torch.Tensor, ptr: torch.Tensor,
+                                 w: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """The plain version of K6: acc + (gather + scatter_add_ over the
+    bucket's edges), in f32, or in f64 when x is f64."""
+    ids, tgt = _plan_edges(src, ptr)
+    table = _plain_table(x, True)
+    if w is not None:
+        w = w[int(ptr[0]):int(ptr[-1])]
+    return acc + gather_segment_sum(table, ids, tgt, ptr.numel() - 1,
+                                    weights=w)
 
 
 def sddmm_apply(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,

@@ -13,7 +13,9 @@ on the card (the segment-sum, weighted with edge_norm, with the SDDMM
 for edge attention; source-sharded past 32 MiB of node table, as the
 Trainer resolves it) and through their plain versions on the CPU. The
 graph is encoded once per `Recommender`; recommendations and evaluation
-reuse it (eval is deterministic, keepRate=1).
+reuse it (eval is deterministic, keepRate=1). A config trained on the
+"ring" backend is served on the "xla" backend from the same weights, as
+`scripts/recommend.py:67-73` does: the ring is a training layout.
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ class Recommender:
         if bundle.graph_num != cfg.model.graph_num:
             raise ValueError(f"dataset has {bundle.graph_num} interval "
                              f"graphs, config says {cfg.model.graph_num}")
+        if cfg.model.spmm_backend == "ring":
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                        spmm_backend="xla"))
         cfg = resolve_src_sharding(cfg, bundle.num_users, bundle.num_items)
         self.cfg = cfg
         self.bundle = bundle

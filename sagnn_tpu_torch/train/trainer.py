@@ -16,9 +16,21 @@ cross-direction permutation and the sharded plans are attached as the
 JAX Trainer does (trainer.py:132-233); the edge-dropout and LSTM dropout
 masks are drawn each step from the dropout generator, so checkpoints
 cover them. `remat_propagation` and `fusion_chunk_rows` bound the step's
-memory at the 1M-user scale. Not here yet: meshes and multi-process runs
-(ROADMAP Queue A6), `load_imported_params` (A3), full-sort evaluation
-(A1), `fusion_dtype="bf16"` (A5).
+memory at the 1M-user scale.
+
+With `mesh=` (a `parallel.mesh.Mesh`) and spmm_backend="ring" the
+propagation runs edge-partitioned over the mesh's 'model' axis, in
+training and in the evaluation's encode (JAX trainer.py:124-151,
+234-265): unweighted and sym_sqrt hops through K6 (its backward on the
+transpose direction's plans), 'mean' through the plain ring. The ring's
+bucket plans replace the COO blocks and CSR plans in `self.graphs`. The
+params, the optimizer state and the fusion stack live on the mesh's first
+device, so checkpoints keep the single-device format: a ring-trained
+checkpoint restores into a "pallas" Trainer. Not here yet (ROADMAP Queue
+A6): a mesh with data > 1, the TP shardings of the other backends
+(`parallel/sharding.py`) and multi-process runs; nor
+`load_imported_params` (A3), full-sort evaluation (A1),
+`fusion_dtype="bf16"` (A5).
 """
 
 from __future__ import annotations
@@ -32,12 +44,13 @@ import numpy as np
 import torch
 
 from sagnn_tpu_torch.config import Config, resolve_src_sharding
-from sagnn_tpu_torch.data.graph import compile_interval_graphs
+from sagnn_tpu_torch.data.graph import compile_interval_graphs, edge_weights
 from sagnn_tpu_torch.data.io import DatasetBundle
 from sagnn_tpu_torch.data.sampler import Sampler
 from sagnn_tpu_torch.device import resolve_device
 from sagnn_tpu_torch.models.selfgnn import (SelfGNN, TrainBatch, check_ported,
                                             graphs_to_device, reg_loss)
+from sagnn_tpu_torch.parallel.edge_partition import ring_graphs
 from sagnn_tpu_torch.train.checkpoint import CheckpointManager
 from sagnn_tpu_torch.train.metrics import MetricsHistory, topk_metrics
 from sagnn_tpu_torch.train.optim import TF1Adam
@@ -45,12 +58,34 @@ from sagnn_tpu_torch.utils.logger import log
 from sagnn_tpu_torch.utils.profiling import StepTimer
 
 class Trainer:
-    """End-to-end trainer over one DatasetBundle on one device."""
+    """End-to-end trainer over one DatasetBundle on one device, or with the
+    ring backend over a mesh (module docstring)."""
 
     def __init__(self, cfg: Config, bundle: DatasetBundle,
                  ckpt_root: str = "./Models",
-                 device: torch.device | str = "cuda"):
-        self.device = resolve_device(device)
+                 device: torch.device | str | None = None, mesh=None):
+        """device: default "cuda", or with a mesh the mesh's first device
+        (a `device` of another type than the mesh's is refused)."""
+        ring = cfg.model.spmm_backend == "ring"
+        if mesh is not None:
+            if mesh.shape["data"] > 1:
+                raise NotImplementedError(
+                    f"mesh data={mesh.shape['data']}: the data-parallel "
+                    "step is not ported yet: ROADMAP Queue A6")
+            if not ring:
+                raise NotImplementedError(
+                    f"a mesh with spmm_backend={cfg.model.spmm_backend!r}:"
+                    " the TP shardings (parallel/sharding.py) are not "
+                    "ported yet: ROADMAP Queue A6")
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not on the mesh "
+                                 f"{mesh}")
+            device = mesh.device
+        elif ring:
+            raise ValueError("spmm_backend='ring' requires a mesh")
+        self.device = resolve_device("cuda" if device is None else device)
+        self.mesh = mesh
         if bundle.graph_num != cfg.model.graph_num:
             raise ValueError(f"dataset has {bundle.graph_num} interval "
                              f"graphs, config says {cfg.model.graph_num}")
@@ -61,10 +96,20 @@ class Trainer:
         check_ported(cfg.model, train=True)
         self.cfg = cfg
         self.bundle = bundle
-        self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items)
+        self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items,
+                             mesh=mesh)
         self.graph_blocks = compile_interval_graphs(bundle.sub_mats)
-        self.graphs = graphs_to_device(self.graph_blocks, self.device,
-                                       cfg.model, bundle.sub_mats)
+        if ring:
+            # the ring reads its bucket plans alone; no COO blocks or CSR
+            # plans ride along (JAX trainer.py:234-265)
+            norm = cfg.model.edge_norm
+            self.graphs = {"ring": ring_graphs(
+                self.graph_blocks, mesh,
+                None if norm is None else edge_weights(
+                    self.graph_blocks, bundle.sub_mats, norm))}
+        else:
+            self.graphs = graphs_to_device(self.graph_blocks, self.device,
+                                           cfg.model, bundle.sub_mats)
         tc = cfg.train
         self.sampler = Sampler(bundle, batch=tc.batch, samp_num=tc.samp_num,
                                ssl_num=tc.ssl_num, pred_num=tc.pred_num,

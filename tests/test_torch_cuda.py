@@ -1,9 +1,10 @@
 """The CUDA kernels on the card against their plain versions: the
 segment-sum (K1) forward and backward, its weighted mode (K2), its
 accumulating (K3) and row-folded (K4) modes on sharded and sliced plans,
-and the SDDMM (K5) with both autograd Functions; the serving encode
-(parity and each edge variant) and a training step on the card against
-the CPU.
+the SDDMM (K5) with both autograd Functions, and the ring buckets (K6)
+over a one-card mesh of four ranks with their backward; the serving
+encode (parity, each edge variant and the ring) and a training step on
+the card against the CPU.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. They import
 neither JAX nor the JAX package, so they run on a machine with PyTorch
@@ -599,3 +600,135 @@ def test_src_sharded_backward_matches_plain(dev, exact, folded):
     want = sc.spmm_apply_plain(cot.double(), g["i_src"], g["i_ptr"], exact)
     torch.testing.assert_close(dx.cpu().double(), want,
                                **_tol(g["i_ptr"], cot))
+
+
+# -- K6 ----------------------------------------------------------------------------
+
+def _ring_case(case, n_tgt=1500, n_src=1200, n_edges=40_000, seed=12):
+    """Both directions of one bipartite graph: (src, tgt, w) target-sorted
+    and its transpose, for a K6 case. "empty_bucket": no source in the
+    third of four source shards, so every bucket (p, 2) is empty;
+    "hot_row": 10,000 edges into one target, their sources spread over all
+    four source shards; "weighted": positive weights, the same value for
+    an edge in both directions (symmetric, as sym_sqrt's)."""
+    from sagnn_tpu_torch.parallel.edge_partition import _round_up
+    rng = np.random.default_rng(seed)
+    tgt = rng.integers(0, n_tgt, n_edges)
+    if case == "hot_row":
+        tgt[:10_000] = n_tgt // 2
+    src = rng.integers(0, n_src, n_edges)
+    if case == "empty_bucket":
+        srows = _round_up(-(-n_src // 4), 8)
+        third = (src >= 2 * srows) & (src < 3 * srows)
+        src = np.where(third, src - srows, src)
+    w = (rng.random(n_edges) + 0.25).astype(np.float32) \
+        if case == "weighted" else None
+    o = np.argsort(tgt, kind="stable")
+    tgt, src = tgt[o].astype(np.int32), src[o].astype(np.int32)
+    w = None if w is None else w[o]
+    t = np.argsort(src, kind="stable")
+    return (src, tgt, w), (tgt[t], src[t], None if w is None else w[t])
+
+
+def _ring_plans(fwd, bwd, n_tgt, n_src, mesh):
+    from sagnn_tpu_torch.parallel import edge_partition as ep
+    plans = []
+    for (s, t, w), nt, ns in ((fwd, n_tgt, n_src), (bwd, n_src, n_tgt)):
+        parts = ep.partition_edges_ring(s, t, ns, nt, 4, weights=w)
+        plans.append(ep.ring_plan(
+            parts.src_local[None], parts.tgt_local[None],
+            parts.rows_per_shard, parts.src_rows_per_shard, mesh,
+            None if w is None else parts.weights[None]))
+    return plans
+
+
+def _plain_whole(x, s, t, w, n_tgt):
+    """The hop's unsharded plain sum in f64 (K1's or K2's plain version),
+    and its row pointers."""
+    ptr = torch.from_numpy(sc.csr_row_ptr(t, n_tgt))
+    src = torch.from_numpy(s)
+    if w is None:
+        return sc.spmm_apply_plain(x.double(), src, ptr), ptr
+    return sc.spmm_weighted_apply_plain(x.double(), torch.from_numpy(w),
+                                        src, ptr), ptr
+
+
+@pytest.mark.parametrize("case", ["unweighted", "weighted", "empty_bucket",
+                                  "hot_row"])
+def test_ring_kernel_and_backward_match_plain(dev, case):
+    """K6 over a one-card mesh of four ranks (all `dev`): the ring hop
+    against the hop's unsharded plain sum in f64, P·P launches under its
+    name and none of K1's; its backward (the ring on the transpose plan)
+    against the plain transpose sum in f64; pad rows zero."""
+    from sagnn_tpu_torch.parallel import edge_partition as ep
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+
+    n_tgt, n_src = 1500, 1200
+    fwd, bwd = _ring_case(case, n_tgt, n_src)
+    mesh = make_mesh(model=4, devices=[dev] * 4)
+    fplan, bplan = _ring_plans(fwd, bwd, n_tgt, n_src, mesh)
+    if case == "empty_bucket":
+        assert all(int(fplan.ptr[p][0, 2, -1]) == 0 for p in range(4))
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn((n_src, 64), generator=gen)
+    cot = torch.randn((n_tgt, 64), generator=gen)
+    name = "ring_segsum_f32" if fwd[2] is None else "ring_wsegsum_f32"
+    blocks = [b.requires_grad_() for b in
+              ep.shard(x.to(dev), fplan.src_rows, mesh)]
+    before = dict(sc.LAUNCHES)
+    out = ep.ring_spmm(blocks, fplan, bplan, 0, mesh)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES[name] == before[name] + 16
+    assert sc.LAUNCHES["segsum_f32"] == before["segsum_f32"]
+    got = torch.cat([o.detach() for o in out]).cpu()
+    want, ptr = _plain_whole(x, *fwd, n_tgt)
+    wmax = 1.0 if fwd[2] is None else float(np.abs(fwd[2]).max())
+    torch.testing.assert_close(got[:n_tgt].double(), want,
+                               **_tol(ptr, x * wmax))
+    assert not got[n_tgt:].any()
+    before = dict(sc.LAUNCHES)
+    dx = torch.autograd.grad(out, blocks,
+                             ep.shard(cot.to(dev), fplan.rows, mesh))
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 16
+    got_dx = torch.cat(dx).cpu()
+    want_dx, bptr = _plain_whole(cot, *bwd, n_src)
+    torch.testing.assert_close(got_dx[:n_src].double(), want_dx,
+                               **_tol(bptr, cot * wmax))
+    assert not got_dx[n_src:].any()
+
+
+def test_ring_encode_matches_pallas_on_card(dev):
+    """The gowalla preset's encode on the ring (a one-card mesh of four
+    ranks, 192 K6 launches, no K1) and on "pallas" (K1), each held against
+    the f64 encode on the CPU."""
+    import dataclasses
+
+    from sagnn_tpu_torch.config import PRESETS
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+    from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+    from sagnn_tpu_torch.models.selfgnn import SelfGNN
+    from sagnn_tpu_torch.parallel.edge_partition import ring_graphs
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.serve import Recommender
+
+    base = PRESETS["gowalla"]
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, spmm_backend="pallas"),
+        train=dataclasses.replace(base.train, test_size=30, seed=1))
+    bundle = synthetic_dataset(num_users=70, num_items=90, graph_num=3,
+                               test_size=30, seed=2)
+    cpu = Recommender(cfg, bundle, device="cpu")
+    gpu = Recommender(cfg, bundle, cpu.params, device=dev)
+    mesh = make_mesh(model=4, devices=[dev] * 4)
+    ring = SelfGNN(dataclasses.replace(cfg.model, spmm_backend="ring"), 70,
+                   90, mesh=mesh)
+    graphs = {"ring": ring_graphs(compile_interval_graphs(bundle.sub_mats),
+                                  mesh)}
+    sc.reset_launches()
+    got = ring.encode(gpu.params, graphs)[:2]
+    torch.cuda.synchronize()
+    assert {k: v for k, v in sc.LAUNCHES.items() if v} == \
+        {"ring_segsum_f32": 192}
+    _check_against_f64({"cpu": cpu.encode(), "card": gpu.encode(),
+                        "ring": got}, _f64_encode(cpu))

@@ -7,6 +7,7 @@ JAX (bf16 rounding), and the exact-mode tolerance against the f32 sum of
 the bf16-rounded table. Dense ops: rtol 1e-5 on random f32.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,6 +108,40 @@ def test_propagate_matches_jax():
     got = tseg.propagate(torch.from_numpy(x), torch.from_numpy(src),
                          torch.from_numpy(tgt), 80, 0.5).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_segment_sum_keeps_no_messages_for_backward(weighted):
+    """The "xla" backend's hop keeps no [E, D] tensor for its backward
+    (only its index and weights), as the JAX package keeps none; its
+    gradient is still the transpose sum, and JAX's."""
+    rng = np.random.default_rng(11)
+    n_tgt, n_src, D = 300, 200, 16
+    src, tgt = _graph(rng, n_tgt, n_src, 6000, 40, skew=True)
+    w = rng.random(len(src)).astype(np.float32) if weighted else None
+    x = torch.from_numpy(rng.standard_normal((n_src, D)).astype(
+        np.float32)).requires_grad_()
+    cot = rng.standard_normal((n_tgt, D)).astype(np.float32)
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = tseg.gather_segment_sum(
+            x, torch.from_numpy(src), torch.from_numpy(tgt), n_tgt,
+            None if w is None else torch.from_numpy(w))
+    message_bytes = len(src) * D * x.element_size()
+    assert saved and all(t.untyped_storage().nbytes() < message_bytes
+                         for t in saved), [tuple(t.shape) for t in saved]
+    dx, = torch.autograd.grad(out, x, torch.from_numpy(cot))
+    want = jax.grad(lambda x_: jnp.vdot(jseg.gather_segment_sum(
+        x_, jnp.asarray(src), jnp.asarray(tgt), n_tgt,
+        None if w is None else jnp.asarray(w)), jnp.asarray(cot)))(
+            jnp.asarray(x.detach().numpy()))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=_tol(src[tgt < n_tgt], n_src))
 
 
 def test_spmm_wrapper_rejects_other_devices():
