@@ -1726,19 +1726,23 @@ K6_BWD_REPLACES = "sagnn_tpu/parallel/edge_partition.py:507"  # _ring_pl_bwd
 
 def _ring_bytes_and_ops(plan, n_edges, d, weighted):
     """K6's bytes for one ring hop of interval 0, counted from the plan:
-    the source table once, the ids (and f32 weights), the P² row-pointer
-    arrays, a read and a write of the f32 output row for every (bucket,
-    row) pair with edges, and each rank's P − 1 block copies (a read and a
-    write each); operations: one add (weighted: a multiply-add) per
-    gathered value and one per accumulated output value."""
+    what the hop must move, each source block read once, the ids (and f32
+    weights), the P² row-pointer arrays, and each f32 output row written
+    once; operations: one add (weighted: a multiply-add) per gathered
+    value. Also the bytes the ring's schedule adds on top (not part of the
+    bound; beside hop_device_ms): a read and a write of the f32 output
+    row for every (bucket, row) pair with edges, and each rank's P − 1
+    block copies (a read and a write each). Returns (bytes, operations,
+    touched (bucket, row) pairs, schedule bytes)."""
     P = plan.num_shards
     touched = sum(int((plan.ptr[p][0, :, 1:] > plan.ptr[p][0, :, :-1]).sum())
                   for p in range(P))
     nbytes = (P * plan.src_rows * d * 4 + n_edges * 4 * (2 if weighted else 1)
-              + P * P * (plan.rows + 1) * 4 + touched * 2 * d * 4
-              + 2 * P * (P - 1) * plan.src_rows * d * 4)
-    ops = n_edges * d * (2 if weighted else 1) + touched * d
-    return nbytes, ops, touched
+              + P * P * (plan.rows + 1) * 4 + P * plan.rows * d * 4)
+    schedule = (touched * 2 * d * 4
+                + 2 * P * (P - 1) * plan.src_rows * d * 4)
+    ops = n_edges * d * (2 if weighted else 1)
+    return nbytes, ops, touched, schedule
 
 
 def _ring_serial_edges(plan) -> int:
@@ -1838,8 +1842,10 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
             bn = int(bptr[-1])
             bvalues = bw_[:bn] if weighted else torch.ones(bn, device=device)
             at = _csr(bptr, bsrc, bvalues, (n_src, n_tgt))
-            nbytes, ops, touched = _ring_bytes_and_ops(fwd, n, D, weighted)
-            bbytes, bops, btouched = _ring_bytes_and_ops(bwd, n, D, weighted)
+            nbytes, ops, touched, sched = _ring_bytes_and_ops(fwd, n, D,
+                                                              weighted)
+            bbytes, bops, btouched, bsched = _ring_bytes_and_ops(bwd, n, D,
+                                                                 weighted)
             if weighted:
                 k12_ms = cuda_ms(lambda: sc.spmm_weighted_apply(x, w, src,
                                                                 ptr))
@@ -1862,7 +1868,8 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
             _add(fw, d, err, edges=n, touched_bucket_rows=touched,
                  serial_edges=_ring_serial_edges(fwd),
                  k12_serial_edges=int((ptr[1:] - ptr[:-1]).max()),
-                 unique_bytes=nbytes, k12_ms=k12_ms, **times["fw"],
+                 unique_bytes=nbytes, schedule_bytes=sched,
+                 k12_ms=k12_ms, **times["fw"],
                  plain_ms=cuda_ms(lambda: ep.ring_spmm_apply_plain(
                      xb, fwd, 0, mesh), iters=5),
                  library_ms=_library_ms(f"{name}[{d}]",
@@ -1872,13 +1879,15 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
             _add(bw, d, berr, plan=o, edges=n, touched_bucket_rows=btouched,
                  serial_edges=_ring_serial_edges(bwd),
                  k12_serial_edges=int((bptr[1:] - bptr[:-1]).max()),
-                 unique_bytes=bbytes, k12_ms=bk12_ms, **times["bw"],
+                 unique_bytes=bbytes, schedule_bytes=bsched,
+                 k12_ms=bk12_ms, **times["bw"],
                  plain_ms=cuda_ms(lambda: ep.ring_spmm_apply_plain(
                      gbb, bwd, 0, mesh), iters=5),
                  library_ms=cuda_ms(lambda: torch.sparse.mm(at, g)),
                  bound_ms=_bound_ms(bbytes, bops))
         for rec in (fw, bw):
-            for key in ("k12_ms", "hop_ms", "hop_device_ms", "copy_ms"):
+            for key in ("k12_ms", "hop_ms", "hop_device_ms", "copy_ms",
+                        "unique_bytes", "schedule_bytes"):
                 rec[key] = sum(v[key] for v in rec["per_direction"].values())
             rec["ms_measured"] = (
                 "ms: the 16 K6 launches' device time per hop "
@@ -1890,13 +1899,13 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
             rec["tolerance"] += "max|weight| the largest term)" if weighted \
                 else "1)"
             rec["bound_counts"] = (
-                "the source table once, the ids (and f32 weights), the P^2 "
-                "row-pointer arrays, a read and a write of the f32 output "
-                "row per (bucket, row) pair with edges, and a read and a "
-                "write of each of the P(P-1) block copies, at 3.35e12 B/s; "
-                "operations: one f32 add (weighted: multiply-add) per "
-                "gathered value and one per accumulated value at 67e12 "
-                "FLOP/s")
+                "each source block read once, the ids (and f32 weights), "
+                "the P^2 row-pointer arrays and each f32 output row written "
+                "once, at 3.35e12 B/s; operations: one f32 add (weighted: "
+                "multiply-add) per gathered value at 67e12 FLOP/s. "
+                "schedule_bytes, not in the bound: what the ring adds, a "
+                "read and a write of the output row per (bucket, row) pair "
+                "with edges and of each of the P(P-1) block copies")
             records[rec["name"]] = rec
             log(f"{rec['name']}: K6 u {rec['per_direction']['u']['ms']:.4f}"
                 f" ms, i {rec['per_direction']['i']['ms']:.4f} ms of device "
@@ -2176,14 +2185,18 @@ def flagship_config():
 
 
 def _sharded_bytes_and_ops(ptr_ss, n_src, n_edges, d, elem):
-    """K3's bytes (the table once, the ids, the S row-pointer arrays, and a
-    read and a write of the f32 output row for every (shard, row) pair
-    with edges, counted from the plan) and operations (one add per
-    gathered value and one per accumulated output value)."""
+    """K3's bytes, what the sum must move: the table once, the ids, the S
+    row-pointer arrays and each f32 output row written once; operations:
+    one add per gathered value. Also the bytes the per-shard schedule adds
+    on top (not part of the bound): a read and a write of the f32 output
+    row for every (shard, row) pair with edges, counted from the plan.
+    Returns (bytes, operations, touched (shard, row) pairs, schedule
+    bytes)."""
     touched = int((ptr_ss[:, 1:] > ptr_ss[:, :-1]).sum())
+    n_tgt = ptr_ss.shape[1] - 1
     nbytes = (n_src * d * elem + n_edges * 4 + ptr_ss.numel() * 4
-              + touched * 2 * d * 4)
-    return nbytes, n_edges * d + touched * d, touched
+              + n_tgt * d * 4)
+    return nbytes, n_edges * d, touched, touched * 2 * d * 4
 
 
 def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
@@ -2268,8 +2281,8 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
                                                            exact), iters=5)
             plain_ss = cuda_ms(lambda: sc.spmm_apply_src_sharded_plain(
                 x, lsrc, lptr, shard_rows, exact), iters=5)
-            nbytes3, ops3, touched = _sharded_bytes_and_ops(lptr, n_src, n,
-                                                            D, elem)
+            nbytes3, ops3, touched, sched3 = _sharded_bytes_and_ops(
+                lptr, n_src, n, D, elem)
             nbytes1 = (n_src * D * elem + n * 4 + (n_tgt + 1) * 4
                        + n_tgt * D * 4)
             shape = dict(edges=n, num_src=n_src, num_tgt=n_tgt,
@@ -2280,7 +2293,7 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
             _add(k3, d, e3, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
                 x, lsrc, lptr, shard_rows, exact), iters=10),
                 plain_ms=plain_ss, bound_ms=_bound_ms(nbytes3, ops3),
-                unique_bytes=nbytes3, **shape)
+                unique_bytes=nbytes3, schedule_bytes=sched3, **shape)
             _add(k4, d, e4, ms=cuda_ms(lambda: sc.spmm_apply(
                 x, src, ptr, exact, folded=True), iters=10),
                 plain_ms=plain_k1, bound_ms=_bound_ms(nbytes1, n * D),
@@ -2288,7 +2301,7 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
             _add(k34, d, e34, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
                 x, lsrc, lptr, shard_rows, exact, folded=True), iters=10),
                 plain_ms=plain_ss, bound_ms=_bound_ms(nbytes3, ops3),
-                unique_bytes=nbytes3, **shape)
+                unique_bytes=nbytes3, schedule_bytes=sched3, **shape)
 
             # backwards: dx through each Function on the transpose plans
             xv = x.clone().requires_grad_()
@@ -2322,7 +2335,7 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
                                                             exact), iters=5)
             bplain_ss = cuda_ms(lambda: sc.spmm_apply_src_sharded_plain(
                 g, blsrc, blptr, shard_rows, exact), iters=5)
-            bbytes3, bops3, btouched = _sharded_bytes_and_ops(
+            bbytes3, bops3, btouched, bsched3 = _sharded_bytes_and_ops(
                 blptr, n_tgt, n, D, elem)
             bbytes1 = (n_tgt * D * elem + n * 4 + (n_src + 1) * 4
                        + n_src * D * 4)
@@ -2332,7 +2345,7 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
             _add(b3, d, eb3, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
                 g, blsrc, blptr, shard_rows, exact), iters=10),
                 plain_ms=bplain_ss, bound_ms=_bound_ms(bbytes3, bops3),
-                unique_bytes=bbytes3, **bshape)
+                unique_bytes=bbytes3, schedule_bytes=bsched3, **bshape)
             _add(b4, d, eb4, ms=cuda_ms(lambda: sc.spmm_apply(
                 g, bsrc, bptr, exact, folded=True), iters=10),
                 plain_ms=bplain_k1, bound_ms=_bound_ms(bbytes1, n * D),
@@ -2340,18 +2353,18 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
             _add(b34, d, eb34, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
                 g, blsrc, blptr, shard_rows, exact, folded=True), iters=10),
                 plain_ms=bplain_ss, bound_ms=_bound_ms(bbytes3, bops3),
-                unique_bytes=bbytes3, **bshape)
+                unique_bytes=bbytes3, schedule_bytes=bsched3, **bshape)
         for rec in (k3, k4, k34, b3, b4, b34):
             rec["k1_ms"] = sum(v["k1_ms"]
                                for v in rec["per_direction"].values())
             rec["tolerance"] = SEG_TOL + " (of the whole plan)"
             rec["bound_counts"] = (
-                "K3: the table once, the ids, the S row-pointer arrays, and "
-                "a read and a write of the f32 output row per (shard, row) "
-                "pair with edges; K4: K1's bytes (the table once, ids, row "
-                "pointers, the f32 output once); at 3.35e12 B/s; "
-                "operations: one f32 add per gathered (and, in K3, per "
-                "accumulated) value at 67e12 FLOP/s")
+                "the table once, the ids, the row pointers (K3: the S "
+                "arrays) and the f32 output once, at 3.35e12 B/s; "
+                "operations: one f32 add per gathered value at 67e12 "
+                "FLOP/s. K3's schedule_bytes, not in the bound: a read and "
+                "a write of the output row per (shard, row) pair with "
+                "edges")
             records[rec["name"]] = rec
             log(f"{rec['name']}: u {rec['per_direction']['u']['ms']:.4f} ms"
                 f", i {rec['per_direction']['i']['ms']:.4f} ms; K1 "

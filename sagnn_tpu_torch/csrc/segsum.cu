@@ -35,18 +35,19 @@
 //     sagnn_tpu/parallel/edge_partition.py::ring_spmm_pallas_arrays, whose
 //     every bucket calls _segsum_pallas(zero_init=True, weights=..., exact
 //     =True), edge_partition.py:408-471): the accumulating mode on an f32
-//     table, unweighted (`sagnn_ring_segsum_f32`) or weighted
-//     (`sagnn_ring_wsegsum_f32`, sym_sqrt edge norms). Per model rank p and
-//     ring step s the caller launches it once on bucket (p, q = (p - s) mod
-//     P): x is the source block the rank holds at that step, src the
-//     bucket's block-local ids in target order, out the rank's f32
-//     accumulator. Empty buckets launch too (every row returns at once), so
-//     the launch count is P*P per hop. Its entry points are its own so that
-//     its launches count under its names; the code is K3's (K2's flag on).
-//     What bounds it: K3's bytes per bucket (the gathered rows, ids and
-//     weights, and a read and a write of every touched output row), plus the
-//     ring's P - 1 block copies per rank, made by the caller on a side
-//     stream so that they overlap the previous bucket's launch.
+//     table, unweighted (K3's `sagnn_segsum_acc_f32`) or weighted
+//     (`sagnn_wsegsum_acc_f32`, K2's and K3's flags, for sym_sqrt edge
+//     norms). Per model rank p and ring step s the caller launches it once
+//     on bucket (p, q = (p - s) mod P): x is the source block the rank
+//     holds at that step, src the bucket's block-local ids in target order,
+//     out the rank's f32 accumulator. Empty buckets launch too (every row
+//     returns at once), so the launch count is P*P per hop. The caller
+//     counts these launches under K6's own names. What bounds it: the
+//     hop's unique bytes (each source block once, the ids and weights, the
+//     row pointers, each output row once); the schedule adds a read and a
+//     write of every touched output row per bucket and the ring's P - 1
+//     block copies per rank, made by the caller on a side stream so that
+//     they overlap the previous bucket's launch.
 // The flags compose in the code; only the combinations the port launches
 // are instantiated below.
 //
@@ -321,20 +322,12 @@ int sagnn_segsum_fold_acc_bf16(const void* x, const void* src,
                                                   num_tgt, d, device, stream);
 }
 
-// K6: K3's arguments on an f32 source block, one ring bucket's partial
-// added into the rank's accumulator; rows without edges are untouched.
-int sagnn_ring_segsum_f32(const void* x, const void* src, const void* ptr,
-                          void* out, int num_tgt, int d, int device,
-                          void* stream) {
-  return launch<float, false, true>(x, nullptr, src, ptr, out, num_tgt, d,
-                                    device, stream);
-}
-
-// K6, weighted: the bucket's f32 weights w: [len(src)] in its edge order,
-// out[t] += sum_e w[e] * x[src[e]].
-int sagnn_ring_wsegsum_f32(const void* x, const void* w, const void* src,
-                           const void* ptr, void* out, int num_tgt, int d,
-                           int device, void* stream) {
+// K2 + K3 (K6's weighted ring bucket): K2's arguments with out read and
+// written, out[t] += sum_e w[e] * x[src[e]] for every row with edges; rows
+// without edges are untouched.
+int sagnn_wsegsum_acc_f32(const void* x, const void* w, const void* src,
+                          const void* ptr, void* out, int num_tgt, int d,
+                          int device, void* stream) {
   return launch<float, true, true>(x, w, src, ptr, out, num_tgt, d, device,
                                    stream);
 }

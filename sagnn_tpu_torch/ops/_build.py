@@ -120,12 +120,11 @@ def load_library() -> ctypes.CDLL:
     signatures = {
         # x, src, ptr, out, num_tgt, d, device, stream
         tuple(f"sagnn_segsum{mode}_{t}" for t in ("f32", "bf16")
-              for mode in ("", "_acc", "_fold", "_fold_acc"))
-        + ("sagnn_ring_segsum_f32",):
+              for mode in ("", "_acc", "_fold", "_fold_acc")):
             [p, p, p, p, i, i, i, p],
         # x, w, src, ptr, out, num_tgt, d, device, stream
         ("sagnn_wsegsum_f32", "sagnn_wsegsum_bf16",
-         "sagnn_ring_wsegsum_f32"):
+         "sagnn_wsegsum_acc_f32"):
             [p, p, p, p, p, i, i, i, p],
         # x, y, src, tgt, ptr, out, num_tgt, num_slots, d, device, stream
         ("sagnn_sddmm_f32", "sagnn_sddmm_bf16"):

@@ -365,9 +365,10 @@ def _kernel_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
 
 
 def _launch(name: str, device: torch.device, backward: bool,
-            *args) -> None:
+            *args, count: str | None = None) -> None:
     """Call the library's `sagnn_<name>` with `args`, the device and the
-    current stream; raise on a refused launch; count it."""
+    current stream; raise on a refused launch; count it under `count`
+    (default `name`)."""
     from sagnn_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -378,7 +379,7 @@ def _launch(name: str, device: torch.device, backward: bool,
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.sagnn_error_string(err).decode()}")
-    LAUNCHES[name + ("_bwd" if backward else "")] += 1
+    LAUNCHES[(count or name) + ("_bwd" if backward else "")] += 1
 
 
 def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
@@ -487,20 +488,18 @@ def _launch_segsum(table: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
                    out: torch.Tensor, exact: bool, backward: bool,
                    w: torch.Tensor | None = None, accumulate: bool = False,
                    folded: bool = False, row0: int = 0,
-                   ring: bool = False) -> None:
+                   count: str | None = None) -> None:
     """One launch of the segment-sum kernel's mode for (w, accumulate,
     folded) into `out` [num_tgt, D] f32, reading the table from row `row0`
     on (a shard's window; folded, row0 is even and the window is its
-    [rows/2, 2D] view). ring: K6's entry points (K3's code on an f32
-    table, w optional), counted under their own names."""
+    [rows/2, 2D] view), counted under `count` (default: the mode's
+    name)."""
     num_tgt, d = ptr.numel() - 1, table.shape[1]
     if num_tgt == 0:
         return
     _check_ids(table.device, ptr=ptr)
-    if ring:
-        kernel = "ring_segsum" if w is None else "ring_wsegsum"
-    elif w is not None:
-        kernel = "wsegsum"
+    if w is not None:
+        kernel = "wsegsum" + ("_acc" if accumulate else "")
     else:
         kernel = ("segsum" + ("_fold" if folded else "")
                   + ("_acc" if accumulate else ""))
@@ -508,9 +507,10 @@ def _launch_segsum(table: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
     x = table.data_ptr() + row0 * d * table.element_size()
     ids = (src.data_ptr(), ptr.data_ptr(), out.data_ptr(), num_tgt, d)
     if w is None:
-        _launch(name, table.device, backward, x, *ids)
+        _launch(name, table.device, backward, x, *ids, count=count)
     else:
-        _launch(name, table.device, backward, x, w.data_ptr(), *ids)
+        _launch(name, table.device, backward, x, w.data_ptr(), *ids,
+                count=count)
 
 
 def ring_bucket_accumulate(acc: torch.Tensor, x: torch.Tensor,
@@ -522,7 +522,9 @@ def ring_bucket_accumulate(acc: torch.Tensor, x: torch.Tensor,
     zero and added once, the rounding order of JAX's `acc + partial`
     (`sagnn_tpu/parallel/edge_partition.py:444`). x is the source block the
     rank holds, src its block-local ids. CUDA: one K6 launch into acc, in
-    place, rows without edges untouched; f32 only, as JAX's ring runs
+    place, rows without edges untouched (K3's accumulating entry, or K2's
+    and K3's flags together when weighted), counted under K6's names
+    `ring_segsum_f32` / `ring_wsegsum_f32`; f32 only, as JAX's ring runs
     exact=True only. CPU: the plain version, which returns a new tensor
     (autograd can differentiate it). The plan's contract is
     `spmm_apply`'s."""
@@ -540,8 +542,9 @@ def ring_bucket_accumulate(acc: torch.Tensor, x: torch.Tensor,
             raise ValueError(f"w must be [{src.numel()}] on {x.device}, got "
                              f"{tuple(w.shape)} on {w.device}")
         w = w.float().contiguous()
+    name = "ring_segsum_f32" if w is None else "ring_wsegsum_f32"
     _launch_segsum(_kernel_table(x, True), src, ptr, acc, True, backward,
-                   w=w, accumulate=True, ring=True)
+                   w=w, accumulate=True, count=name)
     return acc
 
 

@@ -10,7 +10,7 @@ accumulator, while the block moves on to rank p + 1. Both sides pad to
 layout is the next hop's input layout.
 
 Host side (byte-equal to JAX's): `partition_edges_ring`,
-`pad_node_table_rows`, `build_interval_ring_partitions`. In place of the
+`build_interval_ring_partitions`. In place of the
 TPU's one-hot chunk plans (`build_ring_bucket_plans`,
 `stack_ring_bucket_plans`, `choose_ring_chunk_size`), each bucket is a CSR
 plan (`plan_ring_buckets`): row pointers over the shard's targets and the
@@ -25,7 +25,9 @@ sum (JAX's `ring_spmm_arrays`: the 'mean' path, the CPU and the
 references); `ring_spmm` / `RingSpmmFunction` is JAX's custom VJP
 `ring_spmm_pallas`, whose backward is the ring over the transpose
 direction's plan. Blocks are lists of P tensors, block p on
-`mesh.model_devices[p]`. `exchange` is the ring's one transfer, so a
+`mesh.model_devices[p]`; `shard` pads a node table to P·rows rows and
+splits it (JAX's `pad_node_table_rows` and P('model') layout), `unshard`
+lays the blocks end to end. `exchange` is the ring's one transfer, so a
 multi-process ring replaces that function alone.
 """
 
@@ -117,19 +119,6 @@ def partition_edges_ring(src: np.ndarray, tgt: np.ndarray, num_src: int,
                               rows_per_shard=rows, src_rows_per_shard=srows,
                               num_tgt=num_tgt, num_src=num_src,
                               weights=out_w)
-
-
-def pad_node_table_rows(x: np.ndarray, num_shards: int,
-                        rows_per_shard: int) -> np.ndarray:
-    """Pad node rows to exactly num_shards * rows_per_shard (ring layout)."""
-    target = num_shards * rows_per_shard
-    if x.shape[0] > target:
-        raise ValueError(f"{x.shape[0]} rows > {num_shards} x "
-                         f"{rows_per_shard}")
-    if target == x.shape[0]:
-        return x
-    return np.concatenate(
-        [x, np.zeros((target - x.shape[0],) + x.shape[1:], x.dtype)])
 
 
 def build_interval_ring_partitions(gb, num_shards: int,
@@ -414,25 +403,3 @@ def unshard(blocks: List[torch.Tensor], n: int,
     """The first n rows of the blocks laid end to end, on `device`."""
     return torch.cat([b.to(device) for b in blocks])[:n]
 
-
-def ring_edge_partitioned_spmm(mesh: Mesh, x: torch.Tensor,
-                               parts: RingEdgePartitions) -> torch.Tensor:
-    """One plain ring hop over host partitions (tests, benchmarks), JAX's
-    host-plan wrapper (edge_partition.py:514-521): x [P·src_rows, D] ->
-    [P·rows, D] on the mesh's first device; slice [:num_tgt]."""
-    weights = None if parts.weights is None else parts.weights[None]
-    plan = ring_plan(parts.src_local[None], parts.tgt_local[None],
-                     parts.rows_per_shard, parts.src_rows_per_shard, mesh,
-                     weights)
-    blocks = shard(x, parts.src_rows_per_shard, mesh)
-    out = ring_spmm_apply_plain(blocks, plan, 0, mesh)
-    return unshard(out, mesh.shape["model"] * parts.rows_per_shard,
-                   mesh.device)
-
-
-def ring_edge_partitioned_propagate(mesh: Mesh, x: torch.Tensor,
-                                    parts: RingEdgePartitions,
-                                    leaky: float) -> torch.Tensor:
-    """Ring hop + leaky-relu, sliced to the true target count."""
-    out = ring_edge_partitioned_spmm(mesh, x, parts)[: parts.num_tgt]
-    return torch.maximum(leaky * out, out)

@@ -14,8 +14,10 @@ for edge attention; source-sharded past 32 MiB of node table, as the
 Trainer resolves it) and through their plain versions on the CPU. The
 graph is encoded once per `Recommender`; recommendations and evaluation
 reuse it (eval is deterministic, keepRate=1). A config trained on the
-"ring" backend is served on the "xla" backend from the same weights, as
-`scripts/recommend.py:67-73` does: the ring is a training layout.
+"ring" backend is served on one device from the same weights, as
+`scripts/recommend.py:67-73` does (the ring is a training layout): on the
+"pallas" backend, so that the card still runs the segment-sum kernel,
+where the JAX script picks its compiled "xla" path.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ class Recommender:
             raise ValueError(f"dataset has {bundle.graph_num} interval "
                              f"graphs, config says {cfg.model.graph_num}")
         if cfg.model.spmm_backend == "ring":
-            cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                        spmm_backend="xla"))
+            cfg = cfg.replace(model=dataclasses.replace(
+                cfg.model, spmm_backend="pallas"))
         cfg = resolve_src_sharding(cfg, bundle.num_users, bundle.num_items)
         self.cfg = cfg
         self.bundle = bundle

@@ -94,10 +94,15 @@ def test_partition_edges_ring_matches_jax(weighted):
     got = ep.partition_edges_ring(src, tgt, I, U, P, weights=w)
     want = jep.partition_edges_ring(src, tgt, I, U, P, weights=w)
     _assert_parts_equal(got, want)
+    # the model's blocks are JAX's padded table, split per rank
     x = np.random.default_rng(2).standard_normal((I, D)).astype(np.float32)
+    blocks = ep.shard(torch.from_numpy(x), got.src_rows_per_shard, _mesh())
+    assert [tuple(b.shape) for b in blocks] == [(got.src_rows_per_shard,
+                                                  D)] * P
     np.testing.assert_array_equal(
-        ep.pad_node_table_rows(x, P, got.src_rows_per_shard),
+        torch.cat(blocks).numpy(),
         jep.pad_node_table_rows(x, P, want.src_rows_per_shard))
+    np.testing.assert_array_equal(ep.unshard(blocks, I, "cpu").numpy(), x)
 
 
 @pytest.mark.parametrize("norm", [None, "sym_sqrt", "mean"])
@@ -215,18 +220,13 @@ def test_ring_hop_and_grad_match_jax(weighted):
     np.testing.assert_allclose(torch.cat(dx).numpy(), j_dx, rtol=1e-5,
                                atol=_seg_atol(btgt, I))
     assert not got[U:].any()                 # pad rows stay zero
-    # the host-plan wrappers give the ring's values, and JAX's with the
-    # leaky-relu
-    np.testing.assert_array_equal(
-        ep.ring_edge_partitioned_spmm(tmesh, torch.from_numpy(x),
-                                      tf).numpy(), got)
-    with mesh:
-        j_prop = jep.ring_edge_partitioned_propagate(mesh, jnp.asarray(x),
-                                                     fparts, 0.5)
-    np.testing.assert_allclose(
-        ep.ring_edge_partitioned_propagate(tmesh, torch.from_numpy(x), tf,
-                                           0.5).numpy(),
-        np.asarray(j_prop), rtol=1e-5, atol=atol)
+    # the plain ring (the path 'mean' takes) in the same order: JAX's
+    # ring_spmm_arrays, and on the CPU the very sums ring_spmm made
+    plain = ep.unshard(ep.ring_spmm_apply_plain(
+        ep.shard(torch.from_numpy(x), srows, tmesh), plans[0], 0, tmesh),
+        P * rows, "cpu").numpy()
+    np.testing.assert_array_equal(plain, got)
+    np.testing.assert_allclose(plain, j_arrays, rtol=1e-5, atol=atol)
 
 
 def test_exchange_copies_each_block():
@@ -470,15 +470,22 @@ def test_cli_trains_on_the_ring(tmp_path, capsys):
 
 
 def test_recommender_serves_a_ring_config_on_xla():
-    """The ring is a training layout: its config serves on the "xla"
-    backend from the same weights (scripts/recommend.py:67-73)."""
+    """The ring is a training layout: its config serves on one device from
+    the same weights (scripts/recommend.py:67-73), on the "pallas" backend
+    so that the card runs the segment-sum kernel; its encode is the "xla"
+    backend's, the JAX script's choice, within f32 rounding."""
     from sagnn_tpu_torch.serve import Recommender
     bundle = synthetic_dataset(num_users=48, num_items=64, graph_num=2,
                                test_size=10, seed=2)
     cfg = _trainer_cfg()
     rec = Recommender(cfg, bundle, device="cpu")
-    assert rec.cfg.model.spmm_backend == "xla"
-    xla = Recommender(cfg.replace(model=dataclasses.replace(
-        cfg.model, spmm_backend="xla")), bundle, rec.params, device="cpu")
-    for a, b in zip(rec.encode(), xla.encode()):
-        assert torch.equal(a, b)
+    assert rec.cfg.model.spmm_backend == "pallas"
+    for backend in ("pallas", "xla"):
+        other = Recommender(cfg.replace(model=dataclasses.replace(
+            cfg.model, spmm_backend=backend)), bundle, rec.params,
+            device="cpu")
+        for a, b in zip(rec.encode(), other.encode()):
+            if backend == "pallas":
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
