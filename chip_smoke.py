@@ -4,11 +4,11 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11, 13, 12 (any failure raises and
-the script exits non-zero; it prints no result line then):
+Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11, 13, 12, 14 (any failure raises
+and the script exits non-zero; it prints no result line then):
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — compile sagnn_tpu_torch/csrc/*.cu, one nvcc per source in
-               parallel (timed).
+  2. build   — compile sagnn_tpu_torch/csrc/*.cu (segsum.cu, sddmm.cu,
+               probes.cu), one nvcc per source in parallel (timed).
   3. set-up  — the synthetic gowalla-scale bundle (49,152 users x 40,960
                items, 3 intervals, sequences of 10-50 items), its graphs
                and CSR plans, and seeded random weights (timed).
@@ -37,15 +37,23 @@ the script exits non-zero; it prints no result line then):
                0.5, the step with remat_propagation and fusion_chunk_rows
                16,384 (24 + 12 launches) against the step without them
                from one dropout-generator state; the device time of the
-               step and of its parts.
+               step and of its parts. The fold steps are held against the
+               unfolded ones with PyTorch's deterministic algorithms on
+               (without them the bf16 step itself varies from run to run,
+               logged).
   7. training — `Trainer(...).run()` with the unchanged gowalla preset
-               (keepRate 0.5) for one epoch of ceil(trn_num / batch) = 20
-               steps, its evaluation over every test user and its
-               best-NDCG checkpoint; a timed evaluation and save; a second
-               `Trainer` restoring the checkpoint (epoch, step, params);
-               one more step on each from the same batch and dropout state,
-               held against each other; a torch.profiler pass over 3 steps
-               on that batch (device busy share, top kernels).
+               (keepRate 0.5) and the native sampler (built by g++ from
+               sagnn_tpu_torch/native/sampler.cc; a failed build fails) for
+               one epoch of ceil(trn_num / batch) = 20 steps, its
+               evaluation over every test user and its best-NDCG
+               checkpoint; a timed evaluation, a full-sort evaluation of
+               every test user (dense over 40,960 items) and a save; a
+               second `Trainer` restoring the checkpoint (epoch, step,
+               params); one more step on each from the same batch and
+               dropout state, held against each other; a torch.profiler
+               pass over 3 steps on that batch (device busy share, top
+               kernels); host ms per batch with the native and the numpy
+               sampler, and an epoch with the numpy one.
   8. variant serving — the preset with edge_norm="sym_sqrt", "mean" (12 K2,
                no K1) and edge_attention (12 K5 + 12 K2), on the same bundle
                and weights, each encode held against the plain path with
@@ -84,7 +92,12 @@ the script exits non-zero; it prints no result line then):
                folded K3 launches: forward, recompute, backward), the same
                step with the fold off and on bf16 tables; four
                `Trainer.train_step`s at keepRate 0.5, timed, with the peak
-               device memory; a torch.profiler pass over two more.
+               device memory; a torch.profiler pass over two more; the
+               Trainer's full-sort evaluation of its 4,096 test users,
+               streamed in 65,536-item chunks over 786,432 items, and the
+               same users' dense and streamed ranks over a catalog cut to
+               100,000 items whose second half copies its first (exact
+               ties), held equal element for element.
  13. ring — the preset with spmm_backend="ring" on a one-card mesh of
                four model ranks, all on the card (rows_u 12,288, rows_i
                10,240; NCCL refuses two ranks on one card, so one process
@@ -104,6 +117,18 @@ the script exits non-zero; it prints no result line then):
                in f64; `Trainer(mesh=...).run()` for one epoch with its
                evaluations, its checkpoint restored into a "pallas"
                `Trainer` bit for bit (params and Adam moments).
+ 14. probes — P1, the row gather (csrc/probes.cu), in every mode (f32 and
+               bf16 tables; runs of 1, 4, 8, 16 rows; 1, 2, 4, 8 loads in
+               flight) on the probe's shape (1,048,576 rows gathered from a
+               1,048,576 x 64 table) and on the gowalla hops' edge streams,
+               against its plain version summed in f64 (atol f32 eps x rows
+               x max|x|); P2, the ablated segment-sum (K1's kAblate mode),
+               on interval 0's gowalla and flagship hops, exactly; then,
+               counts set to 0, the probe CLI's measurements
+               (`probes.run`): P1's sweeps on an HBM-size and an L2-size
+               table, the run and tile factors of the CSR plans, and the
+               split of K1's time (P1 on the hop's stream, P2, K1) on both
+               bundles' interval 0.
 Each phase prints its time. Prints a `main_path` line, a `train` JSON line,
 the card's name and power limit, and a `kernels` JSON line, then as the
 last line
@@ -163,6 +188,8 @@ BF16_LOSS_RTOL = 1e-2
 RESUME_RTOL = 1e-5
 # the profiler pass over trainer steps on one batch
 PROFILE_STEPS, PROFILE_TOP = 3, 10
+# host sampling timed per backend over this many batches
+SAMPLE_BATCHES = 5
 # K3 (the accumulating mode: per source shard or slice), K4 (row-folded
 # gathers) and K3 with K4, and the backwards that launch them
 K3_REPLACES = "sagnn_tpu/ops/spmm_pallas.py:327"       # zero_init
@@ -179,6 +206,15 @@ FLAGSHIP = dict(num_users=1_048_576, num_items=786_432,
 FLAGSHIP_SHARD_ROWS = 131_072
 FLAGSHIP_ENCODE_LAUNCHES = 84
 FLAGSHIP_STEPS = 3          # timed Trainer steps at keepRate 0.5
+# the flagship's dense-vs-streamed full-sort check: a catalog cut to fit
+# dense scoring and not a multiple of the 65,536-item chunk
+FULL_SORT_CUT_ITEMS = 100_000
+# phase 14, the probes (P1, P2): their sources and the TPU kernels they
+# replace (the pallas_call of make_dma_gather, kernel dma_kernel :100-134;
+# of ablated_segsum, kernel ablate_kernel :94-104)
+PROBES_SOURCE = "sagnn_tpu_torch/csrc/probes.cu"
+P1_REPLACES = "scripts/probe_dma_gather.py:149"
+P2_REPLACES = "scripts/probe_overhead.py:122"
 
 
 def log(*a):
@@ -200,18 +236,8 @@ def gpu_name_and_power() -> str:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over `iters` back-to-back calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from sagnn_tpu_torch.utils.profiling import cuda_ms as timed
+    return timed(fn, iters, warmup)
 
 
 def sharded_row_ptr(ptr_ss):
@@ -338,6 +364,19 @@ def _hop_relu(relu):
         yield
     finally:
         selfgnn._interval_propagation = propagation
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """While active, PyTorch runs its deterministic implementations of its
+    own ops (and warns where it has none), so that a step repeats bit for
+    bit; the kernels are deterministic either way."""
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 @contextlib.contextmanager
@@ -769,17 +808,32 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
     bf16_grad_dev = max(max_err(g_b[k], g_k[k]) for k in keys) / g_max
     log(f"  bf16 step gradients: max abs deviation from the exact step "
         f"{bf16_grad_dev:.3e} x max|g|")
+    # the same bf16 step again: PyTorch's default ops sum in no fixed order
+    # (logged, not checked)
+    g_b2 = loss_and_grads(bf16, leaves, graphs, batch, tc)[2]
+    bf16_repeat_dev = max(max_err(g_b2[k], g_b[k]) for k in keys) / g_max
+    log(f"  bf16 step repeated: max abs deviation {bf16_repeat_dev:.3e} x "
+        f"max|g|")
+    del g_b2
 
-    # K4's backward: the same steps with row-folded gathers both ways
+    # K4's backward: the same steps with row-folded gathers both ways,
+    # each against the unfolded step, both with PyTorch's deterministic
+    # algorithms: without them the plain ops' sums vary from run to run,
+    # which the bf16 casts of the cotangents amplify past this tolerance
+    # (`bf16_repeat_dev` below); with them the two steps can differ only
+    # where K4 and K1 do
     fold_launches, fold_dev = {}, {}
-    for exact, (pre_r, ssl_r, g_r_), mode in (
-            (True, (pre_k, ssl_k, g_k), "f32"),
-            (False, (pre_b, ssl_b, g_b), "bf16")):
-        fold = selfgnn.SelfGNN(dataclasses.replace(
-            mc, spmm_exact=exact, spmm_fold_gather=True), nu, ni)
-        sc.reset_launches()
-        pre_f, ssl_f, g_f = loss_and_grads(fold, leaves, graphs, batch, tc)
-        torch.cuda.synchronize()
+    for exact, mode in ((True, "f32"), (False, "bf16")):
+        unfolded, fold = (selfgnn.SelfGNN(dataclasses.replace(
+            mc, spmm_exact=exact, spmm_fold_gather=f), nu, ni)
+            for f in (False, True))
+        with deterministic_algorithms():
+            pre_r, ssl_r, g_r_ = loss_and_grads(unfolded, leaves, graphs,
+                                                batch, tc)
+            sc.reset_launches()
+            pre_f, ssl_f, g_f = loss_and_grads(fold, leaves, graphs, batch,
+                                               tc)
+            torch.cuda.synchronize()
         fold_launches[mode] = dict(sc.LAUNCHES)
         expect_launches(fold_launches[mode], f"{mode} fold train step",
                         **{f"segsum_fold_{mode}": hops,
@@ -892,6 +946,7 @@ def train_step_phase(cfg, bundle, params, graphs, device) -> dict:
         "grad_atol": grad_atol, "grad_check_share": grad_share,
         "grad_check_worst": grad_worst,
         "bf16_grad_dev_over_max_g": bf16_grad_dev,
+        "bf16_repeat_dev_over_max_g": bf16_repeat_dev,
         "step_ms": step_ms, "propagation_fwd_ms": prop_fwd_ms,
         "propagation_bwd_ms": prop_fb_ms - prop_fwd_ms,
         "fusion_fwd_ms": fusion_fwd_ms,
@@ -961,12 +1016,15 @@ def profile_steps(step, n: int = PROFILE_STEPS) -> dict:
 
 def training_phase(cfg, bundle, device) -> dict:
     """`Trainer.run()` for one epoch (trn_num / batch steps, keepRate as
-    the preset has it) with its evaluation and best-NDCG checkpoint; a
-    timed evaluation and save; a second `Trainer` that restores the
-    checkpoint; one more step on each, on the same batch and dropout
-    state."""
+    the preset has it) with the native sampler (a failed build fails the
+    run), its evaluation and best-NDCG checkpoint; a timed evaluation, a
+    full-sort evaluation of every test user (dense over the catalog) and
+    a save; a second `Trainer` that restores the checkpoint; one more
+    step on each, on the same batch and dropout state; host sampling per
+    batch with each sampler backend, and the epoch with the numpy one."""
     import numpy as np
     import torch
+    from sagnn_tpu_torch.data.sampler import Sampler
     from sagnn_tpu_torch.models.selfgnn import TrainBatch
     from sagnn_tpu_torch.ops import spmm_cuda as sc
     from sagnn_tpu_torch.train.trainer import Trainer
@@ -980,8 +1038,10 @@ def training_phase(cfg, bundle, device) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        trainer = Trainer(run_cfg, bundle, ckpt_root=root, device=device)
+        trainer = Trainer(run_cfg, bundle, ckpt_root=root, device=device,
+                          sampler_backend="native")
         out["trainer_init_s"] = time.perf_counter() - t0
+        check(trainer.sampler.backend == "native", "the native sampler")
         epoch_s = []
         train_epoch = trainer.train_epoch
 
@@ -1036,6 +1096,20 @@ def training_phase(cfg, bundle, device) -> dict:
             f"{out['evaluate_s']:.2f} s, HR@10 {metrics['HR@10']:.4f} "
             f"NDCG@10 {metrics['NDCG@10']:.4f} (one epoch from random "
             f"weights)")
+        # full sort: every test user against the whole catalog, dense
+        # (40,960 items is below DENSE_MAX_ROWS)
+        t0 = time.perf_counter()
+        metrics = trainer.test_epoch(full_sort=True)
+        torch.cuda.synchronize()
+        out["full_sort_s"] = time.perf_counter() - t0
+        out["full_sort_metrics"] = {k: metrics[k] for k in ("HR@10",
+                                                            "NDCG@10")}
+        for k, v in metrics.items():
+            check(math.isfinite(v) and 0.0 <= v <= 1.0,
+                  f"full-sort metric {k}={v}")
+        log(f"full-sort evaluate (dense) over {len(bundle.tst_usrs)} users "
+            f"x {bundle.num_items} items: {out['full_sort_s']:.2f} s, HR@10 "
+            f"{metrics['HR@10']:.4f} NDCG@10 {metrics['NDCG@10']:.4f}")
         t0 = time.perf_counter()
         trainer.ckpt.save(trainer.state, trainer.history, trainer.cfg,
                           rng_state=trainer.capture_rng_state(1))
@@ -1043,7 +1117,7 @@ def training_phase(cfg, bundle, device) -> dict:
 
         resumed = Trainer(run_cfg.replace(train=dataclasses.replace(
             run_cfg.train, epoch=2, load_model="smoke")), bundle,
-            ckpt_root=root, device=device)
+            ckpt_root=root, device=device, sampler_backend="native")
         t0 = time.perf_counter()
         epoch = resumed.restore_checkpoint()
         torch.cuda.synchronize()
@@ -1079,6 +1153,32 @@ def training_phase(cfg, bundle, device) -> dict:
                                         resumed_launches.items() if v}
         batch = b_res.to(device)
         out["profile"] = profile_steps(lambda: resumed.train_step(batch))
+
+        # host sampling per batch on one epoch's first users, each backend
+        skw = dict(batch=tc.batch, samp_num=tc.samp_num,
+                   ssl_num=tc.ssl_num, pred_num=tc.pred_num,
+                   pos_length=mc.pos_length, test_size=tc.test_size,
+                   seed=tc.seed)
+        out["host_sample_ms_by_backend"] = {}
+        for backend in ("native", "numpy"):
+            smp = Sampler(bundle, backend=backend, **skw)
+            ids = smp.epoch_user_ids(tc.trn_num)
+            t0 = time.perf_counter()
+            for i in range(SAMPLE_BATCHES):
+                smp.train_batch(ids[i * tc.batch:(i + 1) * tc.batch])
+            out["host_sample_ms_by_backend"][backend] = (
+                (time.perf_counter() - t0) / SAMPLE_BATCHES * 1e3)
+        # the epoch with the numpy sampler (the run's was native)
+        numpy_trainer = Trainer(run_cfg, bundle, ckpt_root=root,
+                                device=device, sampler_backend="numpy")
+        t0 = time.perf_counter()
+        numpy_trainer.train_epoch(verbose=False)
+        torch.cuda.synchronize()
+        out["epoch_s_numpy"] = time.perf_counter() - t0
+        out["host_sample_ms_numpy_epoch"] = (
+            sum(numpy_trainer.sample_timer.times)
+            / len(numpy_trainer.sample_timer.times) * 1e3)
+        del numpy_trainer
     log(f"training: epoch of {steps} steps {out['epoch_s']:.2f} s, step "
         f"{out['step_ms_mean']:.2f} ms mean (p50 {out['step_ms_p50']:.2f}, "
         f"p95 {out['step_ms_p95']:.2f}) after the first, host sampling "
@@ -1086,6 +1186,10 @@ def training_phase(cfg, bundle, device) -> dict:
         f"{out['first_preloss']:.4f} -> {out['last_preloss']:.4f}; save "
         f"{out['checkpoint_save_s']:.2f} s, restore "
         f"{out['checkpoint_restore_s']:.2f} s")
+    by = out["host_sample_ms_by_backend"]
+    log(f"sampler: native {by['native']:.1f} ms per batch, numpy "
+        f"{by['numpy']:.1f} ms ({SAMPLE_BATCHES} batches each); epoch "
+        f"native {out['epoch_s']:.2f} s, numpy {out['epoch_s_numpy']:.2f} s")
     return out
 
 
@@ -1122,6 +1226,15 @@ def _k5_bytes(n_src, n_tgt, n_edges, slots, d, elem) -> int:
     """K5's unique bytes: both tables once, the source and target ids of
     the real edges, the edge count, the f32 scores of every slot."""
     return ((n_src + n_tgt) * d * elem + n_edges * 8 + 4 + slots * 4)
+
+
+def _p1_bytes(x, src) -> int:
+    """P1's unique bytes at run 1: the distinct rows touched once, the
+    ids and the f32 [D] output."""
+    import torch
+    distinct = int(torch.unique(src).numel())
+    return (distinct * x.shape[1] * x.element_size() + src.numel() * 4
+            + x.shape[1] * 4)
 
 
 def _bound_ms(nbytes, flops) -> float:
@@ -2375,7 +2488,62 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
     return records
 
 
-def flagship_phase(device) -> tuple[dict, dict]:
+def full_sort_tie_check(trainer, n_items, device) -> dict:
+    """Dense and streamed full-sort ranks of every test user of `trainer`
+    over a catalog cut to n_items rows (to fit dense scoring) whose second
+    half is a copy of its first, each positive moved into the copied half,
+    so that it ties exactly with its twin (and every item with one other):
+    the two protocols' ranks must be equal, element for element. Streamed
+    in AUTO_CHUNK_ROWS chunks, as the Trainer streams past DENSE_MAX_ROWS.
+    Returns the times and the count of positives whose twin is ranked."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch.ops.chunking import AUTO_CHUNK_ROWS
+    from sagnn_tpu_torch.train.metrics import (dense_positive_ranks,
+                                               streaming_positive_ranks)
+
+    params, tc = trainer.state["params"], trainer.cfg.train
+    half = n_items // 2
+    users = np.asarray(trainer.bundle.tst_usrs)
+    out = {"users": len(users), "items": 2 * half,
+           "chunk_items": AUTO_CHUNK_ROWS, "dense_s": 0.0, "streamed_s": 0.0,
+           "twins_ranked": 0}
+    with torch.no_grad():
+        fu, fi, _, _ = trainer.model.encode(params, trainer.graphs)
+        table = torch.cat([fi[:half], fi[:half]])
+        for s in range(0, len(users), tc.batch):
+            uid, pos, seq, seq_mask, excl, valid = (
+                torch.from_numpy(a).to(device) for a in
+                trainer.sampler.full_sort_batch(users[s:s + tc.batch],
+                                                test_mode=tc.test_mode))
+            pos = half + pos % half
+            excl = torch.where((excl >= 2 * half) | (excl == pos[:, None]),
+                               2 * half, excl)
+            q = trainer.model.serving_queries(params, fu, fi, uid, seq,
+                                              seq_mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dense = dense_positive_ranks(q, table, pos, excl)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            streamed = streaming_positive_ranks(q, table, pos, excl,
+                                                2 * half, AUTO_CHUNK_ROWS)
+            torch.cuda.synchronize()
+            out["dense_s"] += t1 - t0
+            out["streamed_s"] += time.perf_counter() - t1
+            diff = int((dense != streamed).sum())
+            check(diff == 0, f"full-sort ranks, users {s}+: {diff} of "
+                  f"{len(dense)} differ between dense and streamed")
+            twin_out = (excl == (pos - half)[:, None]).any(1)
+            out["twins_ranked"] += int(((valid > 0) & ~twin_out).sum())
+    log(f"full-sort tie check: {out['users']} users x {out['items']} items "
+        f"(second half a copy of the first), dense and streamed ranks equal;"
+        f" {out['twins_ranked']} positives tie with a ranked twin; dense "
+        f"{out['dense_s']:.3f} s, streamed {out['streamed_s']:.3f} s")
+    return out
+
+
+def flagship_phase(device) -> tuple[dict, dict, dict]:
     """The 1M-user flagship through the entry points: the bundle of
     scripts/bench_1m.py, a `Trainer` with the exact_b512 recipe (auto
     shard rows resolved to FLAGSHIP_SHARD_ROWS, sharded plans attached),
@@ -2389,7 +2557,9 @@ def flagship_phase(device) -> tuple[dict, dict]:
     with its propagation in f64; the same step with the fold off and on
     bf16 tables; FLAGSHIP_STEPS + 1 `Trainer.train_step`s at keepRate 0.5,
     timed, with the device's peak memory, and a profiler pass over two
-    more. Returns (results, records)."""
+    more; the Trainer's full-sort evaluation of every test user (streamed
+    over the catalog) and `full_sort_tie_check` on a cut catalog. Returns
+    (results, records, interval 0's CSR plans for phase 14)."""
     import torch
     from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
     from sagnn_tpu_torch.models import selfgnn
@@ -2649,12 +2819,177 @@ def flagship_phase(device) -> tuple[dict, dict]:
         f" K3 launches alone {out['k3_per_step_ms']:.1f} ms per step; peak "
         f"device memory {out['peak_memory_gb']:.2f} GB; host sampling "
         f"{sum(sample_ms) / len(sample_ms):.1f} ms per batch")
+    # full sort: every test user against the 786,432-item catalog,
+    # streamed in AUTO_CHUNK_ROWS chunks (past DENSE_MAX_ROWS)
+    from sagnn_tpu_torch.ops.chunking import auto_chunk_rows
+    check(auto_chunk_rows(ni) > 0, "the flagship's full sort streams")
+    t0 = time.perf_counter()
+    metrics = trainer.test_epoch(full_sort=True)
+    torch.cuda.synchronize()
+    out["full_sort_s"] = time.perf_counter() - t0
+    out["full_sort_users"] = len(bundle.tst_usrs)
+    out["full_sort_metrics"] = {k: metrics[k] for k in ("HR@10", "NDCG@10")}
+    for k, v in metrics.items():
+        check(math.isfinite(v) and 0.0 <= v <= 1.0,
+              f"flagship full-sort metric {k}={v}")
+    log(f"flagship full-sort evaluate (streamed, {auto_chunk_rows(ni)}-item"
+        f" chunks) over {out['full_sort_users']} users x {ni} items: "
+        f"{out['full_sort_s']:.2f} s, HR@10 {metrics['HR@10']:.4f}")
+    out["full_sort_ties"] = full_sort_tie_check(trainer, FULL_SORT_CUT_ITEMS,
+                                                device)
+
     out["launches"] = {k: {n: c for n, c in v.items() if c}
                        for k, v in launches.items()}
     out["per_encode_launches"] = per_encode
     out["shard_rows"], out["shards"] = rows, {"u": s_u, "i": s_i}
+    hops0 = {k: trainer.graphs[k][:1].clone()
+             for k in ("u_src", "u_ptr", "i_src", "i_ptr")}
     shutil.rmtree(root, ignore_errors=True)
-    return out, records
+    return out, records, hops0
+
+
+def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
+    """Phase 14. P1 (`probes.gather_sum`) in every mode (f32 and bf16
+    tables, every run and loads-in-flight count) on the probe's own shape
+    against its plain version summed in f64, atol = f32 eps x rows x
+    max|x|, and on interval 0's gowalla hop streams; P2
+    (`probes.segsum_ablate`) on interval 0's gowalla and flagship hops,
+    both table types, against its plain version, exactly; each record's
+    kernel, plain (= library for P1) and bound times. Then, with every
+    count set to 0, `probes.run` (the CLI's measurements: P1's sweeps on
+    an HBM-size and an L2-size table, the plans' factors, the split of K1
+    on both bundles' interval 0), its counts read just after. Returns
+    (the run's results, records)."""
+    import torch
+    from sagnn_tpu_torch.ops import probes
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    D = probes.D
+    records = {}
+    x32 = torch.randn((probes.PROBE_ROWS, D), generator=gen, device=device)
+    for x in (x32, x32.to(torch.bfloat16)):
+        mode = "f32" if x.dtype == torch.float32 else "bf16"
+        rec = _record(f"gather_sum_{mode}", PROBES_SOURCE, P1_REPLACES,
+                      f"{mode} table, f32 sums; P1 at the probe's shape")
+        x64 = x.double()
+        worst = 0.0
+        for run in probes.RUNS:
+            src = torch.from_numpy(probes.probe_ids(
+                probes.PROBE_ROWS, probes.PROBE_FETCHED, run)).to(device)
+            want = probes.gather_sum_plain(x64, src, run)
+            atol = F32_EPS * src.numel() * run * amax(x)
+            for k in probes.IN_FLIGHT:
+                got = probes.gather_sum(x, src, run, k)
+                err, used = tolerance_used(got, want, 0.0, atol)
+                check(used <= 1.0, f"{rec['name']} run {run} in flight {k}:"
+                      f" max abs err {err:.3e} (atol {atol:.2e})")
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                worst = max(worst, used)
+        # on the gowalla hops' own edge streams (the split's input)
+        for d, o in (("u", "i"), ("i", "u")):
+            n = int(gowalla[f"{d}_ptr"][0][-1])
+            stream = gowalla[f"{d}_src"][0][:n]
+            table = torch.randn((gowalla[f"{o}_ptr"].shape[-1] - 1, D),
+                                generator=gen, device=device).to(x.dtype)
+            want = probes.gather_sum_plain(table.double(), stream)
+            atol = F32_EPS * n * amax(table)
+            err, used = tolerance_used(probes.gather_sum(table, stream),
+                                       want, 0.0, atol)
+            check(used <= 1.0, f"{rec['name']} on the gowalla {d}-hop")
+            worst = max(worst, used)
+        log(f"  {rec['name']}: {len(probes.RUNS) * len(probes.IN_FLIGHT)} "
+            f"modes and the gowalla hop streams within {worst:.2f} of atol"
+            f" = f32 eps x rows x max|x|; max abs err {rec['max_abs_err']:.3e}")
+        # the record's times: run 1 at K1's unroll, on the probe's shape
+        src = torch.from_numpy(probes.probe_ids(
+            probes.PROBE_ROWS, probes.PROBE_FETCHED, 1)).to(device)
+        nbytes = _p1_bytes(x, src)
+        library_ms = cuda_ms(lambda: probes.gather_sum_plain(x, src))
+        rec.update(
+            ms=cuda_ms(lambda: probes.gather_sum(x, src)),
+            plain_ms=library_ms, library_ms=library_ms,
+            bound_ms=_bound_ms(nbytes, src.numel() * D),
+            unique_bytes=nbytes, rows=src.numel(), table_rows=x.shape[0],
+            in_flight=probes.SPLIT_IN_FLIGHT, run=1,
+            tolerance="atol f32 eps x rows x max|x| against the f64 sum",
+            timed=("ms/plain_ms/library_ms/bound_ms: 1,048,576 rows "
+                   "gathered from a 1,048,576 x 64 table (HBM), run 1, "
+                   f"{probes.SPLIT_IN_FLIGHT} loads in flight; plain and "
+                   "library are one call, x.index_select(0, src).float()"
+                   ".sum(0)"))
+        records[rec["name"]] = rec
+    del x32, x64
+
+    for exact, mode in ((True, "f32"), (False, "bf16")):
+        elem = 4 if exact else 2
+        rec = _record(f"segsum_ablate_{mode}", KERNEL_SOURCE, P2_REPLACES,
+                      f"K1's walk and loads, no adds; {mode} table")
+        rec.update(library_ms=None, flagship={}, tolerance="exact",
+                   timed=("ms/plain_ms/bound_ms: one user-target plus one "
+                          "item-target hop on interval 0 of the "
+                          "gowalla-scale bundle (flagship: the same on the "
+                          "flagship bundle); library_ms: no one PyTorch "
+                          "call computes it"))
+        for bundle_name, graphs in (("gowalla", gowalla),
+                                    ("flagship", flagship)):
+            for d, o in (("u", "i"), ("i", "u")):
+                src, ptr = graphs[f"{d}_src"][0], graphs[f"{d}_ptr"][0]
+                n_src, n_tgt = graphs[f"{o}_ptr"].shape[-1] - 1, \
+                    ptr.numel() - 1
+                n = int(ptr[-1])
+                x = torch.randn((n_src, D), generator=gen, device=device)
+                got = probes.segsum_ablate(x, src, ptr, exact)
+                want = probes.segsum_ablate_plain(x, src, ptr, exact)
+                check(torch.equal(got, want),
+                      f"{rec['name']} {bundle_name}[{d}]: exactly the last "
+                      "source rows")
+                distinct = int(torch.unique(src[:n]).numel())
+                nbytes = (distinct * D * elem + n * 4 + (n_tgt + 1) * 4
+                          + n_tgt * D * 4)
+                times = dict(
+                    ms=cuda_ms(lambda: probes.segsum_ablate(x, src, ptr,
+                                                            exact), iters=10),
+                    plain_ms=cuda_ms(lambda: probes.segsum_ablate_plain(
+                        x, src, ptr, exact), iters=10),
+                    bound_ms=_bound_ms(nbytes, 0), unique_bytes=nbytes,
+                    distinct_rows=distinct, edges=n,
+                    max_degree=int((ptr[1:] - ptr[:-1]).max()))
+                if bundle_name == "gowalla":
+                    _add(rec, d, 0.0, library_ms=None, **times)
+                else:
+                    rec["flagship"][d] = times
+        fl = rec["flagship"]
+        rec["flagship"]["pair"] = {k: fl["u"][k] + fl["i"][k]
+                                   for k in ("ms", "plain_ms", "bound_ms")}
+        records[rec["name"]] = rec
+        log(f"{rec['name']}: gowalla pair {rec['ms']:.4f} ms (bound "
+            f"{rec['bound_ms']:.4f}), flagship pair {fl['pair']['ms']:.4f} "
+            "ms; every row exact")
+
+    # the probes' path: the CLI's measurements, counts read just after
+    sc.reset_launches()
+    probes.reset_launches()
+    t0 = time.perf_counter()
+    result = probes.run(device, gowalla, flagship)
+    torch.cuda.synchronize()
+    result["run_s"] = time.perf_counter() - t0
+    launches = dict(probes.LAUNCHES)
+    k1 = {k: v for k, v in sc.LAUNCHES.items() if v}
+    log(f"probes run launches: {launches}; K1 {k1}")
+    for name, rec in records.items():
+        rec["launches"] = launches[name]
+        rec["launches_path"] = "probes.run (the probe CLI's measurements)"
+    for name, sp in result["split"].items():
+        for mode in ("f32", "bf16"):
+            pair = sp[mode]["pair"]
+            log(f"split {name} {mode}: K1 pair {pair['k1_ms']:.4f} ms = "
+                f"loads (P1) {pair['p1_ms']:.4f} + walk (P2 - P1) "
+                f"{pair['walk_ms']:.4f} + adds (K1 - P2) "
+                f"{pair['adds_ms']:.4f}; longest i-row under P2 "
+                f"{sp[mode]['i']['p2_ns_per_edge_longest']:.1f} ns per edge,"
+                f" K1 {sp[mode]['i']['k1_ns_per_edge_longest']:.1f}")
+    return result, records
 
 
 def main() -> None:
@@ -2912,10 +3247,19 @@ def drive(device) -> None:
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
     t0 = time.perf_counter()
-    flagship, frecords = flagship_phase(device)
+    flagship, frecords, flagship_hops = flagship_phase(device)
     records.update(frecords)
     phase_s["flagship"] = time.perf_counter() - t0
     log(f"phase flagship: {phase_s['flagship']:.1f} s")
+
+    # 14. the probes: P1 and P2 against their plain versions, then the
+    # probe CLI's measurements on both bundles' interval 0
+    t0 = time.perf_counter()
+    probe_results, precords = probes_phase(rec.graphs, flagship_hops, device)
+    records.update(precords)
+    del flagship_hops
+    phase_s["probes"] = time.perf_counter() - t0
+    log(f"phase probes: {phase_s['probes']:.1f} s")
 
     # `launches`: the count on the path each kernel belongs to, read just
     # after it (the serving encode for the forward kernels, the training
@@ -3016,7 +3360,7 @@ def drive(device) -> None:
     for r in records.values():
         r["kernel_ms"] = r["ms"]
         r["ok"] = True
-        r["timed"] = (
+        r["timed"] = r.get("timed") or (
             "ms/plain_ms/library_ms/bound_ms: one user-target plus one "
             "item-target hop on interval 0 of the "
             + ("flagship bundle (1,048,576 x 786,432, ~21.4M edges per "
@@ -3043,7 +3387,19 @@ def drive(device) -> None:
         "ring": ring,
         "flagship": {k: v for k, v in flagship.items()
                      if k not in ("launches", "trainer_losses")},
-        "flagship_launches": flagship["launches"]}
+        "flagship_launches": flagship["launches"],
+        "full_sort": {"gowalla": {
+            "s": training["full_sort_s"], "users": training["evaluate_users"],
+            "items": NUM_ITEMS, "mode": "dense"},
+            "flagship": {"s": flagship["full_sort_s"],
+                         "users": flagship["full_sort_users"],
+                         "items": FLAGSHIP["num_items"], "mode": "streamed",
+                         "tie_check": flagship["full_sort_ties"]}},
+        "sampler": {"host_ms_per_batch": training[
+            "host_sample_ms_by_backend"], "epoch_s": {
+            "native": training["epoch_s"],
+            "numpy": training["epoch_s_numpy"]}},
+        "probes": probe_results}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

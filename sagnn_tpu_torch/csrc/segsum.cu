@@ -48,6 +48,18 @@
 //     write of every touched output row per bucket and the ring's P - 1
 //     block copies per rank, made by the caller on a side stream so that
 //     they overlap the previous bucket's launch.
+//   * P2, the ablated segment-sum probe (`kAblate`; replaces
+//     scripts/probe_overhead.py::ablated_segsum, whose kernel
+//     `ablate_kernel` runs _segsum_kernel's grid and BlockSpecs with the
+//     one-hot MXU dot replaced by a column sum): K1's walk, id broadcast,
+//     unroll and row loads with the adds removed. Every edge's row is still
+//     loaded; the loaded bits are folded by XOR into kUnroll words that are
+//     stored only where `sink` is not null, which the caller keeps null, so
+//     the compiler cannot drop a load. Each row then writes its last
+//     source's row, out[t] = x[src[ptr[t+1] - 1]] (zeros for an empty row),
+//     which a plain gather checks exactly. Beside K1 and P1
+//     (csrc/probes.cu) on the same edge stream it splits K1's time between
+//     the row loads, the adds and the serial row walk.
 // The flags compose in the code; only the combinations the port launches
 // are instantiated below.
 //
@@ -126,12 +138,15 @@ __device__ __forceinline__ const T* table_row(const T* __restrict__ x, int s,
 // One warp per target row; lane `lane` owns column pairs lane, lane+32, ...
 // kWeighted: each gathered row is scaled by its edge's f32 weight w[e].
 // kAccumulate: the row's sum is added to out (rows without edges are not
-// touched). kFolded: x is the row-folded [N/2, 2D] view.
-template <typename T, bool kWeighted, bool kAccumulate, bool kFolded>
+// touched). kFolded: x is the row-folded [N/2, 2D] view. kAblate (P2): the
+// walk and the loads without the adds; `sink` is read only in this mode.
+template <typename T, bool kWeighted, bool kAccumulate, bool kFolded,
+          bool kAblate = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    const int* __restrict__ src, const int* __restrict__ ptr,
-                   float* __restrict__ out, int num_tgt, int d) {
+                   float* __restrict__ out, int num_tgt, int d,
+                   unsigned* __restrict__ sink) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= num_tgt) return;  // whole warp leaves together
@@ -148,8 +163,12 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
     // rounding error of a long row is about sqrt(kUnroll) times smaller
     // than with one running sum, and the order is still fixed
     float2 acc[kUnroll];
+    unsigned bits[kUnroll];  // P2's sink of the loaded values
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) acc[u] = make_float2(0.f, 0.f);
+    for (int u = 0; u < kUnroll; ++u) {
+      acc[u] = make_float2(0.f, 0.f);
+      bits[u] = 0u;
+    }
     for (int base = beg; base < end; base += 32) {
       const int n = min(32, end - base);  // warp-uniform
       const int my_src = lane < n ? src[base + lane] : 0;
@@ -169,7 +188,9 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          if constexpr (kWeighted) {
+          if constexpr (kAblate) {
+            bits[u] ^= __float_as_uint(v[u].x) ^ __float_as_uint(v[u].y);
+          } else if constexpr (kWeighted) {
             acc[u].x = fmaf(wt[u], v[u].x, acc[u].x);
             acc[u].y = fmaf(wt[u], v[u].y, acc[u].y);
           } else {
@@ -188,7 +209,9 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
           if constexpr (kWeighted) wt = __shfl_sync(kFullMask, my_w, j + u);
           if (active) {
             const float2 v = load_pair(table_row<kFolded>(x, s, d), c);
-            if constexpr (kWeighted) {
+            if constexpr (kAblate) {
+              bits[u] ^= __float_as_uint(v.x) ^ __float_as_uint(v.y);
+            } else if constexpr (kWeighted) {
               acc[u].x = fmaf(wt, v.x, acc[u].x);
               acc[u].y = fmaf(wt, v.y, acc[u].y);
             } else {
@@ -207,7 +230,16 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
         acc[u].y += acc[u + half].y;
       }
     }
-    if (active) {
+    if constexpr (kAblate) {
+#pragma unroll
+      for (int u = 1; u < kUnroll; ++u) bits[0] ^= bits[u];
+      if (sink != nullptr && active) sink[(int64_t)row * 32 + lane] = bits[0];
+      if (active) {
+        out_row[c] = beg < end
+            ? load_pair(table_row<kFolded>(x, src[end - 1], d), c)
+            : make_float2(0.f, 0.f);
+      }
+    } else if (active) {
       if constexpr (kAccumulate) {
         // JAX's `acc + partial`: one rounding of the finished partial
         const float2 o = out_row[c];
@@ -220,18 +252,18 @@ segsum_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 template <typename T, bool kWeighted, bool kAccumulate = false,
-          bool kFolded = false>
+          bool kFolded = false, bool kAblate = false>
 int launch(const void* x, const void* w, const void* src, const void* ptr,
            void* out, int num_tgt, int d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (num_tgt <= 0) return (int)cudaSuccess;
   const dim3 grid((num_tgt + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  segsum_rows_kernel<T, kWeighted, kAccumulate, kFolded>
+  segsum_rows_kernel<T, kWeighted, kAccumulate, kFolded, kAblate>
       <<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), static_cast<const float*>(w),
           static_cast<const int*>(src), static_cast<const int*>(ptr),
-          static_cast<float*>(out), num_tgt, d);
+          static_cast<float*>(out), num_tgt, d, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -330,6 +362,22 @@ int sagnn_wsegsum_acc_f32(const void* x, const void* w, const void* src,
                           int device, void* stream) {
   return launch<float, true, true>(x, w, src, ptr, out, num_tgt, d, device,
                                    stream);
+}
+
+// P2: K1's arguments; out[t] = x[src[ptr[t+1] - 1]] for every row with
+// edges (each of its edges' rows loaded, none added), zeros for the others.
+int sagnn_segsum_ablate_f32(const void* x, const void* src, const void* ptr,
+                            void* out, int num_tgt, int d, int device,
+                            void* stream) {
+  return launch<float, false, false, false, true>(x, nullptr, src, ptr, out,
+                                                  num_tgt, d, device, stream);
+}
+
+int sagnn_segsum_ablate_bf16(const void* x, const void* src, const void* ptr,
+                             void* out, int num_tgt, int d, int device,
+                             void* stream) {
+  return launch<__nv_bfloat16, false, false, false, true>(
+      x, nullptr, src, ptr, out, num_tgt, d, device, stream);
 }
 
 const char* sagnn_error_string(int code) {

@@ -1,6 +1,5 @@
-"""Host-side batch samplers; the port of the numpy path of
-`sagnn_tpu/data/sampler.py` (ref: model.py:252-339, 384-428;
-DataHandler.py:28-41).
+"""Host-side batch samplers; the port of `sagnn_tpu/data/sampler.py`
+(ref: model.py:252-339, 384-428; DataHandler.py:28-41).
 
 The sampling semantics are the reference's; the arrays are fixed-shape
 and padded, with masks:
@@ -17,14 +16,18 @@ and padded, with masks:
     in the loss (model.py:186-196), and that split (Q7) happens here so
     the device gets aligned (A, B) halves.
   * Test (ref sampleTestBatch): candidates = testSize-1 precomputed
-    1-indexed negatives (minus 1) + the positive appended LAST. Eval
-    sampling draws no random numbers.
+    1-indexed negatives (minus 1) + the positive appended LAST.
+  * Full sort (no reference analog): the positive against the whole
+    catalog but the user's own train row. Eval sampling draws no random
+    numbers.
 
-Random draws follow the JAX Sampler's numpy path exactly (one
-`default_rng(seed)` for epoch permutations and per-batch seeds, one
-`default_rng((seed, user))` per user), so the same seed and call sequence
-give byte-equal arrays. The JAX package's native C++ sampler draws other
-numbers; its port is ROADMAP Queue A2.
+Two backends draw the per-user numbers, as in the JAX package: "native"
+(`native/sampler.cc` through `data/native_sampler.py`, xoshiro256** per
+user) and "numpy" (`default_rng((seed, user))` per user). Both take the
+epoch permutations and the per-batch seeds from one `default_rng(seed)`.
+Each gives the JAX Sampler's arrays of the same backend byte for byte for
+the same seed and call sequence. "auto" (the default) takes "native" and
+falls back to "numpy" only where the library cannot be built or loaded.
 """
 
 from __future__ import annotations
@@ -33,8 +36,12 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from sagnn_tpu_torch.data import native_sampler as ns
 from sagnn_tpu_torch.data.io import DatasetBundle
 from sagnn_tpu_torch.models.selfgnn import TrainBatch
+from sagnn_tpu_torch.utils.logger import log
+
+BACKENDS = ("auto", "native", "numpy")
 
 
 def _fill_sequence(row_items: Sequence[int], pos_length: int
@@ -118,12 +125,17 @@ def neg_sample(rng: np.random.Generator, seen: np.ndarray, samp_size: int,
 
 
 class Sampler:
-    """Stateful host sampler over one DatasetBundle (JAX `Sampler` with
-    backend="numpy")."""
+    """Stateful host sampler over one DatasetBundle (JAX `Sampler`).
+
+    backend: "native" raises if the library cannot be built or loaded;
+    "auto" then logs the failure and takes "numpy". `self.backend` is the
+    one taken."""
 
     def __init__(self, bundle: DatasetBundle, batch: int, samp_num: int,
                  ssl_num: int, pred_num: int, pos_length: int,
-                 test_size: int, seed: int = 100):
+                 test_size: int, seed: int = 100, backend: str = "auto"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         self.bundle = bundle
         self.batch = batch
         self.samp_num = samp_num
@@ -138,6 +150,33 @@ class Sampler:
         # user: the JAX sampler's `label_row != 0` test without building a
         # dense [batch, num_items] block per batch
         self._seen = np.zeros(bundle.num_items, dtype=bool)
+        self._deg_cache = None      # see _max_train_deg
+        self._native = None
+        if backend != "numpy":
+            try:
+                lib = ns.load_library()
+            except (RuntimeError, OSError) as e:
+                if backend == "native":
+                    raise
+                log(f"sampler: native library unavailable "
+                    f"({str(e).splitlines()[0]}); numpy backend")
+            else:
+                self._native = (lib, ns.NativeSamplerState(
+                    bundle.sequences, self._trn_csr, self._sub_csrs,
+                    bundle.tst_int))
+        self.backend = "numpy" if self._native is None else "native"
+        log(f"sampler: {self.backend} backend")
+
+    @property
+    def _max_train_deg(self) -> int:
+        """Exclusion-list width for full_sort_batch: the max train-row
+        degree, rounded up to a multiple of 64 (at least 64), so the shapes
+        are stable across runs of similar datasets."""
+        if self._deg_cache is None:
+            deg = np.diff(self._trn_csr.indptr)
+            self._deg_cache = max(
+                64, -(-int(deg.max(initial=1)) // 64) * 64)
+        return self._deg_cache
 
     # -- train ------------------------------------------------------------
 
@@ -148,10 +187,21 @@ class Sampler:
     def train_batch(self, bat_ids: np.ndarray) -> TrainBatch:
         """One train batch (numpy arrays) for `bat_ids`, sized for
         `self.batch` users; rows past len(bat_ids) are padding with mask 0.
-        Per-user draws come from default_rng((batch_seed, user)), the JAX
-        sampler's determinism contract."""
+        Per-user draws are seeded by (batch_seed, user), the JAX sampler's
+        determinism contract."""
         batch_seed = int(self.rng.integers(0, 2 ** 63))
         ssl = self.ssl_batch(bat_ids)
+        if self._native is not None:
+            lib, state = self._native
+            uids, pos_iids, neg_iids, useq_row, pair_mask, seq, mask = \
+                ns.native_train_batch(lib, state, bat_ids, self.batch,
+                                      self.samp_num, self.pred_num,
+                                      self.pos_length, self.bundle.num_items,
+                                      batch_seed)
+            return TrainBatch(uids=uids, pos_iids=pos_iids,
+                              neg_iids=neg_iids, useq_row=useq_row,
+                              pair_mask=pair_mask, seq=seq, seq_mask=mask,
+                              **ssl)
         b = self.bundle
         B, P = self.batch, self.batch * self.samp_num
         uids = np.zeros(P, dtype=np.int32)
@@ -201,8 +251,8 @@ class Sampler:
         Reference layout (model.py:186-196 + 328-338): interleaved
         (u, pos_j)(u, neg_j) draws flattened across the batch, split at the
         global half, so pair column j pairs flat entry j with entry
-        half + j. One seed per interval from self.rng; per-user draws from
-        default_rng((interval_seed, user))."""
+        half + j. One seed per interval from self.rng; per-user draws
+        seeded by (interval_seed, user)."""
         g = self.bundle.graph_num
         size = self.batch * self.ssl_num
         seeds = [int(self.rng.integers(0, 2 ** 63)) for _ in range(g)]
@@ -211,7 +261,16 @@ class Sampler:
                for k in ("ssl_u_a", "ssl_i_a", "ssl_u_b", "ssl_i_b",
                          "ssl_mask")}
         for k in range(g):
-            self._ssl_interval(k, bat_ids, seeds[k], size, out)
+            if self._native is None:
+                self._ssl_interval(k, bat_ids, seeds[k], size, out)
+                continue
+            lib, state = self._native
+            for key, a in zip(("ssl_u_a", "ssl_i_a", "ssl_u_b", "ssl_i_b",
+                               "ssl_mask"),
+                              ns.native_ssl_batch(lib, state, k, bat_ids,
+                                                  self.ssl_num, seeds[k], 0,
+                                                  size)):
+                out[key][k] = a
         return out
 
     def _ssl_interval(self, k: int, bat_ids: np.ndarray, seed: int,
@@ -255,3 +314,41 @@ class Sampler:
         return test_batch(self.bundle, bat_ids, self.test_size,
                           self.pos_length, test_mode,
                           batch_cap or self.batch)
+
+    def full_sort_batch(self, bat_ids: np.ndarray, test_mode: bool = True,
+                        batch_cap: Optional[int] = None):
+        """Full-catalog evaluation batch (JAX `Sampler.full_sort_batch`,
+        sampler.py:361-401): the positive is ranked against every item but
+        the user's own train row.
+
+        Returns (user_ids [B], pos_items [B], seq [B, L], seq_mask [B, L],
+        excl_idx [B, K] int32, valid [B]). `excl_idx` lists the user's
+        train-row item ids minus the positive, padded with num_items (an id
+        past the catalog, which the evaluation masks), K =
+        `_max_train_deg`. batch_cap sizes the arrays (default
+        self.batch)."""
+        b = self.bundle
+        B = batch_cap or self.batch
+        K = self._max_train_deg
+        user_ids = np.zeros(B, dtype=np.int32)
+        pos_items = np.zeros(B, dtype=np.int32)
+        seq = np.zeros((B, self.pos_length), dtype=np.int32)
+        seq_mask = np.zeros((B, self.pos_length), dtype=np.float32)
+        excl_idx = np.full((B, K), b.num_items, dtype=np.int32)
+        valid = np.zeros(B, dtype=np.float32)
+        csr = self._trn_csr
+        for i, u in enumerate(bat_ids):
+            if test_mode:
+                pos = b.tst_int[u]
+                posset = b.sequences[u]
+            else:
+                pos = b.sequences[u][-1]
+                posset = b.sequences[u][:-1]
+            row = csr.indices[csr.indptr[u]:csr.indptr[u + 1]]
+            row = row[row != pos]  # the positive is never excluded
+            excl_idx[i, :len(row)] = row
+            user_ids[i] = u
+            pos_items[i] = pos
+            seq[i], seq_mask[i] = _fill_sequence(posset, self.pos_length)
+            valid[i] = 1.0
+        return user_ids, pos_items, seq, seq_mask, excl_idx, valid

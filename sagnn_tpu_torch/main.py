@@ -88,7 +88,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--per_token_seq_attention", action="store_true",
                    default=None)
     p.add_argument("--seq_parallel", action="store_true", default=None)
-    p.add_argument("--full_sort", action="store_true", default=None)
+    p.add_argument("--full_sort", action="store_true", default=None,
+                   help="evaluate by ranking the positive against the full "
+                        "catalog (minus the user's history) instead of the "
+                        "999-precomputed-negative protocol")
     p.add_argument("--fusion_dtype", choices=["f32", "bf16"])
     p.add_argument("--fusion_chunk_rows", type=int,
                    help="run the fusion stack in node blocks of this size, "

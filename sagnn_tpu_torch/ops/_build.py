@@ -8,14 +8,24 @@ compiled to an object by its own `nvcc`, all started together, and the
 objects are linked once. The library goes into `sagnn_tpu_torch/build/`,
 named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one is reused. A failed build raises.
+
+    python -m sagnn_tpu_torch.ops._build [--csrc DIR] [--sass]
+
+builds the library (from DIR's sources, for example another checkout's
+`sagnn_tpu_torch/csrc`) and prints one JSON line: each kernel's registers
+and spill bytes from ptxas and, with --sass, its global-load instructions
+counted in the SASS (`cuobjdump -sass`).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import functools
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,8 +45,9 @@ class BuildInfo:
     log: str           # nvcc's output (ptxas register/spill report)
 
 
-def _sources() -> list[str]:
-    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+def _sources(csrc_dir: str | None = None) -> list[str]:
+    csrc_dir = csrc_dir or CSRC_DIR
+    return sorted(os.path.join(csrc_dir, f) for f in os.listdir(csrc_dir)
                   if f.endswith((".cu", ".cuh")))
 
 
@@ -50,9 +61,9 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
+def library_path(csrc_dir: str | None = None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc_dir):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -60,9 +71,10 @@ def library_path() -> str:
 
 
 @functools.cache
-def build() -> BuildInfo:
-    """Compile the kernels unless a library for these sources exists."""
-    path = library_path()
+def build(csrc_dir: str | None = None) -> BuildInfo:
+    """Compile the kernels (of `csrc_dir`, default CSRC_DIR) unless a
+    library for these sources exists."""
+    path = library_path(csrc_dir)
     log_path = path + ".log"
     if os.path.isfile(path):
         log = ""
@@ -75,7 +87,7 @@ def build() -> BuildInfo:
     tag = f"{path}.{os.getpid()}"
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in _sources():
+    for src in _sources(csrc_dir):
         if not src.endswith(".cu"):
             continue
         obj = f"{tag}.{os.path.basename(src)}.o"
@@ -120,8 +132,12 @@ def load_library() -> ctypes.CDLL:
     signatures = {
         # x, src, ptr, out, num_tgt, d, device, stream
         tuple(f"sagnn_segsum{mode}_{t}" for t in ("f32", "bf16")
-              for mode in ("", "_acc", "_fold", "_fold_acc")):
+              for mode in ("", "_acc", "_fold", "_fold_acc", "_ablate")):
             [p, p, p, p, i, i, i, p],
+        # x, src, n_ids, run, in_flight, scratch, max_blocks, out, d,
+        # device, stream
+        ("sagnn_gather_sum_f32", "sagnn_gather_sum_bf16"):
+            [p, p, i, i, i, p, i, p, i, i, p],
         # x, w, src, ptr, out, num_tgt, d, device, stream
         ("sagnn_wsegsum_f32", "sagnn_wsegsum_bf16",
          "sagnn_wsegsum_acc_f32"):
@@ -138,3 +154,56 @@ def load_library() -> ctypes.CDLL:
     lib.sagnn_error_string.argtypes = [i]
     lib.sagnn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel (mangled name): {"registers", "spill_stores",
+    "spill_loads"}} from nvcc's `-Xptxas -v` output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            usage[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_global_loads(path: str) -> dict:
+    """{kernel (mangled name): number of LDG instructions} in the
+    library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    loads, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            loads[name] = 0
+        elif name and re.search(r"\bLDG\.", line):
+            loads[name] += 1
+    return loads
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--csrc", default=None,
+                   help="the folder of .cu sources to build")
+    p.add_argument("--sass", action="store_true",
+                   help="also count each kernel's global loads in the SASS")
+    ns = p.parse_args(argv)
+    info = build(ns.csrc and os.path.abspath(ns.csrc))
+    usage = ptxas_usage(info.log)
+    if ns.sass:
+        for name, n in sass_global_loads(info.path).items():
+            usage.setdefault(name, {})["global_loads"] = n
+    print(json.dumps({"library": info.path, "kernels": usage}))
+
+
+if __name__ == "__main__":
+    main()

@@ -365,10 +365,11 @@ def _kernel_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
 
 
 def _launch(name: str, device: torch.device, backward: bool,
-            *args, count: str | None = None) -> None:
+            *args, count: str | None = None,
+            launches: dict | None = None) -> None:
     """Call the library's `sagnn_<name>` with `args`, the device and the
     current stream; raise on a refused launch; count it under `count`
-    (default `name`)."""
+    (default `name`) in `launches` (default this module's LAUNCHES)."""
     from sagnn_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -379,7 +380,8 @@ def _launch(name: str, device: torch.device, backward: bool,
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.sagnn_error_string(err).decode()}")
-    LAUNCHES[(count or name) + ("_bwd" if backward else "")] += 1
+    counts = LAUNCHES if launches is None else launches
+    counts[(count or name) + ("_bwd" if backward else "")] += 1
 
 
 def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,

@@ -29,8 +29,13 @@ device, so checkpoints keep the single-device format: a ring-trained
 checkpoint restores into a "pallas" Trainer. Not here yet (ROADMAP Queue
 A6): a mesh with data > 1, the TP shardings of the other backends
 (`parallel/sharding.py`) and multi-process runs; nor
-`load_imported_params` (A3), full-sort evaluation (A1),
-`fusion_dtype="bf16"` (A5).
+`load_imported_params` (A3), `fusion_dtype="bf16"` (A5).
+
+Evaluation ranks each test user's positive among 999 precomputed
+negatives (the reference's protocol) or, with `full_sort`, among the
+whole catalog but the user's train row (JAX trainer.py:402-431, 585-680):
+densely up to `ops.chunking.DENSE_MAX_ROWS` items, streamed over catalog
+chunks past it, as `cfg.train.full_sort_chunk` says, on every backend.
 """
 
 from __future__ import annotations
@@ -52,7 +57,12 @@ from sagnn_tpu_torch.models.selfgnn import (SelfGNN, TrainBatch, check_ported,
                                             graphs_to_device, reg_loss)
 from sagnn_tpu_torch.parallel.edge_partition import ring_graphs
 from sagnn_tpu_torch.train.checkpoint import CheckpointManager
-from sagnn_tpu_torch.train.metrics import MetricsHistory, topk_metrics
+from sagnn_tpu_torch.ops.chunking import auto_chunk_rows
+from sagnn_tpu_torch.train.metrics import (MetricsHistory,
+                                           dense_positive_ranks,
+                                           metrics_from_ranks,
+                                           streaming_positive_ranks,
+                                           topk_metrics)
 from sagnn_tpu_torch.train.optim import TF1Adam
 from sagnn_tpu_torch.utils.logger import log
 from sagnn_tpu_torch.utils.profiling import StepTimer
@@ -63,9 +73,11 @@ class Trainer:
 
     def __init__(self, cfg: Config, bundle: DatasetBundle,
                  ckpt_root: str = "./Models",
-                 device: torch.device | str | None = None, mesh=None):
+                 device: torch.device | str | None = None, mesh=None,
+                 sampler_backend: str = "auto"):
         """device: default "cuda", or with a mesh the mesh's first device
-        (a `device` of another type than the mesh's is refused)."""
+        (a `device` of another type than the mesh's is refused).
+        sampler_backend: the `Sampler`'s ("auto", "native" or "numpy")."""
         ring = cfg.model.spmm_backend == "ring"
         if mesh is not None:
             if mesh.shape["data"] > 1:
@@ -89,9 +101,6 @@ class Trainer:
         if bundle.graph_num != cfg.model.graph_num:
             raise ValueError(f"dataset has {bundle.graph_num} interval "
                              f"graphs, config says {cfg.model.graph_num}")
-        if cfg.train.full_sort:
-            raise NotImplementedError("full_sort=True: full-sort evaluation "
-                                      "is not ported yet: ROADMAP Queue A1")
         cfg = resolve_src_sharding(cfg, bundle.num_users, bundle.num_items)
         check_ported(cfg.model, train=True)
         self.cfg = cfg
@@ -114,7 +123,8 @@ class Trainer:
         self.sampler = Sampler(bundle, batch=tc.batch, samp_num=tc.samp_num,
                                ssl_num=tc.ssl_num, pred_num=tc.pred_num,
                                pos_length=cfg.model.pos_length,
-                               test_size=tc.test_size, seed=tc.seed)
+                               test_size=tc.test_size, seed=tc.seed,
+                               backend=sampler_backend)
         self.optimizer = TF1Adam(tc.lr, tc.decay, tc.decay_step)
         self.ckpt = CheckpointManager(ckpt_root, tc.save_path)
         self.history = MetricsHistory()
@@ -248,14 +258,19 @@ class Trainer:
                               if t.times else 0.0),
         }
 
-    def test_epoch(self, max_users: int | None = None) -> Dict[str, float]:
-        """HR/NDCG@{1,5,10,15,20} under the reference's candidate protocol
-        over the test users (the first `max_users` of them when given).
-        The graph is encoded once; batch i+1 is sampled on a thread while
-        batch i scores, and the sums are fetched once at the end.
-        debug_uid >= 0 prints that batch row's candidate scores (the
-        reference's --uid debug mode, model.py:460-461)."""
+    def test_epoch(self, max_users: int | None = None,
+                   full_sort: bool | None = None) -> Dict[str, float]:
+        """HR/NDCG@{1,5,10,15,20} over the test users (the first
+        `max_users` of them when given), under the reference's candidate
+        protocol or, with full_sort (default cfg.train.full_sort), against
+        the full catalog (`_full_sort_eval`). The graph is encoded once;
+        batch i+1 is sampled on a thread while batch i scores, and the sums
+        are fetched once at the end. debug_uid >= 0 prints that batch row's
+        candidate scores (the reference's --uid debug mode,
+        model.py:460-461; candidate protocol only)."""
         tc = self.cfg.train
+        if full_sort is None:
+            full_sort = tc.full_sort
         ids = np.asarray(self.bundle.tst_usrs)
         if max_users is not None:
             ids = ids[:max_users]
@@ -265,32 +280,63 @@ class Trainer:
         final_user, final_item, _, _ = self.model.encode(params, self.graphs)
 
         def sample(i):
-            user_ids, cand, _pos, seq, seq_mask, valid = \
-                self.sampler.test_batch(ids[i * tc.batch:(i + 1) * tc.batch],
-                                        test_mode=tc.test_mode)
-            return tuple(torch.from_numpy(a).to(self.device)
-                         for a in (user_ids, cand, seq, seq_mask, valid))
+            bat = ids[i * tc.batch:(i + 1) * tc.batch]
+            if full_sort:
+                arrs = self.sampler.full_sort_batch(bat,
+                                                    test_mode=tc.test_mode)
+            else:
+                user_ids, cand, _pos, seq, seq_mask, valid = \
+                    self.sampler.test_batch(bat, test_mode=tc.test_mode)
+                arrs = (user_ids, cand, seq, seq_mask, valid)
+            return tuple(torch.from_numpy(a).to(self.device) for a in arrs)
 
         totals: Dict[str, torch.Tensor] = {}
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             nxt = pool.submit(sample, 0)
             for i in range(steps):
-                user_ids, cand, seq, seq_mask, valid = nxt.result()
+                arrs = nxt.result()
                 if i + 1 < steps:
                     nxt = pool.submit(sample, i + 1)
-                scores = self.model.score_with_encodings(
-                    params, final_user, final_item, user_ids, cand, seq,
-                    seq_mask)
-                if self.debug_uid >= 0:
-                    print(scores[self.debug_uid].cpu().numpy())
-                mets = topk_metrics(scores, ks=(1, 5, 10, 15, 20),
-                                    valid=valid)
+                if full_sort:
+                    mets = self._full_sort_eval(params, final_user,
+                                                final_item, *arrs)
+                else:
+                    user_ids, cand, seq, seq_mask, valid = arrs
+                    scores = self.model.score_with_encodings(
+                        params, final_user, final_item, user_ids, cand, seq,
+                        seq_mask)
+                    if self.debug_uid >= 0:
+                        print(scores[self.debug_uid].cpu().numpy())
+                    mets = topk_metrics(scores, ks=(1, 5, 10, 15, 20),
+                                        valid=valid)
                 for k, v in mets.items():
                     totals[k] = totals[k] + v if k in totals else v
         out = {k: float(v) / max(1, num) for k, v in totals.items()}
         out["HR"] = out[f"HR@{tc.shoot}"]
         out["NDCG"] = out[f"NDCG@{tc.shoot}"]
         return out
+
+    def _full_sort_eval(self, params, final_user, final_item, user_ids,
+                        pos_items, seq, seq_mask, excl_idx, valid):
+        """One full-sort batch's summed metrics (JAX
+        `_full_sort_eval_impl`, trainer.py:585-612). full_sort_chunk 0
+        (auto) scores densely up to DENSE_MAX_ROWS items and streams in
+        AUTO_CHUNK_ROWS chunks past it; -1 forces dense, > 0 streams in
+        chunks of that many items."""
+        num_items = final_item.shape[0]
+        chunk = self.cfg.train.full_sort_chunk
+        if chunk == 0:
+            chunk = auto_chunk_rows(num_items)
+        queries = self.model.serving_queries(params, final_user, final_item,
+                                             user_ids, seq, seq_mask)
+        if chunk > 0:
+            ranks = streaming_positive_ranks(queries, final_item, pos_items,
+                                             excl_idx, num_items,
+                                             chunk_items=chunk)
+        else:
+            ranks = dense_positive_ranks(queries, final_item, pos_items,
+                                         excl_idx)
+        return metrics_from_ranks(ranks, valid=valid, ks=(1, 5, 10, 15, 20))
 
     # -- full run (ref model.py:41-71) ------------------------------------------
 

@@ -1,7 +1,8 @@
 """Per-step wall-clock timer; the port of `StepTimer` from
 `sagnn_tpu/utils/profiling.py`. Time on the card only means something
 when the timed span ends in a synchronisation (the trainer's spans end in
-a fetch of the previous step's losses)."""
+a fetch of the previous step's losses). `cuda_ms` times device work with
+CUDA events."""
 
 from __future__ import annotations
 
@@ -39,3 +40,20 @@ class StepTimer:
         s = sorted(self.times)
         k = min(len(s) - 1, int(round(p / 100.0 * (len(s) - 1))))
         return s[k]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls on the
+    current CUDA stream, after `warmup` calls (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

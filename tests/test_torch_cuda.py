@@ -1,8 +1,10 @@
 """The CUDA kernels on the card against their plain versions: the
 segment-sum (K1) forward and backward, its weighted mode (K2), its
 accumulating (K3) and row-folded (K4) modes on sharded and sliced plans,
-the SDDMM (K5) with both autograd Functions, and the ring buckets (K6)
-over a one-card mesh of four ranks with their backward; the serving
+the SDDMM (K5) with both autograd Functions, the ring buckets (K6)
+over a one-card mesh of four ranks with their backward, and the probes
+(P1, the row gather, in every template mode; P2, the ablated
+segment-sum); the serving
 encode (parity, each edge variant and the ring) and a training step on
 the card against the CPU.
 
@@ -732,3 +734,60 @@ def test_ring_encode_matches_pallas_on_card(dev):
         {"ring_segsum_f32": 192}
     _check_against_f64({"cpu": cpu.encode(), "card": gpu.encode(),
                         "ring": got}, _f64_encode(cpu))
+
+
+# -- the probes ---------------------------------------------------------------
+
+@pytest.mark.parametrize("in_flight", [1, 2, 4, 8])
+@pytest.mark.parametrize("run", [1, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_probe_matches_plain(dev, dtype, run, in_flight):
+    """P1 against its plain version summed in f64, atol = f32 eps x rows x
+    max|x|; an id count that is not a multiple of 32 leaves a ragged last
+    group; d = 48 leaves lanes idle."""
+    from sagnn_tpu_torch.ops import probes
+    for d, fetched in ((64, 40_000), (48, 4_096 + 96)):
+        x = torch.randn((5_000, d), generator=torch.Generator()
+                        .manual_seed(run)).to(dtype)
+        src = torch.from_numpy(probes.probe_ids(5_000, fetched, run,
+                                                chunk=512, seed=in_flight))
+        want = probes.gather_sum_plain(x.double(), src, run)
+        before = dict(probes.LAUNCHES)
+        got = probes.gather_sum(x.to(dev), src.to(dev), run, in_flight)
+        torch.cuda.synchronize()
+        name = "gather_sum_" + ("f32" if dtype == torch.float32 else "bf16")
+        assert probes.LAUNCHES[name] == before[name] + 1
+        assert got.shape == (d,) and got.dtype == torch.float32
+        atol = F32_EPS * src.numel() * run * float(x.float().abs().max())
+        torch.testing.assert_close(got.cpu().double(), want, rtol=0,
+                                   atol=atol)
+
+
+def test_gather_probe_is_deterministic_and_handles_no_ids(dev):
+    from sagnn_tpu_torch.ops import probes
+    x = torch.randn((3_000, 64), device=dev)
+    src = torch.from_numpy(probes.probe_ids(3_000, 50_000, 1)).to(dev)
+    assert torch.equal(probes.gather_sum(x, src), probes.gather_sum(x, src))
+    none = probes.gather_sum(x, src[:0])
+    torch.cuda.synchronize()
+    assert none.shape == (64,) and not none.any()
+    with pytest.raises(ValueError):
+        probes.gather_sum(torch.randn((10, 96), device=dev), src)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("skew", [False, True])
+def test_ablated_segsum_probe_matches_plain(dev, exact, skew):
+    """P2 gives each row's last source row exactly (zeros for empty
+    rows), on a plan with a hot row and pad slots."""
+    from sagnn_tpu_torch.ops import probes
+    src, ptr = _graph(1000, 700, 20_000, 37, seed=5, skew=skew)
+    ptr[200:400] = ptr[200]          # a run of empty rows
+    x = torch.randn((700, 64), generator=torch.Generator().manual_seed(3))
+    want = probes.segsum_ablate_plain(x, src, ptr, exact)
+    before = dict(probes.LAUNCHES)
+    got = probes.segsum_ablate(x.to(dev), src.to(dev), ptr.to(dev), exact)
+    torch.cuda.synchronize()
+    name = "segsum_ablate_" + ("f32" if exact else "bf16")
+    assert probes.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(got.cpu(), want)

@@ -1,18 +1,19 @@
-"""The port's training sampler gives the JAX package's numpy sampler's
-arrays, byte for byte, for the same seed and call sequence.
-
-The JAX side is built with backend="numpy": its default ("auto") loads the
-native C++ sampler when its library is built, and that one draws other
-numbers.
+"""The port's training sampler gives the JAX package's sampler's arrays,
+byte for byte, for the same seed, call sequence and backend: "numpy" on
+both sides, and "native" (each package's copy of sampler.cc, built by its
+own build) on both sides. The two backends draw other numbers from each
+other, so each test runs as one case per backend.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 
 from sagnn_tpu.data import sampler as jsampler
 from sagnn_tpu.data import synthetic as jsynth
+from sagnn_tpu_torch.data import native_sampler as tnative
 from sagnn_tpu_torch.data import sampler as tsampler
 from sagnn_tpu_torch.models.selfgnn import TrainBatch
 
@@ -29,11 +30,15 @@ CASES = [
 ]
 
 
-def _pair(case):
+BACKENDS = ["numpy", "native"]
+
+
+def _pair(case, backend):
     bkw, skw = case
     bundle = jsynth.synthetic_dataset(**bkw)
-    return (tsampler.Sampler(bundle, **skw),
-            jsampler.Sampler(bundle, backend="numpy", **skw))
+    t = tsampler.Sampler(bundle, backend=backend, **skw)
+    assert t.backend == backend
+    return t, jsampler.Sampler(bundle, backend=backend, **skw)
 
 
 def _assert_same(got, want, what):
@@ -41,11 +46,12 @@ def _assert_same(got, want, what):
     assert np.array_equal(got, want), what
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("case", CASES)
-def test_train_batches_byte_equal(case):
+def test_train_batches_byte_equal(case, backend):
     """An epoch permutation and three successive train batches (each draws
     its own batch and SSL seeds from the shared generator)."""
-    t, j = _pair(case)
+    t, j = _pair(case, backend)
     trn_num = 3 * t.batch
     ids_t, ids_j = t.epoch_user_ids(trn_num), j.epoch_user_ids(trn_num)
     _assert_same(ids_t, ids_j, "epoch_user_ids")
@@ -60,9 +66,10 @@ def test_train_batches_byte_equal(case):
     assert t.rng.bit_generator.state == j.rng.bit_generator.state
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("case", CASES)
-def test_ssl_batches_byte_equal(case):
-    t, j = _pair(case)
+def test_ssl_batches_byte_equal(case, backend):
+    t, j = _pair(case, backend)
     ids = np.arange(t.bundle.num_users)[:t.batch]
     for _ in range(3):
         st, sj = t.ssl_batch(ids), j.ssl_batch(ids)
@@ -71,11 +78,12 @@ def test_ssl_batches_byte_equal(case):
             _assert_same(st[k], sj[k], k)
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("case", CASES)
-def test_short_batch_is_padded(case):
+def test_short_batch_is_padded(case, backend):
     """A last batch shorter than `batch` fills the fixed-size arrays with
     masked padding, as the JAX sampler does."""
-    t, j = _pair(case)
+    t, j = _pair(case, backend)
     bat = t.epoch_user_ids(t.batch)[: t.batch - 3]
     j.epoch_user_ids(t.batch)               # the same stream position
     bt, bj = t.train_batch(bat), j.train_batch(bat)
@@ -86,11 +94,13 @@ def test_short_batch_is_padded(case):
                      f.name)
 
 
-def test_negatives_avoid_the_train_row_and_the_held_out_items():
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_negatives_avoid_the_train_row_and_the_held_out_items(backend):
     bundle = jsynth.synthetic_dataset(num_users=50, num_items=60,
                                       graph_num=2, test_size=8, seed=5)
     t = tsampler.Sampler(bundle, batch=50, samp_num=8, ssl_num=2,
-                         pred_num=4, pos_length=10, test_size=8, seed=1)
+                         pred_num=4, pos_length=10, test_size=8, seed=1,
+                         backend=backend)
     b = t.train_batch(np.arange(50))
     csr = bundle.trn_mat.tocsr()
     real = b.pair_mask > 0
@@ -110,3 +120,44 @@ def test_neg_sample_matches_jax():
                                seen.astype(np.float32), 25, 200, (3, None))
     _assert_same(got, want, "negatives")
     assert not seen[got].any() and (got != 3).all()
+
+
+def _without_a_compiler(monkeypatch, tmp_path):
+    """No library built yet (an empty build folder) and no compiler."""
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+
+
+def test_native_backend_raises_without_a_compiler(monkeypatch, tmp_path):
+    _without_a_compiler(monkeypatch, tmp_path)
+    bundle = jsynth.synthetic_dataset(**CASES[0][0])
+    with pytest.raises(RuntimeError, match="compiler"):
+        tsampler.Sampler(bundle, backend="native", **CASES[0][1])
+
+
+def test_auto_backend_falls_back_to_numpy_and_says_so(monkeypatch, tmp_path,
+                                                     capsys):
+    bundle = jsynth.synthetic_dataset(**CASES[0][0])
+    assert tsampler.Sampler(bundle, **CASES[0][1]).backend == "native"
+    _without_a_compiler(monkeypatch, tmp_path)
+    t = tsampler.Sampler(bundle, **CASES[0][1])
+    assert t.backend == "numpy"
+    out = capsys.readouterr().out
+    assert "native library unavailable" in out
+    assert "sampler: numpy backend" in out
+    with pytest.raises(ValueError, match="backend"):
+        tsampler.Sampler(bundle, backend="cuda", **CASES[0][1])
+
+
+def test_native_library_is_named_by_its_source(monkeypatch, tmp_path):
+    """An edited source (or other flags) names another library, so a
+    library built from an older source is never loaded."""
+    path = tnative.library_path()
+    src = tmp_path / "sampler.cc"
+    with open(tnative.SOURCE) as f:
+        src.write_text(f.read() + "\n// edited\n")
+    monkeypatch.setattr(tnative, "SOURCE", str(src))
+    assert tnative.library_path() != path
+    monkeypatch.setattr(tnative, "CXX_FLAGS", tnative.CXX_FLAGS[1:])
+    assert os.path.basename(tnative.library_path()) != \
+        os.path.basename(path)

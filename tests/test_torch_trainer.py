@@ -145,7 +145,6 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(bundle, tmp_path):
 
 
 @pytest.mark.parametrize("train,model,match", [
-    ({"full_sort": True}, {}, "full_sort.*ROADMAP"),
     ({}, {"fusion_dtype": "bf16"}, "fusion_dtype.*ROADMAP"),
     ({}, {"seq_parallel": True}, "seq_parallel.*ROADMAP"),
     ({}, {"per_token_seq_attention": True},
