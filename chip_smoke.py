@@ -129,6 +129,15 @@ and the script exits non-zero; it prints no result line then):
                table, the run and tile factors of the CSR plans, and the
                split of K1's time (P1 on the hop's stream, P2, K1) on both
                bundles' interval 0.
+Every segment-sum mode (K1-K4, K6, P2; forward and backward) is launched
+twice on the same inputs in its phase and must give the same bits
+(`check_repeatable`); before the kernels line each segment-sum record logs
+the time of each hop, the i-hop / u-hop ratio and its share of the bound
+(`schedule_report`). Every time in the kernels line is device time per
+call: CUDA events around back-to-back calls queued on the card, so that
+the host's cost of making them drops out (`kernel_ms`,
+`utils/profiling.device_ms`), the kernel's, its plain version's and the
+library call's alike.
 Each phase prints its time. Prints a `main_path` line, a `train` JSON line,
 the card's name and power limit, and a `kernels` JSON line, then as the
 last line
@@ -240,6 +249,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return timed(fn, iters, warmup)
 
 
+def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() with the host's cost of the calls taken out
+    (`profiling.device_ms`): every time in a kernel record (the kernel's,
+    its plain version's, the library call's) is taken so."""
+    from sagnn_tpu_torch.utils.profiling import device_ms
+    return device_ms(fn, iters, warmup)
+
+
 def sharded_row_ptr(ptr_ss):
     """The row pointers of the whole plan whose shards `ptr_ss` [S, T+1]
     are (row t's edges summed over the shards)."""
@@ -298,6 +315,54 @@ def check_close(got, want, rtol, atol, what) -> float:
           f"{what}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e})")
     log(f"  {what}: max abs err {err:.3e}, {used:.2f} of the tolerance")
     return err
+
+
+def check_repeatable(fn, what) -> None:
+    """Fails unless two calls of fn give the same bits: the segment-sum
+    kernel has no float atomics and sums every row in an order fixed by
+    the plan alone."""
+    import torch
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{what}: two launches, different bits")
+
+
+def serial_items(ptrs, n_slots, d) -> int:
+    """The items (row ends and edges) that one warp of the segment-sum
+    kernel walks in series, summed over the launches whose row pointers
+    are `ptrs` (each with `n_slots` source slots): a launch's pieces of
+    PIECE_ITEMS over the warps of its grid as `segsum_schedule` sizes it
+    on this card, times PIECE_ITEMS."""
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    total = 0
+    for ptr in ptrs:
+        t = ptr.numel() - 1
+        pieces = -(-(t + int(ptr[-1] - ptr[0])) // sc.PIECE_ITEMS)
+        warps = sc.segsum_schedule(t, n_slots, d, sc._sm_count(0)).blocks \
+            * sc.WARPS_PER_BLOCK
+        total += -(-pieces // warps) * sc.PIECE_ITEMS
+    return total
+
+
+def schedule_report(records) -> None:
+    """Each segment-sum record (K1-K4, K6, P2; forward and backward): the
+    time of each hop, the i-hop over the u-hop (a gowalla interval's two
+    hops have the same edge count, so a ratio near 1 says that no row
+    paces a hop) and the share of the bound it reaches. One call of a
+    mode is one CUDA kernel (a sharded call: one per shard); the arrival
+    counters are zeroed once, when a stream's scratch is allocated."""
+    for r in records.values():
+        if not r["name"].startswith(("segsum", "wsegsum", "ring_")):
+            continue
+        u, i = r["per_direction"]["u"]["ms"], r["per_direction"]["i"]["ms"]
+        r.update(u_ms=u, i_ms=i, i_over_u=i / u,
+                 bound_share=r["bound_ms"] / r["ms"],
+                 cuda_kernels_per_call=(
+                     "one per shard" if r["name"].startswith(
+                         ("segsum_acc", "segsum_fold_acc")) else "one"))
+        log(f"schedule {r['name']}: u-hop {u:.4f} ms, i-hop {i:.4f} ms, "
+            f"i/u {i / u:.2f}; {r['ms']:.4f} ms is "
+            f"{r['bound_share']:.3f} of the bound {r['bound_ms']:.4f} ms")
 
 
 def plain_attention(x_src, x_tgt, fwd_src, fwd_tgt, fwd_ptr, bwd_src,
@@ -516,11 +581,13 @@ def kernel_phase(graphs, device) -> dict:
             torch.cuda.synchronize()
             rtol, atol = seg_tol(ptr, amax(x))
             err = check_close(out_k, out_p, rtol, atol, f"{name}[{d}]")
+            check_repeatable(lambda: sc.spmm_apply(x, src, ptr, exact),
+                             f"{name}[{d}]")
             log(f"  plain f32[{d}] vs f64: max abs err "
                 f"{max_err(out_p32, out_p):.3e}")
-            ms = cuda_ms(lambda: sc.spmm_apply(x, src, ptr, exact))
-            plain_ms = cuda_ms(lambda: sc.spmm_apply_plain(x, src, ptr,
-                                                           exact))
+            ms = kernel_ms(lambda: sc.spmm_apply(x, src, ptr, exact))
+            plain_ms = kernel_ms(lambda: sc.spmm_apply_plain(x, src, ptr,
+                                                             exact))
             # library yardstick: cuSPARSE SpMM on a unit-valued CSR matrix,
             # built outside the timed region (bf16 mode: on the
             # bf16-rounded table held in f32)
@@ -531,7 +598,7 @@ def kernel_phase(graphs, device) -> dict:
             xl = x if exact else x.to(torch.bfloat16).float()
             out_l = torch.sparse.mm(a, xl)
             check_close(out_l, out_p, rtol, atol, f"library[{d}]")
-            library_ms = cuda_ms(lambda: torch.sparse.mm(a, xl))
+            library_ms = kernel_ms(lambda: torch.sparse.mm(a, xl))
             elem = 4 if exact else 2
             # bytes the function must move: the table once, the ids and
             # row pointers once, the output once
@@ -546,6 +613,7 @@ def kernel_phase(graphs, device) -> dict:
                 max_degree=max_deg, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms,
                 unique_bytes=nbytes, gathered_bytes=n_edges * D * elem,
+                serial_items=serial_items([ptr], src.numel(), D),
                 max_abs_err=err)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
@@ -628,11 +696,13 @@ def backward_phase(graphs, device) -> dict:
             torch.cuda.synchronize()
             rtol, atol = seg_tol(bptr, amax(g))
             err = check_close(dx, want, rtol, atol, f"{name}[{d}-hop dx]")
-            ms = cuda_ms(lambda: sc.spmm_apply(g, bsrc, bptr, exact))
-            autograd_ms = cuda_ms(lambda: torch.autograd.grad(
+            check_repeatable(lambda: torch.autograd.grad(
+                out, x, g, retain_graph=True)[0], f"{name}[{d}-hop dx]")
+            ms = kernel_ms(lambda: sc.spmm_apply(g, bsrc, bptr, exact))
+            autograd_ms = kernel_ms(lambda: torch.autograd.grad(
                 out, x, g, retain_graph=True))
-            plain_ms = cuda_ms(lambda: sc.spmm_apply_plain(g, bsrc, bptr,
-                                                           exact))
+            plain_ms = kernel_ms(lambda: sc.spmm_apply_plain(g, bsrc, bptr,
+                                                             exact))
             # library yardstick: cuSPARSE on the transposed unit CSR, built
             # outside the timed region
             at = torch.sparse_csr_tensor(
@@ -642,7 +712,7 @@ def backward_phase(graphs, device) -> dict:
             gl = g if exact else g.to(torch.bfloat16).float()
             check_close(torch.sparse.mm(at, gl), want, rtol, atol,
                         f"library[{d}-hop dx]")
-            library_ms = cuda_ms(lambda: torch.sparse.mm(at, gl))
+            library_ms = kernel_ms(lambda: torch.sparse.mm(at, gl))
             elem = 4 if exact else 2
             # the forward's bytes with the roles swapped: the cotangent
             # table once, the transpose plan's ids and row pointers once,
@@ -1212,7 +1282,7 @@ def _library_ms(what, fn, want, rtol, atol) -> float | None:
         log(f"  library[{what}]: not run here ({str(e).splitlines()[0]})")
         return None
     check_close(got, want, rtol, atol, f"library[{what}]")
-    return cuda_ms(fn)
+    return kernel_ms(fn)
 
 
 def _k2_bytes(n_src, n_tgt, n_edges, d, elem) -> int:
@@ -1292,12 +1362,15 @@ def edge_kernel_phase(graphs, device) -> dict:
             torch.cuda.synchronize()
             rtol, atol = seg_tol(ptr, amax(x) * amax(w))
             err = check_close(out, want, rtol, atol, f"{k2['name']}[{d}]")
+            check_repeatable(lambda: sc.spmm_weighted_apply(x, w, src, ptr,
+                                                            exact),
+                             f"{k2['name']}[{d}]")
             a = _csr(ptr, src, w[:n], (n_tgt, n_src))
             _add(k2, d, err, edges=n, max_degree=int((ptr[1:] - ptr[:-1])
                                                      .max()),
-                 ms=cuda_ms(lambda: sc.spmm_weighted_apply(x, w, src, ptr,
-                                                           exact)),
-                 plain_ms=cuda_ms(lambda: sc.spmm_weighted_apply_plain(
+                 ms=kernel_ms(lambda: sc.spmm_weighted_apply(x, w, src, ptr,
+                                                             exact)),
+                 plain_ms=kernel_ms(lambda: sc.spmm_weighted_apply_plain(
                      x, w, src, ptr, exact)),
                  library_ms=_library_ms(f"{k2['name']}[{d}]",
                                         lambda: torch.sparse.mm(a, xl), want,
@@ -1317,9 +1390,9 @@ def edge_kernel_phase(graphs, device) -> dict:
                            (n_tgt, n_src))
             xt = xl.T.contiguous()
             _add(k5, d, err, edges=n,
-                 ms=cuda_ms(lambda: sc.sddmm_apply(x, y, src, tgt, ptr,
-                                                   exact)),
-                 plain_ms=cuda_ms(lambda: sc.sddmm_apply_plain(
+                 ms=kernel_ms(lambda: sc.sddmm_apply(x, y, src, tgt, ptr,
+                                                     exact)),
+                 plain_ms=kernel_ms(lambda: sc.sddmm_apply_plain(
                      x, y, src, tgt, ptr, exact)),
                  library_ms=_library_ms(
                      f"{k5['name']}[{d}]",
@@ -1459,6 +1532,8 @@ def edge_backward_phase(graphs, device) -> dict:
             rtol, atol = seg_tol(bptr, amax(g) * amax(w))
             err2 = check_close(dx, rdx, rtol, atol,
                                f"{k2['name']}[{d}-hop dx]")
+            check_repeatable(lambda: torch.autograd.grad(
+                out, xv, g, retain_graph=True)[0], f"{k2['name']}[{d}-hop dx]")
             err2 = max(err2, check_close(
                 dxs, rdxs, rtol, seg_tol(bptr, amax(y) * amax(gs))[1],
                 f"{k2['name']}[{d}-hop sddmm dx]"))
@@ -1474,9 +1549,9 @@ def edge_backward_phase(graphs, device) -> dict:
             xl = x if exact else x.to(torch.bfloat16).float()
             at = _csr(bptr, bsrc, w_b[:int(bptr[-1])], (n_x, n_t))
             _add(k2, d, err2, plan=o,
-                 ms=cuda_ms(lambda: sc.spmm_weighted_apply(g, w_b, bsrc,
-                                                           bptr, exact)),
-                 plain_ms=cuda_ms(lambda: sc.spmm_weighted_apply_plain(
+                 ms=kernel_ms(lambda: sc.spmm_weighted_apply(g, w_b, bsrc,
+                                                             bptr, exact)),
+                 plain_ms=kernel_ms(lambda: sc.spmm_weighted_apply_plain(
                      g, w_b, bsrc, bptr, exact)),
                  library_ms=_library_ms(
                      f"{k2['name']}[{d}-hop dx]",
@@ -1487,9 +1562,9 @@ def edge_backward_phase(graphs, device) -> dict:
                            (n_t, n_x))
             xt = xl.T.contiguous()
             _add(k5, d, err5, plan=d,
-                 ms=cuda_ms(lambda: sc.sddmm_apply(x, g, fsrc, ftgt, fptr,
-                                                   exact)),
-                 plain_ms=cuda_ms(lambda: sc.sddmm_apply_plain(
+                 ms=kernel_ms(lambda: sc.sddmm_apply(x, g, fsrc, ftgt, fptr,
+                                                     exact)),
+                 plain_ms=kernel_ms(lambda: sc.sddmm_apply_plain(
                      x, g, fsrc, ftgt, fptr, exact)),
                  library_ms=_library_ms(
                      f"{k5['name']}[{d}-hop dw]",
@@ -1498,9 +1573,9 @@ def edge_backward_phase(graphs, device) -> dict:
                      rdw[:n], 1e-5, atol5),
                  bound_ms=_bound_ms(_k5_bytes(n_x, n_t, n, slots, D, elem),
                                     2 * n * D))
-            k2["autograd_ms"] += cuda_ms(lambda: torch.autograd.grad(
+            k2["autograd_ms"] += kernel_ms(lambda: torch.autograd.grad(
                 out, (xv, wv), g, retain_graph=True))
-            k5["autograd_ms"] += cuda_ms(lambda: torch.autograd.grad(
+            k5["autograd_ms"] += kernel_ms(lambda: torch.autograd.grad(
                 s, (xv, yv), gs, retain_graph=True))
         k2["tolerance"] = (SEG_TOL + " of the plan (the table's max|x| * "
                            "max|weight| the largest term)")
@@ -1843,7 +1918,7 @@ def _ring_bytes_and_ops(plan, n_edges, d, weighted):
     weights), the P² row-pointer arrays, and each f32 output row written
     once; operations: one add (weighted: a multiply-add) per gathered
     value. Also the bytes the ring's schedule adds on top (not part of the
-    bound; beside hop_device_ms): a read and a write of the f32 output
+    bound; beside ms): a read and a write of the f32 output
     row for every (bucket, row) pair with edges, and each rank's P − 1
     block copies (a read and a write each). Returns (bytes, operations,
     touched (bucket, row) pairs, schedule bytes)."""
@@ -1858,26 +1933,25 @@ def _ring_bytes_and_ops(plan, n_edges, d, weighted):
     return nbytes, ops, touched, schedule
 
 
-def _ring_serial_edges(plan) -> int:
-    """Σ over the P² K6 launches of a hop on interval 0 of the launch's
-    longest row: one warp walks a row, and on one card the launches run
-    one after another, so this is the edges the hop walks in series
-    (K1's in series: the whole CSR's longest row)."""
-    return sum(int((plan.ptr[p][0, :, 1:] - plan.ptr[p][0, :, :-1])
-                   .max(dim=-1).values.sum())
-               for p in range(plan.num_shards))
+def _ring_serial_items(plan, d) -> int:
+    """`serial_items` over the P² K6 launches of a hop on interval 0 (on
+    one card they run one after another): the row ends and edges one warp
+    walks in series in the whole hop."""
+    return serial_items([plan.ptr[p][0, q] for p in range(plan.num_shards)
+                         for q in range(plan.num_shards)],
+                        plan.src[0].shape[-1], d)
 
 
-def _ring_device_ms(hop) -> tuple[float | None, float, float]:
-    """(the K6 launches' device time, the block copies', all device work's)
-    per call of a ring hop, from the profiler over 10 calls; (None, 0, 0)
-    where it saw no device events."""
+def _ring_profile(hop) -> tuple[float | None, float]:
+    """(the K6 launches' share, the block copies') of a ring hop's device
+    work per call, from the profiler over 10 calls (`profiled_ms`); (None,
+    0) where it saw no device events."""
     _wall, by_name = profiled_ms(hop, 10)
     if not by_name:
-        return None, 0.0, 0.0
-    return (sum(v for k, v in by_name.items() if "segsum_rows_kernel" in k),
-            sum(v for k, v in by_name.items() if "Memcpy" in k),
-            sum(by_name.values()))
+        return None, 0.0
+    return (sum(v for k, v in by_name.items()
+                if "segsum_pieces_kernel" in k),
+            sum(v for k, v in by_name.items() if "Memcpy" in k))
 
 
 def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
@@ -1888,9 +1962,9 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
     transpose plan) against the plain transpose ring in f64. Times the
     ring hop, its plain version, K1/K2 and the library call
     (torch.sparse.mm on the hop's whole CSR) on the same hop. Returns
-    per-kernel records. `ms` is the 16 K6 launches' device time per hop
-    (torch.profiler); `hop_ms` the hop as called, with CUDA events, which
-    the host's launch cost paces."""
+    per-kernel records. `ms` is the hop's device time (`kernel_ms`: its
+    16 K6 launches and its copies); `hop_ms` the hop as called, with CUDA
+    events, which the host's launch cost paces."""
     import torch
     from sagnn_tpu_torch.ops import spmm_cuda as sc
     from sagnn_tpu_torch.parallel import edge_partition as ep
@@ -1950,6 +2024,11 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
             brtol, batol = seg_tol(bptr, amax(g) * wmax)
             berr = check_close(dx, want_dx, brtol, batol,
                                f"{name}_bwd[{d}-hop dx]")
+            check_repeatable(lambda: torch.cat(ep.ring_spmm_apply(
+                xb, fwd, 0, mesh)), f"{name}[{d}]")
+            check_repeatable(lambda: torch.cat(ep.ring_spmm_apply(
+                ep.shard(g, bwd.src_rows, mesh), bwd, 0, mesh,
+                backward=True)), f"{name}_bwd[{d}-hop dx]")
             values = w[:n] if weighted else torch.ones(n, device=device)
             a = _csr(ptr, src, values, (n_tgt, n_src))
             bn = int(bptr[-1])
@@ -1960,54 +2039,53 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
             bbytes, bops, btouched, bsched = _ring_bytes_and_ops(bwd, n, D,
                                                                  weighted)
             if weighted:
-                k12_ms = cuda_ms(lambda: sc.spmm_weighted_apply(x, w, src,
-                                                                ptr))
-                bk12_ms = cuda_ms(lambda: sc.spmm_weighted_apply(
+                k12_ms = kernel_ms(lambda: sc.spmm_weighted_apply(
+                    x, w, src, ptr))
+                bk12_ms = kernel_ms(lambda: sc.spmm_weighted_apply(
                     g, bw_, bsrc, bptr))
             else:
-                k12_ms = cuda_ms(lambda: sc.spmm_apply(x, src, ptr))
-                bk12_ms = cuda_ms(lambda: sc.spmm_apply(g, bsrc, bptr))
+                k12_ms = kernel_ms(lambda: sc.spmm_apply(x, src, ptr))
+                bk12_ms = kernel_ms(lambda: sc.spmm_apply(g, bsrc, bptr))
             gbb = ep.shard(g, bwd.src_rows, mesh)
             times = {}
             for key, hop in (
                     ("fw", lambda: ep.ring_spmm_apply(xb, fwd, 0, mesh)),
                     ("bw", lambda: ep.ring_spmm_apply(gbb, bwd, 0, mesh,
                                                       backward=True))):
-                hop_ms = cuda_ms(hop)
-                k6_ms, copy_ms, device_ms = _ring_device_ms(hop)
-                times[key] = dict(
-                    ms=hop_ms if k6_ms is None else k6_ms, hop_ms=hop_ms,
-                    hop_device_ms=device_ms, copy_ms=copy_ms)
+                k6_ms, copy_ms = _ring_profile(hop)
+                times[key] = dict(ms=kernel_ms(hop), hop_ms=cuda_ms(hop),
+                                  k6_profiled_ms=k6_ms, copy_ms=copy_ms)
             _add(fw, d, err, edges=n, touched_bucket_rows=touched,
-                 serial_edges=_ring_serial_edges(fwd),
-                 k12_serial_edges=int((ptr[1:] - ptr[:-1]).max()),
+                 serial_items=_ring_serial_items(fwd, D),
+                 k12_serial_items=serial_items([ptr], src.numel(), D),
                  unique_bytes=nbytes, schedule_bytes=sched,
                  k12_ms=k12_ms, **times["fw"],
-                 plain_ms=cuda_ms(lambda: ep.ring_spmm_apply_plain(
+                 plain_ms=kernel_ms(lambda: ep.ring_spmm_apply_plain(
                      xb, fwd, 0, mesh), iters=5),
                  library_ms=_library_ms(f"{name}[{d}]",
                                         lambda: torch.sparse.mm(a, x),
                                         got, rtol, 2 * atol),
                  bound_ms=_bound_ms(nbytes, ops))
             _add(bw, d, berr, plan=o, edges=n, touched_bucket_rows=btouched,
-                 serial_edges=_ring_serial_edges(bwd),
-                 k12_serial_edges=int((bptr[1:] - bptr[:-1]).max()),
+                 serial_items=_ring_serial_items(bwd, D),
+                 k12_serial_items=serial_items([bptr], bsrc.numel(), D),
                  unique_bytes=bbytes, schedule_bytes=bsched,
                  k12_ms=bk12_ms, **times["bw"],
-                 plain_ms=cuda_ms(lambda: ep.ring_spmm_apply_plain(
+                 plain_ms=kernel_ms(lambda: ep.ring_spmm_apply_plain(
                      gbb, bwd, 0, mesh), iters=5),
-                 library_ms=cuda_ms(lambda: torch.sparse.mm(at, g)),
+                 library_ms=kernel_ms(lambda: torch.sparse.mm(at, g)),
                  bound_ms=_bound_ms(bbytes, bops))
         for rec in (fw, bw):
-            for key in ("k12_ms", "hop_ms", "hop_device_ms", "copy_ms",
+            for key in ("k12_ms", "hop_ms", "k6_profiled_ms", "copy_ms",
                         "unique_bytes", "schedule_bytes"):
-                rec[key] = sum(v[key] for v in rec["per_direction"].values())
+                rec[key] = sum(v[key] or 0.0
+                               for v in rec["per_direction"].values())
             rec["ms_measured"] = (
-                "ms: the 16 K6 launches' device time per hop "
-                "(torch.profiler, 10 hops); hop_ms: the ring hop as called "
-                "(CUDA events, mean of 20), paced by the host; "
-                "hop_device_ms: all its device work (K6, block copies, "
-                "zero fills)")
+                "ms: the ring hop's device time (its 16 K6 launches, block "
+                "copies and zero fills; profiling.device_ms, mean of 20); "
+                "hop_ms: the hop as called (CUDA events, mean of 20), paced "
+                "by the host; k6_profiled_ms, copy_ms: the K6 launches' and "
+                "the copies' device time by torch.profiler (10 hops)")
             rec["tolerance"] = SEG_TOL + " of the hop's whole CSR (max|x| * "
             rec["tolerance"] += "max|weight| the largest term)" if weighted \
                 else "1)"
@@ -2020,16 +2098,17 @@ def ring_kernel_phase(plans, graphs, sym_graphs, mesh, device) -> dict:
                 "read and a write of the output row per (bucket, row) pair "
                 "with edges and of each of the P(P-1) block copies")
             records[rec["name"]] = rec
-            log(f"{rec['name']}: K6 u {rec['per_direction']['u']['ms']:.4f}"
+            log(f"{rec['name']}: u {rec['per_direction']['u']['ms']:.4f}"
                 f" ms, i {rec['per_direction']['i']['ms']:.4f} ms of device "
-                f"time; the hops as called {rec['hop_ms']:.4f} ms ("
-                f"{rec['hop_device_ms']:.4f} ms of device work, copies "
+                f"time; the hops as called {rec['hop_ms']:.4f} ms (profiled:"
+                f" K6 {rec['k6_profiled_ms']:.4f} ms, copies "
                 f"{rec['copy_ms']:.4f} ms); K1/K2 {rec['k12_ms']:.4f} ms; "
                 f"plain {rec['plain_ms']:.4f} ms; library "
                 f"{rec['library_ms']} ms; bound {rec['bound_ms']:.4f} ms; "
-                f"max abs err {rec['max_abs_err']:.3e}; edges in series "
-                + ", ".join(f"{d} {v['serial_edges']} (K1/K2 "
-                            f"{v['k12_serial_edges']})"
+                f"max abs err {rec['max_abs_err']:.3e}; items one warp "
+                "walks in series "
+                + ", ".join(f"{d} {v['serial_items']} (K1/K2 "
+                            f"{v['k12_serial_items']})"
                             for d, v in rec["per_direction"].items()))
     return records
 
@@ -2130,7 +2209,7 @@ def ring_phase(cfg, bundle, params, batch, rec, vrecs, device):
         "wall_ms": wall, "device_ms": busy if by_name else None,
         "busy_share": busy / wall if by_name else None,
         "k6_ms": sum(v for k, v in by_name.items()
-                     if "segsum_rows_kernel" in k),
+                     if "segsum_pieces_kernel" in k),
         "copy_ms": sum(v for k, v in by_name.items() if "Memcpy" in k)}
     log(f"ring encode {out['encode_ms']:.3f} ms: propagation "
         f"{out['propagation_ms']:.3f} ms; profiled: {out['encode_profile']}")
@@ -2382,17 +2461,24 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
                               f"flagship {k34['name']}[{d}]")
             check(torch.equal(got4, got1), f"{k4['name']}[{d}]: K1's bits")
             check(torch.equal(got34, got3), f"{k34['name']}[{d}]: K3's bits")
+            check_repeatable(lambda: sc.spmm_apply_src_sharded(
+                x, lsrc, lptr, shard_rows, exact), f"{k3['name']}[{d}]")
+            check_repeatable(lambda: sc.spmm_apply(
+                x, src, ptr, exact, folded=True), f"{k4['name']}[{d}]")
+            check_repeatable(lambda: sc.spmm_apply_src_sharded(
+                x, lsrc, lptr, shard_rows, exact, folded=True),
+                f"{k34['name']}[{d}]")
             log(f"  K3 vs K1 on the same hop: max abs diff "
                 f"{max_err(got3, got1):.3e}")
             del want_ss, want_k1, got3, got4, got34, got1
             a = _csr(ptr, src, torch.ones(n, device=device), (n_tgt, n_src))
             xl = x if exact else x.to(torch.bfloat16).float()
-            k1_ms = cuda_ms(lambda: sc.spmm_apply(x, src, ptr, exact),
-                            iters=10)
-            library_ms = cuda_ms(lambda: torch.sparse.mm(a, xl), iters=10)
-            plain_k1 = cuda_ms(lambda: sc.spmm_apply_plain(x, src, ptr,
-                                                           exact), iters=5)
-            plain_ss = cuda_ms(lambda: sc.spmm_apply_src_sharded_plain(
+            k1_ms = kernel_ms(lambda: sc.spmm_apply(x, src, ptr, exact),
+                              iters=10)
+            library_ms = kernel_ms(lambda: torch.sparse.mm(a, xl), iters=10)
+            plain_k1 = kernel_ms(lambda: sc.spmm_apply_plain(x, src, ptr,
+                                                             exact), iters=5)
+            plain_ss = kernel_ms(lambda: sc.spmm_apply_src_sharded_plain(
                 x, lsrc, lptr, shard_rows, exact), iters=5)
             nbytes3, ops3, touched, sched3 = _sharded_bytes_and_ops(
                 lptr, n_src, n, D, elem)
@@ -2403,15 +2489,15 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
                          touched_shard_rows=touched,
                          max_degree=int((ptr[1:] - ptr[:-1]).max()),
                          k1_ms=k1_ms, library_ms=library_ms)
-            _add(k3, d, e3, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+            _add(k3, d, e3, ms=kernel_ms(lambda: sc.spmm_apply_src_sharded(
                 x, lsrc, lptr, shard_rows, exact), iters=10),
                 plain_ms=plain_ss, bound_ms=_bound_ms(nbytes3, ops3),
                 unique_bytes=nbytes3, schedule_bytes=sched3, **shape)
-            _add(k4, d, e4, ms=cuda_ms(lambda: sc.spmm_apply(
+            _add(k4, d, e4, ms=kernel_ms(lambda: sc.spmm_apply(
                 x, src, ptr, exact, folded=True), iters=10),
                 plain_ms=plain_k1, bound_ms=_bound_ms(nbytes1, n * D),
                 unique_bytes=nbytes1, **shape)
-            _add(k34, d, e34, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+            _add(k34, d, e34, ms=kernel_ms(lambda: sc.spmm_apply_src_sharded(
                 x, lsrc, lptr, shard_rows, exact, folded=True), iters=10),
                 plain_ms=plain_ss, bound_ms=_bound_ms(nbytes3, ops3),
                 unique_bytes=nbytes3, schedule_bytes=sched3, **shape)
@@ -2437,16 +2523,22 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
             eb34 = check_close(dx34, want_bss, brtol, batol,
                                f"flagship {b34['name']}[{d}-hop dx]")
             check(torch.equal(dx34, dx3), f"{b34['name']}[{d}]: K3's bits")
+            check_repeatable(lambda: torch.autograd.grad(sc.spmm_src_sharded(
+                xv, lsrc, lptr, blsrc, blptr, shard_rows, exact, True), xv,
+                g)[0], f"{b34['name']}[{d}-hop dx]")
+            check_repeatable(lambda: torch.autograd.grad(sc.spmm(
+                xv, src, ptr, bsrc, bptr, exact, True), xv, g)[0],
+                f"{b4['name']}[{d}-hop dx]")
             del want_bss, want_b1, dx3, dx4, dx34
             at = _csr(bptr, bsrc, torch.ones(n, device=device),
                       (n_src, n_tgt))
             gl = g if exact else g.to(torch.bfloat16).float()
-            bk1_ms = cuda_ms(lambda: sc.spmm_apply(g, bsrc, bptr, exact),
-                             iters=10)
-            blibrary_ms = cuda_ms(lambda: torch.sparse.mm(at, gl), iters=10)
-            bplain_k1 = cuda_ms(lambda: sc.spmm_apply_plain(g, bsrc, bptr,
-                                                            exact), iters=5)
-            bplain_ss = cuda_ms(lambda: sc.spmm_apply_src_sharded_plain(
+            bk1_ms = kernel_ms(lambda: sc.spmm_apply(g, bsrc, bptr, exact),
+                               iters=10)
+            blibrary_ms = kernel_ms(lambda: torch.sparse.mm(at, gl), iters=10)
+            bplain_k1 = kernel_ms(lambda: sc.spmm_apply_plain(
+                g, bsrc, bptr, exact), iters=5)
+            bplain_ss = kernel_ms(lambda: sc.spmm_apply_src_sharded_plain(
                 g, blsrc, blptr, shard_rows, exact), iters=5)
             bbytes3, bops3, btouched, bsched3 = _sharded_bytes_and_ops(
                 blptr, n_tgt, n, D, elem)
@@ -2455,15 +2547,15 @@ def flagship_kernel_phase(graphs, shard_rows, device) -> dict:
             bshape = dict(plan=o, edges=n, shards=int(blptr.shape[0]),
                           touched_shard_rows=btouched, k1_ms=bk1_ms,
                           library_ms=blibrary_ms)
-            _add(b3, d, eb3, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+            _add(b3, d, eb3, ms=kernel_ms(lambda: sc.spmm_apply_src_sharded(
                 g, blsrc, blptr, shard_rows, exact), iters=10),
                 plain_ms=bplain_ss, bound_ms=_bound_ms(bbytes3, bops3),
                 unique_bytes=bbytes3, schedule_bytes=bsched3, **bshape)
-            _add(b4, d, eb4, ms=cuda_ms(lambda: sc.spmm_apply(
+            _add(b4, d, eb4, ms=kernel_ms(lambda: sc.spmm_apply(
                 g, bsrc, bptr, exact, folded=True), iters=10),
                 plain_ms=bplain_k1, bound_ms=_bound_ms(bbytes1, n * D),
                 unique_bytes=bbytes1, **bshape)
-            _add(b34, d, eb34, ms=cuda_ms(lambda: sc.spmm_apply_src_sharded(
+            _add(b34, d, eb34, ms=kernel_ms(lambda: sc.spmm_apply_src_sharded(
                 g, blsrc, blptr, shard_rows, exact, folded=True), iters=10),
                 plain_ms=bplain_ss, bound_ms=_bound_ms(bbytes3, bops3),
                 unique_bytes=bbytes3, schedule_bytes=bsched3, **bshape)
@@ -2905,9 +2997,9 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
         src = torch.from_numpy(probes.probe_ids(
             probes.PROBE_ROWS, probes.PROBE_FETCHED, 1)).to(device)
         nbytes = _p1_bytes(x, src)
-        library_ms = cuda_ms(lambda: probes.gather_sum_plain(x, src))
+        library_ms = kernel_ms(lambda: probes.gather_sum_plain(x, src))
         rec.update(
-            ms=cuda_ms(lambda: probes.gather_sum(x, src)),
+            ms=kernel_ms(lambda: probes.gather_sum(x, src)),
             plain_ms=library_ms, library_ms=library_ms,
             bound_ms=_bound_ms(nbytes, src.numel() * D),
             unique_bytes=nbytes, rows=src.numel(), table_rows=x.shape[0],
@@ -2917,7 +3009,7 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
                    "gathered from a 1,048,576 x 64 table (HBM), run 1, "
                    f"{probes.SPLIT_IN_FLIGHT} loads in flight; plain and "
                    "library are one call, x.index_select(0, src).float()"
-                   ".sum(0)"))
+                   ".sum(0); device time per call (profiling.device_ms)"))
         records[rec["name"]] = rec
     del x32, x64
 
@@ -2929,8 +3021,9 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
                    timed=("ms/plain_ms/bound_ms: one user-target plus one "
                           "item-target hop on interval 0 of the "
                           "gowalla-scale bundle (flagship: the same on the "
-                          "flagship bundle); library_ms: no one PyTorch "
-                          "call computes it"))
+                          "flagship bundle), device time per call "
+                          "(profiling.device_ms); library_ms: no one "
+                          "PyTorch call computes it"))
         for bundle_name, graphs in (("gowalla", gowalla),
                                     ("flagship", flagship)):
             for d, o in (("u", "i"), ("i", "u")):
@@ -2944,13 +3037,16 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
                 check(torch.equal(got, want),
                       f"{rec['name']} {bundle_name}[{d}]: exactly the last "
                       "source rows")
+                check_repeatable(lambda: probes.segsum_ablate(
+                    x, src, ptr, exact), f"{rec['name']} {bundle_name}[{d}]")
                 distinct = int(torch.unique(src[:n]).numel())
                 nbytes = (distinct * D * elem + n * 4 + (n_tgt + 1) * 4
                           + n_tgt * D * 4)
                 times = dict(
-                    ms=cuda_ms(lambda: probes.segsum_ablate(x, src, ptr,
-                                                            exact), iters=10),
-                    plain_ms=cuda_ms(lambda: probes.segsum_ablate_plain(
+                    ms=kernel_ms(lambda: probes.segsum_ablate(x, src, ptr,
+                                                              exact),
+                                 iters=10),
+                    plain_ms=kernel_ms(lambda: probes.segsum_ablate_plain(
                         x, src, ptr, exact), iters=10),
                     bound_ms=_bound_ms(nbytes, 0), unique_bytes=nbytes,
                     distinct_rows=distinct, edges=n,
@@ -3356,6 +3452,7 @@ def drive(device) -> None:
         records[name].update(
             launches=count.get(name, 0), launches_path=path,
             launches_per_train_step=rl[step_path].get(name, 0))
+    schedule_report(records)
     kernels = []
     for r in records.values():
         r["kernel_ms"] = r["ms"]
@@ -3370,7 +3467,9 @@ def drive(device) -> None:
                + (f" over a one-card mesh of {RING_MODEL} ranks (k12_ms: "
                   "K1/K2 on the same hops, unsharded)"
                   if r["name"].startswith("ring") else ""))
-            + " (the backward: K1 to K4 the dx of each, K5 the dw)")
+            + " (the backward: K1 to K4 the dx of each, K5 the dw); each "
+            "time is the device time per call (CUDA events, the host's "
+            "cost of the calls taken out: profiling.device_ms)")
         check(r["launches"] > 0, f"{r['name']}: launched on its path")
         kernels.append(r)
     main_path = {

@@ -38,6 +38,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+def _flags() -> tuple[str, ...]:
+    """NVCC_FLAGS and the segment-sum kernel's schedule, defined once in
+    `spmm_cuda` (which sizes the grid and the scratch from it)."""
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    return NVCC_FLAGS + (f"-DSAGNN_PIECE_ITEMS={sc.PIECE_ITEMS}",
+                         f"-DSAGNN_WARPS_PER_BLOCK={sc.WARPS_PER_BLOCK}",
+                         f"-DSAGNN_BLOCKS_PER_SM={sc.BLOCKS_PER_SM}")
+
+
 @dataclass(frozen=True)
 class BuildInfo:
     path: str          # the shared library
@@ -62,7 +71,7 @@ def _nvcc() -> str:
 
 
 def library_path(csrc_dir: str | None = None) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for src in _sources(csrc_dir):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -91,7 +100,7 @@ def build(csrc_dir: str | None = None) -> BuildInfo:
         if not src.endswith(".cu"):
             continue
         obj = f"{tag}.{os.path.basename(src)}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        cmd = [nvcc, *_flags(), "-c", "-o", obj, src]
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -130,18 +139,20 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build().path)
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        # x, src, ptr, out, num_tgt, d, device, stream
+        # x, src, ptr, out, num_tgt, d, scratch, counters, blocks, device,
+        # stream
         tuple(f"sagnn_segsum{mode}_{t}" for t in ("f32", "bf16")
               for mode in ("", "_acc", "_fold", "_fold_acc", "_ablate")):
-            [p, p, p, p, i, i, i, p],
+            [p, p, p, p, i, i, p, p, i, i, p],
         # x, src, n_ids, run, in_flight, scratch, max_blocks, out, d,
         # device, stream
         ("sagnn_gather_sum_f32", "sagnn_gather_sum_bf16"):
             [p, p, i, i, i, p, i, p, i, i, p],
-        # x, w, src, ptr, out, num_tgt, d, device, stream
+        # x, w, src, ptr, out, num_tgt, d, scratch, counters, blocks,
+        # device, stream
         ("sagnn_wsegsum_f32", "sagnn_wsegsum_bf16",
          "sagnn_wsegsum_acc_f32"):
-            [p, p, p, p, p, i, i, i, p],
+            [p, p, p, p, p, i, i, p, p, i, i, p],
         # x, y, src, tgt, ptr, out, num_tgt, num_slots, d, device, stream
         ("sagnn_sddmm_f32", "sagnn_sddmm_bf16"):
             [p, p, p, p, p, p, i, i, i, i, p],

@@ -23,16 +23,19 @@ the kernel against):
     segment-sum's grid and replaced its one-hot dot by a column sum.
 
 What they split: P1 on a hop's own edge stream is its row loads alone,
-spread over the whole card; P2 adds K1's walk of one row per warp; K1
-adds the adds. So (P1, P2 - P1, K1 - P2) is K1's time split between the
-loads, the serial walk and the adds.
+spread over the whole card; P2 adds K1's walk (its schedule: each warp
+searches, stages and walks one piece of row ends and edges at a time);
+K1 adds the adds and the combine of rows split between pieces. So (P1,
+P2 - P1, K1 - P2) is K1's time split between the loads, the walk and the
+adds.
 
 Host factors (`plan_factors`, the counterparts of
 probe_dma_gather.py:57-67, 219-237), over the port's CSR plans: a stream
-is one target row's sources cut into the 32-edge groups that one warp of
-K1 loads at a time (32 ids per `__shfl_sync` broadcast). The run factor
-is edges per run of consecutive-or-equal ids in a stream; the tile factor
-for w is edges per distinct aligned w-row window in a stream.
+is one target row's sources cut into GROUP-edge groups (the streams of
+JAX's probe; the fetches of neighbouring ids that a gather can merge).
+The run factor is edges per run of consecutive-or-equal ids in a stream;
+the tile factor for w is edges per distinct aligned w-row window in a
+stream.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ RUNS = (1, 4, 8, 16)         # consecutive rows per id (P1's tile gather)
 IN_FLIGHT = (1, 2, 4, 8)     # independent row loads per warp (P1)
 SPLIT_IN_FLIGHT = 8          # P1 on a hop's stream: K1's unroll
 MAX_BLOCKS = 132 * 8         # P1's blocks: 8 per SM of the H100
-GROUP = 32                   # the ids one warp of K1 loads at a time
+GROUP = 32                   # edges per stream of the host factors
 TILE_WIDTHS = (16, 32, 64)
 # the probe's own shape (probe_dma_gather.py:166-186): 1,048,576 rows of 64
 # (256 MB in f32, five times the L2), 1,048,576 rows fetched, ids sorted
@@ -172,13 +175,10 @@ def segsum_ablate(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
     if x.device.type == "cpu":
         return segsum_ablate_plain(x, src, ptr, exact)
     sc._check_cuda_args(x, src, ptr)
-    num_tgt, d = ptr.numel() - 1, x.shape[1]
-    out = torch.empty((num_tgt, d), dtype=torch.float32, device=x.device)
-    if num_tgt:
-        table = sc._kernel_table(x, exact)
-        sc._launch(f"segsum_ablate_{'f32' if exact else 'bf16'}", x.device,
-                   False, table.data_ptr(), src.data_ptr(), ptr.data_ptr(),
-                   out.data_ptr(), num_tgt, d, launches=LAUNCHES)
+    out = torch.empty((ptr.numel() - 1, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    sc._launch_segsum(sc._kernel_table(x, exact), src, ptr, out, exact,
+                      False, ablate=True, launches=LAUNCHES)
     return out
 
 
@@ -254,14 +254,14 @@ def gather_sweep(n_rows: int, device, seed: int = 0,
                                              seed=seed)).to(device)
             rows = src.numel() * run
             for k in IN_FLIGHT:
-                ms = profiling.cuda_ms(lambda: gather_sum(x, src, run, k),
-                                       iters=iters)
+                ms = profiling.device_ms(lambda: gather_sum(x, src, run, k),
+                                         iters=iters)
                 out[f"{mode}_run{run}_in_flight{k}"] = {
                     "ms": ms, "rows_per_s": rows / ms * 1e3,
                     "GB_per_s": rows * D * x.element_size() / ms / 1e6}
             if run == 1:
-                ms = profiling.cuda_ms(lambda: gather_sum_plain(x, src),
-                                       iters=iters)
+                ms = profiling.device_ms(lambda: gather_sum_plain(x, src),
+                                         iters=iters)
                 out[f"{mode}_library"] = {
                     "ms": ms, "rows_per_s": rows / ms * 1e3,
                     "GB_per_s": rows * D * x.element_size() / ms / 1e6,
@@ -274,18 +274,20 @@ def hop_split(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
               exact: bool = True, iters: int = 10) -> dict:
     """One hop's split of K1's time: P1 on the hop's edge stream (p1_ms,
     the loads alone, edge-parallel, SPLIT_IN_FLIGHT in flight), P2 (K1's
-    walk and loads, no adds) and K1, in ms, so walk = P2 - P1 and adds =
-    K1 - P2; the longest row's ns per edge under P2 and K1."""
+    walk and loads, no adds) and K1, in ms of device time
+    (`profiling.device_ms`: the host's cost of the calls taken out), so
+    walk = P2 - P1 and adds = K1 - P2; the longest row's ns per edge under
+    P2 and K1."""
     n = int(ptr[-1])
     stream = src[:n]
     table = sc._kernel_table(x, exact)
     max_deg = int((ptr[1:] - ptr[:-1]).max()) if ptr.numel() > 1 else 0
-    p1 = profiling.cuda_ms(
-        lambda: gather_sum(table, stream, 1, SPLIT_IN_FLIGHT), iters=iters)
-    p2 = profiling.cuda_ms(lambda: segsum_ablate(x, src, ptr, exact),
-                           iters=iters)
-    k1 = profiling.cuda_ms(lambda: sc.spmm_apply(x, src, ptr, exact),
-                           iters=iters)
+    p1 = profiling.device_ms(
+        lambda: gather_sum(table, stream, 1, SPLIT_IN_FLIGHT), iters)
+    p2 = profiling.device_ms(lambda: segsum_ablate(x, src, ptr, exact),
+                             iters)
+    k1 = profiling.device_ms(lambda: sc.spmm_apply(x, src, ptr, exact),
+                             iters)
     return {"edges": n, "max_degree": max_deg, "p1_ms": p1, "p2_ms": p2,
             "k1_ms": k1, "walk_ms": p2 - p1, "adds_ms": k1 - p2,
             "p2_ns_per_edge_longest": p2 * 1e6 / max(1, max_deg),

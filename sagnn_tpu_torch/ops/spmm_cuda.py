@@ -47,7 +47,11 @@ tensor runs its plain PyTorch version, which the tests and
     unweighted or weighted), the launch that
     `parallel/edge_partition.ring_spmm_apply` makes per (rank, ring step).
 In every one the sums run in f32; exact=False casts the gathered tables
-to bf16 first (as the JAX package does) and keeps weights in f32.
+to bf16 first (as the JAX package does) and keeps weights in f32. Every
+segment-sum mode (K1-K4, K6 and the probe P2) is one launch of the same
+kernel on an edge-balanced schedule: `segsum_schedule` sizes its grid and
+its scratch from num_tgt, len(src) and the SM count, without reading the
+plan, and each mode gives the same bits on every launch.
 
 Differentiable forms (`torch.autograd.Function`s whose backwards are the
 same kernels; JAX's `jax.custom_vjp`s):
@@ -67,6 +71,9 @@ The "_bwd" launch counts are the launches these backwards make.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -366,17 +373,20 @@ def _kernel_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
 
 def _launch(name: str, device: torch.device, backward: bool,
             *args, count: str | None = None,
-            launches: dict | None = None) -> None:
-    """Call the library's `sagnn_<name>` with `args`, the device and the
-    current stream; raise on a refused launch; count it under `count`
-    (default `name`) in `launches` (default this module's LAUNCHES)."""
+            launches: dict | None = None, stream: int | None = None
+            ) -> None:
+    """Call the library's `sagnn_<name>` with `args`, the device and its
+    current stream (or `stream`, a handle of it); raise on a refused
+    launch; count it under `count` (default `name`) in `launches` (default
+    this module's LAUNCHES)."""
     from sagnn_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"sagnn_{name}")(
-            *args, torch.cuda.current_device(), stream)
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):  # restores the caller's device after
+        # the library's cudaSetDevice
+        err = getattr(lib, f"sagnn_{name}")(*args, device.index, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.sagnn_error_string(err).decode()}")
@@ -486,33 +496,108 @@ def _segsum(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
     return out
 
 
+# The segment-sum kernel's schedule (csrc/segsum.cu, which `_build` compiles
+# with these numbers): a launch's row ends and edges, T + E items, are cut
+# into pieces of PIECE_ITEMS; each warp walks one piece at a time over a
+# grid of at most BLOCKS_PER_SM blocks of WARPS_PER_BLOCK warps per SM.
+PIECE_ITEMS = 128
+WARPS_PER_BLOCK = 8
+BLOCKS_PER_SM = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SegsumSchedule:
+    pieces: int          # the most pieces (and arrival counters) a launch
+    #                      of these sizes can need
+    blocks: int          # the grid
+    scratch_floats: int  # 2 x D floats per piece: the parts of split rows
+
+
+def segsum_schedule(num_tgt: int, num_slots: int, d: int,
+                    sm_count: int) -> SegsumSchedule:
+    """The grid and the scratch of one segment-sum launch, from what the
+    host knows without reading the plan: num_tgt rows and num_slots =
+    len(src) source slots. The plan's edges E = ptr[-1] - ptr[0] are at
+    most num_slots (pad slots and, in a sharded plan, the other shards'
+    edges count too), so ceil((num_tgt + num_slots) / PIECE_ITEMS) pieces
+    bound the kernel's ceil((num_tgt + E) / PIECE_ITEMS) whatever the
+    degrees. The grid fills the card (BLOCKS_PER_SM per SM) or covers every
+    piece, whichever is fewer blocks; its size does not change the result."""
+    pieces = -(-(num_tgt + num_slots) // PIECE_ITEMS)
+    blocks = max(1, min(sm_count * BLOCKS_PER_SM,
+                        -(-pieces // WARPS_PER_BLOCK)))
+    return SegsumSchedule(pieces=pieces, blocks=blocks,
+                          scratch_floats=pieces * 2 * d)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# Per (device, stream handle): the segment-sum kernel's arrival counters,
+# grown to the largest launch (4 bytes per piece). The kernel leaves every
+# counter at 0, so the zero fill at allocation serves every later launch.
+# Two launches must never share counters while both run: launches on one
+# stream run one after the other, and a handle names one stream for as long
+# as the process runs, since PyTorch never destroys the streams it makes
+# (the default stream and its pool's). A caller that launches on a stream of
+# its own (`torch.cuda.ExternalStream`) must keep it alive until its
+# launches end. The scratch is taken per launch from PyTorch's caching
+# allocator, which orders its reuse by stream.
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _segsum_counters(device: torch.device, stream: int,
+                     pieces: int) -> torch.Tensor:
+    """At least `pieces` zeroed arrival counters for launches on `stream`,
+    the handle of `device`'s current stream."""
+    key = (device.index, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < pieces:
+        counters = torch.zeros(max(1, pieces), dtype=torch.int32,
+                               device=device)
+        _COUNTERS[key] = counters
+    return counters
+
+
 def _launch_segsum(table: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
                    out: torch.Tensor, exact: bool, backward: bool,
                    w: torch.Tensor | None = None, accumulate: bool = False,
                    folded: bool = False, row0: int = 0,
-                   count: str | None = None) -> None:
+                   count: str | None = None, ablate: bool = False,
+                   launches: dict | None = None) -> None:
     """One launch of the segment-sum kernel's mode for (w, accumulate,
-    folded) into `out` [num_tgt, D] f32, reading the table from row `row0`
-    on (a shard's window; folded, row0 is even and the window is its
-    [rows/2, 2D] view), counted under `count` (default: the mode's
-    name)."""
+    folded, ablate) into `out` [num_tgt, D] f32, reading the table from
+    row `row0` on (a shard's window; folded, row0 is even and the window is
+    its [rows/2, 2D] view), counted under `count` (default: the mode's
+    name) in `launches` (default LAUNCHES). The grid and the scratch come
+    from `segsum_schedule`; nothing of ptr or src is read on the host."""
     num_tgt, d = ptr.numel() - 1, table.shape[1]
     if num_tgt == 0:
         return
     _check_ids(table.device, ptr=ptr)
-    if w is not None:
+    if ablate:
+        kernel = "segsum_ablate"
+    elif w is not None:
         kernel = "wsegsum" + ("_acc" if accumulate else "")
     else:
         kernel = ("segsum" + ("_fold" if folded else "")
                   + ("_acc" if accumulate else ""))
     name = f"{kernel}_{'f32' if exact else 'bf16'}"
+    device = table.device
+    sched = segsum_schedule(num_tgt, src.numel(), d, _sm_count(device.index))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    scratch = torch.empty(max(1, sched.scratch_floats), dtype=torch.float32,
+                          device=device)
+    counters = _segsum_counters(device, stream, sched.pieces)
     x = table.data_ptr() + row0 * d * table.element_size()
-    ids = (src.data_ptr(), ptr.data_ptr(), out.data_ptr(), num_tgt, d)
-    if w is None:
-        _launch(name, table.device, backward, x, *ids, count=count)
-    else:
-        _launch(name, table.device, backward, x, w.data_ptr(), *ids,
-                count=count)
+    args = (src.data_ptr(), ptr.data_ptr(), out.data_ptr(), num_tgt, d,
+            scratch.data_ptr(), counters.data_ptr(), sched.blocks)
+    if w is not None:
+        args = (w.data_ptr(),) + args
+    _launch(name, device, backward, x, *args, count=count,
+            launches=launches, stream=stream)
 
 
 def ring_bucket_accumulate(acc: torch.Tensor, x: torch.Tensor,

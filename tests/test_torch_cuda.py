@@ -4,8 +4,11 @@ accumulating (K3) and row-folded (K4) modes on sharded and sliced plans,
 the SDDMM (K5) with both autograd Functions, the ring buckets (K6)
 over a one-card mesh of four ranks with their backward, and the probes
 (P1, the row gather, in every template mode; P2, the ablated
-segment-sum); the serving
-encode (parity, each edge variant and the ring) and a training step on
+segment-sum); the segment-sum kernel's edge-balanced schedule in every
+mode on the plans that stress it (one row with every edge, rows ending on
+piece boundaries, mostly empty rows, a shard's and a slice's plan), with
+its determinism, its clean scratch and its independence of the grid; the
+serving encode (parity, each edge variant and the ring) and a training step on
 the card against the CPU.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. They import
@@ -791,3 +794,164 @@ def test_ablated_segsum_probe_matches_plain(dev, exact, skew):
     name = "segsum_ablate_" + ("f32" if exact else "bf16")
     assert probes.LAUNCHES[name] == before[name] + 1
     assert torch.equal(got.cpu(), want)
+
+
+# -- the balanced schedule of the segment-sum kernel ------------------------------
+
+SCHEDULE_MODES = ["K1", "K2", "K3", "K4", "K3K4", "K6", "K6w", "P2"]
+SCHEDULE_PLANS = ["one_row", "boundary", "sparse", "shard", "slice"]
+SCHEDULE_SRC_ROWS = 512
+
+
+def _schedule_plan(kind, seed=0):
+    """(src, ptr) on the CPU, 600 target rows: "one_row", one row holds
+    every edge and spans many pieces; "boundary", every row has
+    PIECE_ITEMS - 1 edges, so each row's end is the last item of a piece;
+    "sparse", nine rows in ten empty; "shard", a shard's plan (ptr[0] > 0,
+    after another shard's edges) with pad slots after ptr[-1]; "slice",
+    the middle of three slices of a skewed plan (`_slice_ptrs`: ptr[0] > 0,
+    rows outside the slice empty, the later slices' edges after ptr[-1])."""
+    rng = np.random.default_rng(seed)
+    n_tgt = 600
+    deg = np.zeros(n_tgt, np.int64)
+    if kind == "one_row":
+        deg[n_tgt // 3] = 20_000
+    elif kind == "boundary":
+        deg[:] = sc.PIECE_ITEMS - 1
+    elif kind == "sparse":
+        rows = rng.choice(n_tgt, n_tgt // 10, replace=False)
+        np.add.at(deg, rng.choice(rows, 15_000), 1)
+    else:
+        np.add.at(deg, rng.integers(0, n_tgt, 15_000), 1)
+        deg[n_tgt // 2] += 6000
+    ptr0, pad = (4321, 333) if kind == "shard" else (0, 0)
+    ptr = np.concatenate([[0], np.cumsum(deg)]) + ptr0
+    src = rng.integers(0, SCHEDULE_SRC_ROWS, int(ptr[-1]) + pad)
+    ptr = torch.from_numpy(ptr.astype(np.int32))
+    if kind == "slice":
+        ptr = sc._slice_ptrs(ptr, 3)[1]
+    return torch.from_numpy(src.astype(np.int32)), ptr
+
+
+def _schedule_launch(mode, exact, x, w, src, ptr, base):
+    """One call of `mode` on the card's tensors: (out, its counter)."""
+    from sagnn_tpu_torch.ops import probes
+    mode_name = "f32" if exact else "bf16"
+    if mode in ("K1", "K4"):
+        fold = mode == "K4"
+        out = sc.spmm_apply(x, src, ptr, exact, folded=fold)
+        return out, f"segsum_{'fold_' if fold else ''}{mode_name}"
+    if mode == "K2":
+        return (sc.spmm_weighted_apply(x, w, src, ptr, exact),
+                f"wsegsum_{mode_name}")
+    if mode in ("K3", "K3K4"):
+        out = base.clone()
+        fold = mode == "K3K4"
+        sc._launch_segsum(sc._kernel_table(x, exact), src, ptr, out, exact,
+                          False, accumulate=True, folded=fold)
+        return out, f"segsum_{'fold_' if fold else ''}acc_{mode_name}"
+    if mode in ("K6", "K6w"):
+        weights = w if mode == "K6w" else None
+        out = sc.ring_bucket_accumulate(base.clone(), x, src, ptr, weights)
+        return out, "ring_wsegsum_f32" if weights is not None \
+            else "ring_segsum_f32"
+    return probes.segsum_ablate(x, src, ptr, exact), None
+
+
+def _schedule_want(mode, exact, x, w, src, ptr, base):
+    """The plain version of `mode` on the CPU, summed in f64 (P2: its
+    exact gather in f32)."""
+    from sagnn_tpu_torch.ops import probes
+    x64 = x.double()
+    if mode == "P2":
+        return probes.segsum_ablate_plain(x, src, ptr, exact)
+    if mode in ("K2", "K6w"):
+        total = sc.spmm_weighted_apply_plain(x64, w.double(), src, ptr,
+                                             exact)
+    else:
+        total = sc.spmm_apply_plain(x64, src, ptr, exact)
+    if mode in ("K3", "K3K4", "K6", "K6w"):
+        total = base.double() + total
+    return total
+
+
+@pytest.mark.parametrize("d", [2, 16, 64, 96, 128])
+@pytest.mark.parametrize("plan", SCHEDULE_PLANS)
+@pytest.mark.parametrize("mode", SCHEDULE_MODES)
+def test_balanced_schedule_matches_plain(dev, mode, plan, d):
+    """Each mode of the segment-sum kernel, on both table types (K6: f32,
+    as the ring runs), against its plain version summed in f64 at `_tol`
+    (P2: exactly); one launch counted per call; a second launch gives the
+    same bits; the accumulating modes (K3, K6) leave rows without edges
+    untouched, bit for bit."""
+    src, ptr = _schedule_plan(plan)
+    gen = torch.Generator().manual_seed(d)
+    x = torch.randn((SCHEDULE_SRC_ROWS, d), generator=gen)
+    w = torch.rand(src.numel(), generator=gen) * 2 - 0.5
+    base = torch.randn((ptr.numel() - 1, d), generator=gen)
+    term = float(w.abs().max()) if mode in ("K2", "K6w") else 1.0
+    empty = ptr[1:] == ptr[:-1]
+    on_card = [t.to(dev) for t in (x, w, src, ptr, base)]
+    for exact in (True,) if mode.startswith("K6") else (True, False):
+        before = dict(sc.LAUNCHES)
+        got, name = _schedule_launch(mode, exact, *on_card)
+        again, _ = _schedule_launch(mode, exact, *on_card)
+        torch.cuda.synchronize()
+        if name is not None:
+            assert sc.LAUNCHES[name] == before[name] + 2
+        assert torch.equal(got, again), f"{mode} is not deterministic"
+        want = _schedule_want(mode, exact, x, w, src, ptr, base)
+        if mode == "P2":
+            assert torch.equal(got.cpu(), want)
+            continue
+        torch.testing.assert_close(got.cpu().double(), want,
+                                   **_tol(ptr, x * term))
+        if mode in ("K3", "K3K4", "K6", "K6w"):
+            assert torch.equal(got.cpu()[empty], base[empty])
+        else:
+            assert not got.cpu()[empty].any()
+
+
+def test_balanced_schedule_leaves_its_scratch_clean(dev):
+    """After launches of every mode on one plan, each mode on a second
+    plan gives the bits it gives on fresh scratch, and every arrival
+    counter is back at 0: a launch leaves nothing behind for the next."""
+    gen = torch.Generator().manual_seed(21)
+    plans = [[t.to(dev) for t in _schedule_plan(kind, seed=k)]
+             for k, kind in enumerate(("one_row", "slice"))]
+    x = torch.randn((SCHEDULE_SRC_ROWS, 64), generator=gen).to(dev)
+    ws = [torch.rand(p[0].numel(), generator=gen).to(dev) for p in plans]
+    bases = [torch.randn((p[1].numel() - 1, 64), generator=gen).to(dev)
+             for p in plans]
+    second = (x, ws[1], *plans[1], bases[1])
+    alone = {}
+    for mode in SCHEDULE_MODES:
+        sc._COUNTERS.clear()
+        alone[mode] = _schedule_launch(mode, True, *second)[0]
+    for mode in SCHEDULE_MODES:
+        _schedule_launch(mode, True, x, ws[0], *plans[0], bases[0])
+        got = _schedule_launch(mode, True, *second)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, alone[mode]), mode
+    for counters in sc._COUNTERS.values():
+        assert not counters.any()
+
+
+def test_balanced_schedule_does_not_depend_on_the_grid(dev, monkeypatch):
+    """The grid's size only spreads the pieces: one block per SM on a
+    one-SM card gives the bits of the full grid, in every mode."""
+    src, ptr = [t.to(dev) for t in _schedule_plan("one_row", seed=4)]
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn((SCHEDULE_SRC_ROWS, 64), generator=gen).to(dev)
+    w = torch.rand(src.numel(), generator=gen).to(dev)
+    base = torch.randn((ptr.numel() - 1, 64), generator=gen).to(dev)
+    full = {m: _schedule_launch(m, False if m[:2] != "K6" else True, x, w,
+                                src, ptr, base)[0] for m in SCHEDULE_MODES}
+    monkeypatch.setattr(sc, "_sm_count", lambda index: 1)
+    assert sc.segsum_schedule(ptr.numel() - 1, src.numel(), 64,
+                              1).blocks == sc.BLOCKS_PER_SM
+    for m in SCHEDULE_MODES:
+        got = _schedule_launch(m, False if m[:2] != "K6" else True, x, w,
+                               src, ptr, base)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[m]), m

@@ -56,7 +56,7 @@ def test_run_coalescing_factor_matches_jax_probe(fill):
 
 def _streams(src, ptr, group=32):
     """Each target row's sources cut into `group`-edge groups, in plan
-    order: the id streams one warp of K1 loads (empty rows give none)."""
+    order: the id streams of the host factors (empty rows give none)."""
     src, ptr = np.asarray(src), np.asarray(ptr)
     return [src[b:min(b + group, ptr[t + 1])]
             for t in range(len(ptr) - 1)
