@@ -65,6 +65,11 @@ and the script exits non-zero; it prints no result line then):
                (`SpmmWeightedFunction` dx and dw, `SddmmFunction` dx and dy)
                against plain autograd in f64; kernel, plain, library
                (torch.sparse.mm, torch.sparse.sampled_addmm) and bound.
+               Each K5 record holds the CUDA kernels one call makes
+               (torch.profiler); its `schedule` log line gives the lane
+               layout the host chose (values and bytes per lane, rows per
+               warp load) and the plan's runs of equal targets per span,
+               the y rows the schedule loads: modelled, not measured.
  10. variant steps — one step each with edge_norm="mean", edge attention,
                edge_dropout_keep=0.8 (one mask from one generator state on
                both sides) against the plain path in f64, each hop's
@@ -127,11 +132,14 @@ and the script exits non-zero; it prints no result line then):
                counts set to 0, the probe CLI's measurements
                (`probes.run`): P1's sweeps on an HBM-size and an L2-size
                table, the run and tile factors of the CSR plans, and the
-               split of K1's time (P1 on the hop's stream, P2, K1) on both
-               bundles' interval 0.
-Every segment-sum mode (K1-K4, K6, P2; forward and backward) is launched
-twice on the same inputs in its phase and must give the same bits
-(`check_repeatable`); before the kernels line each segment-sum record logs
+               split of K1's time (P1 on the hop's stream, P2, K1; walk =
+               P2 - P1 logged, not checked) on both bundles' interval 0.
+               Each P1 record holds the CUDA kernels one call makes; its
+               `schedule` log line the modelled lane layout, chunks and
+               grid.
+Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
+and dw) and every P1 mode is launched twice on the same inputs in its
+phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
 the time of each hop, the i-hop / u-hop ratio and its share of the bound
 (`schedule_report`). Every time in the kernels line is device time per
 call: CUDA events around back-to-back calls queued on the card, so that
@@ -318,13 +326,57 @@ def check_close(got, want, rtol, atol, what) -> float:
 
 
 def check_repeatable(fn, what) -> None:
-    """Fails unless two calls of fn give the same bits: the segment-sum
-    kernel has no float atomics and sums every row in an order fixed by
-    the plan alone."""
+    """Fails unless two calls of fn give the same bits: no kernel has float
+    atomics, and each sums in an order fixed by its inputs alone (the
+    segment-sum's rows by the plan, K5's scores by the lane layout, P1's
+    chunks by the id count)."""
     import torch
     a, b = fn(), fn()
     torch.cuda.synchronize()
     check(torch.equal(a, b), f"{what}: two launches, different bits")
+
+
+def cuda_kernels_per_call(fn) -> int | None:
+    """The CUDA kernels one call of fn launches, counted by torch.profiler
+    (memsets and copies left out); None (logged) where the profiler saw no
+    device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        log("  cuda_kernels_per_call: no device events; not measured")
+        return None
+    return sum(e.count for e in events
+               if not e.key.lower().startswith(("memset", "memcpy")))
+
+
+def sddmm_layout(rec, slots, d, sm_count, edges, runs) -> None:
+    """A K5 record's `schedule` log line: the lane layout and grid that
+    `spmm_cuda.sddmm_schedule` gives at the hop's sizes, and `runs`, the
+    plan's runs of equal targets in each span of SDDMM_SPAN slots over its
+    `edges` real edges (the y rows the schedule loads). These are the
+    host's model of the launch, not counted on the card, so they stay out
+    of the record."""
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    sched = sc.sddmm_schedule(slots, d, sm_count)
+    log(f"schedule {rec['name']} (modelled: layout from sddmm_schedule, "
+        f"runs from the plan): {sched.vec} values ({sched.vec * 4} bytes) "
+        f"per lane, {sched.lanes} lanes per row, "
+        f"{sched.rows_per_instruction} rows per warp load, "
+        f"{sc.SDDMM_BATCH} edges in flight per group, {sched.blocks} blocks;"
+        f" runs per span over the pair {runs} for {edges} edges. Measured: "
+        f"CUDA kernels per call {rec['cuda_kernels_per_call']}; "
+        f"{rec['ms']:.4f} ms is {rec['bound_ms'] / rec['ms']:.3f} of the "
+        f"bound {rec['bound_ms']:.4f} ms")
 
 
 def serial_items(ptrs, n_slots, d) -> int:
@@ -1292,10 +1344,12 @@ def _k2_bytes(n_src, n_tgt, n_edges, d, elem) -> int:
             + n_tgt * d * 4)
 
 
-def _k5_bytes(n_src, n_tgt, n_edges, slots, d, elem) -> int:
-    """K5's unique bytes: both tables once, the source and target ids of
-    the real edges, the edge count, the f32 scores of every slot."""
-    return ((n_src + n_tgt) * d * elem + n_edges * 8 + 4 + slots * 4)
+def _k5_bytes(n_src, n_tgt, n_edges, slots, d) -> int:
+    """K5's unique bytes: both tables once, at the 4 bytes a value that the
+    call is given in both modes (bf16 mode rounds f32 tables as it reads
+    them), the source and target ids of the real edges, the edge count,
+    the f32 scores of every slot."""
+    return ((n_src + n_tgt) * d * 4 + n_edges * 8 + 4 + slots * 4)
 
 
 def _p1_bytes(x, src) -> int:
@@ -1346,6 +1400,7 @@ def edge_kernel_phase(graphs, device) -> dict:
                  else "bf16 tables, f32 weights and accumulation")
         k2 = _record(f"wsegsum_{mode}", KERNEL_SOURCE, K2_REPLACES, table)
         k5 = _record(f"sddmm_{mode}", SDDMM_SOURCE, K5_REPLACES, table)
+        edges = runs = 0        # the pair's, for K5's schedule line
         for d, n_src in (("u", NUM_ITEMS), ("i", NUM_USERS)):
             src, tgt = graphs[f"{d}_src"][0], graphs[f"{d}_tgt"][0]
             ptr = graphs[f"{d}_ptr"][0]
@@ -1386,9 +1441,14 @@ def edge_kernel_phase(graphs, device) -> dict:
                                                * y.abs().max())
             err = check_close(s, want, 1e-5, atol, f"{k5['name']}[{d}]")
             check(not bool(s[n:].any()), f"{k5['name']}: pad slots score 0")
+            check_repeatable(lambda: sc.sddmm_apply(x, y, src, tgt, ptr,
+                                                    exact),
+                             f"{k5['name']}[{d}]")
             pattern = _csr(ptr, src, torch.ones(n, device=device),
                            (n_tgt, n_src))
             xt = xl.T.contiguous()
+            edges += n
+            runs += sc.sddmm_row_loads(tgt, n)
             _add(k5, d, err, edges=n,
                  ms=kernel_ms(lambda: sc.sddmm_apply(x, y, src, tgt, ptr,
                                                      exact)),
@@ -1399,8 +1459,10 @@ def edge_kernel_phase(graphs, device) -> dict:
                      lambda: torch.sparse.sampled_addmm(
                          pattern, yl, xt, beta=0.0).values(),
                      want[:n], 1e-5, atol),
-                 bound_ms=_bound_ms(_k5_bytes(n_src, n_tgt, n, slots, D,
-                                              elem), 2 * n * D))
+                 bound_ms=_bound_ms(_k5_bytes(n_src, n_tgt, n, slots, D), 2 * n * D))
+        k5["cuda_kernels_per_call"] = cuda_kernels_per_call(
+            lambda: sc.sddmm_apply(x, y, src, tgt, ptr, exact))
+        sddmm_layout(k5, slots, D, sc._sm_count(device.index), edges, runs)
         # an empty interval (all padding) and a graph with empty rows
         x = torch.randn((300, D), generator=gen, device=device)
         y = torch.randn((128, D), generator=gen, device=device)
@@ -1448,9 +1510,11 @@ def edge_kernel_phase(graphs, device) -> dict:
                               " one multiply-add (2) per gathered value at "
                               "67e12 FLOP/s")
         k5["tolerance"] = "rtol 1e-5, atol 1e-5*sqrt(D)*max|x|*max|y|"
-        k5["bound_counts"] = ("bytes: both tables once, the source and "
-                              "target ids of the real edges, the f32 score "
-                              "of every slot; operations: 2*D per edge")
+        k5["bound_counts"] = ("bytes: both f32 tables once (f32 in both "
+                              "modes: bf16 mode rounds them as it reads), "
+                              "the source and target ids of the real "
+                              "edges, the f32 score of every slot; "
+                              "operations: 2*D per edge")
         for rec in (k2, k5):
             records[rec["name"]] = rec
             log(f"{rec['name']}: u {rec['per_direction']['u']['ms']:.4f} ms"
@@ -1484,6 +1548,7 @@ def edge_backward_phase(graphs, device) -> dict:
                      "(timed); also the SDDMM's dx and dy")
         k5 = _record(f"sddmm_{mode}_bwd", SDDMM_SOURCE, K5_BWD_REPLACES,
                      "backward: dw of a weighted hop over the forward plan")
+        edges = runs = 0        # the pair's, for K5's schedule line
         for rec in (k2, k5):
             rec["autograd_ms"] = 0.0
         for d in ("u", "i"):
@@ -1544,6 +1609,10 @@ def edge_backward_phase(graphs, device) -> dict:
                                                 * g.abs().max())
             err5 = check_close(dw, rdw, 1e-5, atol5,
                                f"{k5['name']}[{d}-hop dw]")
+            check_repeatable(lambda: torch.autograd.grad(
+                out, wv, g, retain_graph=True)[0], f"{k5['name']}[{d}-hop dw]")
+            edges += n
+            runs += sc.sddmm_row_loads(ftgt, n)
             w_b = w.index_select(0, to_bwd)
             gl = g if exact else g.to(torch.bfloat16).float()
             xl = x if exact else x.to(torch.bfloat16).float()
@@ -1571,12 +1640,15 @@ def edge_backward_phase(graphs, device) -> dict:
                      lambda: torch.sparse.sampled_addmm(
                          pattern, gl, xt, beta=0.0).values(),
                      rdw[:n], 1e-5, atol5),
-                 bound_ms=_bound_ms(_k5_bytes(n_x, n_t, n, slots, D, elem),
+                 bound_ms=_bound_ms(_k5_bytes(n_x, n_t, n, slots, D),
                                     2 * n * D))
             k2["autograd_ms"] += kernel_ms(lambda: torch.autograd.grad(
                 out, (xv, wv), g, retain_graph=True))
             k5["autograd_ms"] += kernel_ms(lambda: torch.autograd.grad(
                 s, (xv, yv), gs, retain_graph=True))
+        k5["cuda_kernels_per_call"] = cuda_kernels_per_call(
+            lambda: sc.sddmm_apply(x, g, fsrc, ftgt, fptr, exact))
+        sddmm_layout(k5, slots, D, sc._sm_count(device.index), edges, runs)
         k2["tolerance"] = (SEG_TOL + " of the plan (the table's max|x| * "
                            "max|weight| the largest term)")
         k5["tolerance"] = "rtol 1e-5, atol 1e-5*sqrt(D)*max|x|*max|g|"
@@ -2940,7 +3012,24 @@ def flagship_phase(device) -> tuple[dict, dict, dict]:
     return out, records, hops0
 
 
-def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
+def p1_kernels_per_call(device) -> dict:
+    """The CUDA kernels one P1 call makes, per table type, counted on a
+    small table (`cuda_kernels_per_call`; the count does not depend on the
+    sizes). It is counted here, before the flagship phase: after that
+    phase's profiler pass, a new profiler session on this card has read
+    no device events."""
+    import torch
+    from sagnn_tpu_torch.ops import probes
+
+    x = torch.randn((20_000, probes.D), device=device)
+    src = torch.from_numpy(probes.probe_ids(20_000, 300_000, 1)).to(device)
+    return {f"gather_sum_{mode}": cuda_kernels_per_call(
+                lambda: probes.gather_sum(table, src))
+            for mode, table in (("f32", x), ("bf16", x.to(torch.bfloat16)))}
+
+
+def probes_phase(gowalla, flagship, p1_kernels, device
+                 ) -> tuple[dict, dict]:
     """Phase 14. P1 (`probes.gather_sum`) in every mode (f32 and bf16
     tables, every run and loads-in-flight count) on the probe's own shape
     against its plain version summed in f64, atol = f32 eps x rows x
@@ -2950,8 +3039,9 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
     kernel, plain (= library for P1) and bound times. Then, with every
     count set to 0, `probes.run` (the CLI's measurements: P1's sweeps on
     an HBM-size and an L2-size table, the plans' factors, the split of K1
-    on both bundles' interval 0), its counts read just after. Returns
-    (the run's results, records)."""
+    on both bundles' interval 0), its counts read just after.
+    `p1_kernels`: `p1_kernels_per_call`'s counts, logged with the records.
+    Returns (the run's results, records)."""
     import torch
     from sagnn_tpu_torch.ops import probes
     from sagnn_tpu_torch.ops import spmm_cuda as sc
@@ -2976,6 +3066,8 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
                 err, used = tolerance_used(got, want, 0.0, atol)
                 check(used <= 1.0, f"{rec['name']} run {run} in flight {k}:"
                       f" max abs err {err:.3e} (atol {atol:.2e})")
+                check_repeatable(lambda: probes.gather_sum(x, src, run, k),
+                                 f"{rec['name']} run {run} in flight {k}")
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 worst = max(worst, used)
         # on the gowalla hops' own edge streams (the split's input)
@@ -2989,6 +3081,8 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
             err, used = tolerance_used(probes.gather_sum(table, stream),
                                        want, 0.0, atol)
             check(used <= 1.0, f"{rec['name']} on the gowalla {d}-hop")
+            check_repeatable(lambda: probes.gather_sum(table, stream),
+                             f"{rec['name']} on the gowalla {d}-hop")
             worst = max(worst, used)
         log(f"  {rec['name']}: {len(probes.RUNS) * len(probes.IN_FLIGHT)} "
             f"modes and the gowalla hop streams within {worst:.2f} of atol"
@@ -2998,6 +3092,18 @@ def probes_phase(gowalla, flagship, device) -> tuple[dict, dict]:
             probes.PROBE_ROWS, probes.PROBE_FETCHED, 1)).to(device)
         nbytes = _p1_bytes(x, src)
         library_ms = kernel_ms(lambda: probes.gather_sum_plain(x, src))
+        sched = probes.gather_schedule(src.numel(), 1, D,
+                                       sc._sm_count(device.index),
+                                       x.element_size())
+        per_call = p1_kernels[rec["name"]]
+        rec["cuda_kernels_per_call"] = per_call
+        log(f"schedule {rec['name']} (modelled: gather_schedule, except the "
+            f"measured kernels per call): {sched.vec} values "
+            f"({sched.vec * x.element_size()} bytes) per lane, "
+            f"{sched.lanes} lanes per row, {sched.rows_per_instruction} rows "
+            f"per warp load; {sched.chunks} chunks of "
+            f"{probes.P1_CHUNK_ROWS} rows on {sched.blocks} blocks; CUDA "
+            f"kernels per call {per_call}")
         rec.update(
             ms=kernel_ms(lambda: probes.gather_sum(x, src)),
             plain_ms=library_ms, library_ms=library_ms,
@@ -3302,6 +3408,7 @@ def drive(device) -> None:
     t0 = time.perf_counter()
     records.update(edge_kernel_phase(vrecs["mean"].graphs, device))
     records.update(edge_backward_phase(vrecs["mean"].graphs, device))
+    p1_kernels = p1_kernels_per_call(device)
     phase_s["edge kernels"] = time.perf_counter() - t0
     log(f"phase edge kernels: {phase_s['edge kernels']:.1f} s")
 
@@ -3351,7 +3458,8 @@ def drive(device) -> None:
     # 14. the probes: P1 and P2 against their plain versions, then the
     # probe CLI's measurements on both bundles' interval 0
     t0 = time.perf_counter()
-    probe_results, precords = probes_phase(rec.graphs, flagship_hops, device)
+    probe_results, precords = probes_phase(rec.graphs, flagship_hops,
+                                           p1_kernels, device)
     records.update(precords)
     del flagship_hops
     phase_s["probes"] = time.perf_counter() - t0

@@ -6,7 +6,8 @@
 // scalar-prefetched, plan-sorted source ids, NBUF of them in flight, and
 // sums everything into an [8, D] output. What it measures is the rate at
 // which a kernel can fetch rows of a large table by id, the question every
-// segment-sum kernel (csrc/segsum.cu) depends on.
+// segment-sum kernel (csrc/segsum.cu) and the SDDMM's x gather
+// (csrc/sddmm.cu) depend on.
 //
 // Here the function is
 //
@@ -25,178 +26,273 @@
 //
 // What the design does about it (written for this card's memory system, not
 // the TPU's DMA and semaphores):
-//   * one warp reads one row in one coalesced load: each lane owns a column
-//     pair (float2, 8 bytes in f32; bf16x2, 4 bytes in bf16);
-//   * each warp loads 32 ids at once and broadcasts them with __shfl_sync,
-//     as K1 does; the row loop is unrolled by kInFlight (1, 2, 4, 8) so that
-//     that many independent row loads are in flight before the adds consume
-//     them, into kInFlight independent sums;
-//   * kRun consecutive rows per id are walked in order, so a run is one
-//     contiguous stretch of run * D values;
-//   * the reduction is deterministic: each warp sums a fixed contiguous
-//     range of ids, the block adds its warps in order into one partial row
-//     per block, and a second one-block pass adds the partials in block
-//     order. No atomics.
+//   * 16-byte lanes, several rows per warp instruction, as K5 reads x: a
+//     lane group of `lanes` lanes (a power of two) covers a row, kVec
+//     values per lane (float4 in f32, eight bf16 in bf16 when D allows),
+//     so at D = 64 one instruction fetches 2 f32 or 4 bf16 rows. The rows
+//     r of id i are numbered i * run + r; one instruction reads the next
+//     32 / lanes of them, so at run > 1 the whole warp's lanes read one
+//     contiguous stretch of a run's values;
+//   * each warp stages the ids of its share of a chunk in shared memory
+//     by coalesced loads first, so that no row load waits on its id's;
+//   * the row loop is unrolled by kInFlight (1, 2, 4, 8): that many
+//     independent load instructions per lane are in flight before the adds
+//     consume them, in order, into one sum; a row in flight is held as the
+//     words it was loaded as (a bf16 row in half the registers);
+//   * one launch per call, deterministic, no float atomics: the rows are
+//     cut into chunks of kChunkRows (fixed by n_ids and run alone), each
+//     summed by one block (its warps' fixed shares, combined in warp order)
+//     into one partial row; the blocks walk the chunks with a stride, and
+//     the last block to arrive (an arrival counter, reset by that block)
+//     sums the partials in chunk order, with every thread of the block
+//     loading a fixed stripe of them and the stripes added in order. The
+//     grid's size changes no bit of the result.
 // A cp.async-into-shared-memory variant is not written: a register load
-// already keeps kInFlight rows in flight per warp without a shared-memory
+// already keeps kInFlight rows in flight per lane without a shared-memory
 // round trip.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
+// The schedule is defined once, in sagnn_tpu_torch/ops/probes.py
+// (P1_CHUNK_ROWS, P1_WARPS_PER_BLOCK), which sizes the grid and the scratch
+// from it; ops/_build.py passes it as -D defines.
+#if !defined(SAGNN_P1_CHUNK_ROWS) || !defined(SAGNN_P1_WARPS_PER_BLOCK)
+#error "build through sagnn_tpu_torch/ops/_build.py, which defines the schedule"
+#endif
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kChunkRows = SAGNN_P1_CHUNK_ROWS;
+constexpr int kWarpsPerBlock = SAGNN_P1_WARPS_PER_BLOCK;
+constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kWarpRows = kChunkRows / kWarpsPerBlock;
+constexpr int kMaxD = 64;
+constexpr int kFinalInFlight = 8;
+static_assert(kChunkRows % kWarpsPerBlock == 0, "a warp's share is whole");
+static_assert(kWarpRows % 16 == 0 && kWarpRows % 32 == 0,
+              "a warp's share holds whole runs and whole id loads");
 
-__device__ __forceinline__ float2 load_pair(const float* __restrict__ row,
-                                            int c) {
-  return reinterpret_cast<const float2*>(row)[c];
-}
-
-__device__ __forceinline__ float2 load_pair(
-    const __nv_bfloat16* __restrict__ row, int c) {
-  const __nv_bfloat162 v = reinterpret_cast<const __nv_bfloat162*>(row)[c];
-  return make_float2(__bfloat162float(v.x), __bfloat162float(v.y));
-}
-
-// Each warp sums ids [warp * ids_per_warp, ...) into `partial` row
-// blockIdx.x (a [gridDim.x, d] f32 array) together with its block's other
-// warps, in warp order.
-template <typename T, int kInFlight, int kRun>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gather_sum_kernel(const T* __restrict__ x, const int* __restrict__ src,
-                  int n_ids, int ids_per_warp, int d,
-                  float* __restrict__ partial) {
-  __shared__ float2 warp_sums[kWarpsPerBlock][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t first =
-      (int64_t)(blockIdx.x * kWarpsPerBlock + warp) * ids_per_warp;
-  const int beg = (int)(first < n_ids ? first : n_ids);
-  const int end = (int)(first + ids_per_warp < n_ids ? first + ids_per_warp
-                                                      : n_ids);
-  const bool active = lane < (d >> 1);
-
-  float2 acc[kInFlight];
+// The last block's pass: out[c] = the sum of the `chunks` partial rows in
+// chunk order. Thread t owns column group t % groups (kCols values) and
+// sums rows stripe, stripe + stripes, ... (kFinalInFlight loads in flight);
+// the stripes' sums are then added in stripe order.
+template <int kCols>
+__device__ void sum_partials(const float* __restrict__ partial,
+                             int64_t chunks, int d, float* __restrict__ out,
+                             float* s_stripes) {
+  const int groups = d / kCols;
+  const int stripes = kThreads / groups;
+  const int t = threadIdx.x;
+  const int g = t % groups;
+  const int stripe = t / groups;
+  if (stripe < stripes) {
+    float acc[kFinalInFlight][kCols];
 #pragma unroll
-  for (int u = 0; u < kInFlight; ++u) acc[u] = make_float2(0.f, 0.f);
-  for (int base = beg; base < end; base += 32) {
-    const int n = min(32, end - base);  // warp-uniform
-    const int my_src = lane < n ? src[base + lane] : 0;
-    const int rows = n * kRun;
-    int j = 0;
-    for (; j + kInFlight <= rows; j += kInFlight) {
-      float2 v[kInFlight];
+    for (int u = 0; u < kFinalInFlight; ++u) {
 #pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int s =
-            __shfl_sync(kFullMask, my_src, (j + u) / kRun) + (j + u) % kRun;
-        v[u] = active ? load_pair(x + (int64_t)s * d, lane)
-                      : make_float2(0.f, 0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        acc[u].x += v[u].x;
-        acc[u].y += v[u].y;
-      }
+      for (int i = 0; i < kCols; ++i) acc[u][i] = 0.f;
     }
-    // the tail (< kInFlight rows): row j + u goes to sum u
+    for (int64_t r0 = stripe; r0 < chunks;
+         r0 += (int64_t)stripes * kFinalInFlight) {
 #pragma unroll
-    for (int u = 0; u < kInFlight - 1; ++u) {
-      if (j + u < rows) {  // warp-uniform
-        const int s =
-            __shfl_sync(kFullMask, my_src, (j + u) / kRun) + (j + u) % kRun;
-        if (active) {
-          const float2 v = load_pair(x + (int64_t)s * d, lane);
-          acc[u].x += v.x;
-          acc[u].y += v.y;
+      for (int u = 0; u < kFinalInFlight; ++u) {
+        const int64_t r = r0 + (int64_t)u * stripes;
+        if (r < chunks) {
+          const float* p = partial + r * d + g * kCols;
+          if constexpr (kCols == 4) {
+            const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+            acc[u][0] += v.x;
+            acc[u][1] += v.y;
+            acc[u][2] += v.z;
+            acc[u][3] += v.w;
+          } else {
+            const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+            acc[u][0] += v.x;
+            acc[u][1] += v.y;
+          }
         }
       }
     }
-  }
 #pragma unroll
-  for (int half = kInFlight / 2; half > 0; half /= 2) {
+    for (int half = kFinalInFlight / 2; half > 0; half /= 2) {
 #pragma unroll
-    for (int u = 0; u < half; ++u) {
-      acc[u].x += acc[u + half].x;
-      acc[u].y += acc[u + half].y;
+      for (int u = 0; u < half; ++u) {
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) acc[u][i] += acc[u + half][i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      s_stripes[stripe * d + g * kCols + i] = acc[0][i];
     }
   }
-  warp_sums[warp][lane] = acc[0];
   __syncthreads();
-  if (warp == 0 && active) {
-    float2 s = warp_sums[0][lane];
-#pragma unroll
-    for (int w = 1; w < kWarpsPerBlock; ++w) {
-      s.x += warp_sums[w][lane].x;
-      s.y += warp_sums[w][lane].y;
-    }
-    reinterpret_cast<float2*>(partial + (int64_t)blockIdx.x * d)[lane] = s;
+  if (t < d) {
+    float s = 0.f;
+    for (int k = 0; k < stripes; ++k) s += s_stripes[k * d + t];
+    out[t] = s;
   }
 }
 
-// out[c] = sum over the `blocks` partial rows, in block order.
-__global__ void gather_sum_finalize(const float* __restrict__ partial,
-                                    int blocks, int d,
-                                    float* __restrict__ out) {
-  const int c = threadIdx.x;
-  if (c >= d) return;
-  float s = 0.f;
-#pragma unroll 8
-  for (int b = 0; b < blocks; ++b) s += partial[(int64_t)b * d + c];
-  out[c] = s;
+// partial: [chunks, d] f32 scratch; counter: one unsigned, 0 on entry and
+// left at 0; lanes = 1 << lanes_log2 lanes per row, lanes * kVec >= d.
+template <typename T, int kVec, int kInFlight, int kRun>
+__global__ void __launch_bounds__(kThreads, 1)
+gather_sum_kernel(const T* __restrict__ x, const int* __restrict__ src,
+                  int n_ids, int d, int lanes_log2,
+                  float* __restrict__ partial,
+                  unsigned* __restrict__ counter, float* __restrict__ out) {
+  __shared__ float s_sums[kThreads * 4];  // warps' rows, then stripes' sums
+  __shared__ int s_ids[kWarpsPerBlock][kWarpRows];  // each warp's ids
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lanes = 1 << lanes_log2;
+  const int lig = lane & (lanes - 1);
+  const int group = lane >> lanes_log2;
+  const int groups = 32 >> lanes_log2;   // rows per instruction
+  const int col = lig * kVec;
+  const bool active = col < d;
+  const int64_t rows = (int64_t)n_ids * kRun;
+  const int64_t chunks = (rows + kChunkRows - 1) / kChunkRows;
+
+  for (int64_t c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const int64_t r0 = c * kChunkRows + (int64_t)warp * kWarpRows;
+    const int64_t r1 = min(rows, r0 + kWarpRows);
+    // the warp's ids, staged at once by coalesced loads (r0 is a multiple
+    // of kRun), so that no row load waits on its id's load
+    const int64_t id0 = r0 / kRun;
+    const int n_stage = r1 > r0 ? (int)((r1 - r0 + kRun - 1) / kRun) : 0;
+#pragma unroll
+    for (int k = 0; k < kWarpRows / 32; ++k) {
+      const int j = k * 32 + lane;
+      if (j < n_stage) s_ids[warp][j] = src[id0 + j];
+    }
+    __syncwarp();
+    float acc[kVec];
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
+    // instruction u of a batch reads rows base + u * groups + group
+    for (int64_t base = r0; base < r1; base += (int64_t)kInFlight * groups) {
+      Row<T, kVec> v[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int64_t row = base + (int64_t)u * groups + group;
+        if (active && row < r1) {
+          const int j = (int)(row - r0);
+          const int64_t id = (int64_t)s_ids[warp][j / kRun] + j % kRun;
+          v[u].load(x + id * d + col);
+        } else {
+          v[u].zero();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[i] += v[u].at(i);
+      }
+    }
+    // the warp's groups, by a butterfly (every lane ends with the same sum)
+    for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+      }
+    }
+    if (group == 0 && active) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) s_sums[warp * kMaxD + col + i] = acc[i];
+    }
+    __syncthreads();
+    if (threadIdx.x < d) {  // the block's warps in order
+      float s = s_sums[threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < kWarpsPerBlock; ++w) {
+        s += s_sums[w * kMaxD + threadIdx.x];
+      }
+      partial[c * d + threadIdx.x] = s;
+    }
+    __syncthreads();  // s_sums and s_ids are reused by the next chunk
+  }
+
+  // the last block to arrive sums the partials
+  __threadfence();  // this block's partials are visible to every SM
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) *counter = 0u;  // clean for the next launch
+  if (d % 4 == 0) {
+    sum_partials<4>(partial, chunks, d, out, s_sums);
+  } else {
+    sum_partials<2>(partial, chunks, d, out, s_sums);
+  }
 }
 
-template <typename T, int kInFlight, int kRun>
-cudaError_t launch_gather(const void* x, const void* src, int n_ids, int d,
-                          void* scratch, int max_blocks, void* out,
-                          cudaStream_t stream) {
-  // the fewest blocks that give each warp at most ids_per_warp ids, with
-  // ids_per_warp a multiple of 32 (one id load per lane per group)
-  const int64_t warps_wanted = ((int64_t)n_ids + 31) / 32;
-  const int blocks_wanted =
-      (int)((warps_wanted + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  int blocks = max(1, min(max_blocks, blocks_wanted));
-  const int64_t per_warp =
-      ((int64_t)n_ids + (int64_t)blocks * kWarpsPerBlock - 1) /
-      ((int64_t)blocks * kWarpsPerBlock);
-  const int64_t rounded = (per_warp + 31) / 32 * 32;
-  const int ids_per_warp = (int)(rounded > 32 ? rounded : 32);
-  blocks = (int)(((int64_t)n_ids + (int64_t)ids_per_warp * kWarpsPerBlock -
-                  1) / ((int64_t)ids_per_warp * kWarpsPerBlock));
-  blocks = max(1, blocks);
-  float* partial = static_cast<float*>(scratch);
-  gather_sum_kernel<T, kInFlight, kRun>
-      <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const int*>(src), n_ids,
-          ids_per_warp, d, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gather_sum_finalize<<<1, 64, 0, stream>>>(partial, blocks, d,
-                                            static_cast<float*>(out));
+template <typename T, int kVec, int kInFlight, int kRun>
+cudaError_t launch(const void* x, const void* src, int n_ids, int d,
+                   int lanes_log2, void* scratch, void* counter, int blocks,
+                   void* out, cudaStream_t stream) {
+  gather_sum_kernel<T, kVec, kInFlight, kRun><<<blocks, kThreads, 0,
+                                                stream>>>(
+      static_cast<const T*>(x), static_cast<const int*>(src), n_ids, d,
+      lanes_log2, static_cast<float*>(scratch),
+      static_cast<unsigned*>(counter), static_cast<float*>(out));
   return cudaGetLastError();
 }
 
-template <typename T, int kRun>
+template <typename T, int kVec, int kRun>
 cudaError_t dispatch_in_flight(int in_flight, const void* x, const void* src,
-                               int n_ids, int d, void* scratch,
-                               int max_blocks, void* out,
-                               cudaStream_t stream) {
+                               int n_ids, int d, int lanes_log2,
+                               void* scratch, void* counter, int blocks,
+                               void* out, cudaStream_t stream) {
   switch (in_flight) {
     case 1:
-      return launch_gather<T, 1, kRun>(x, src, n_ids, d, scratch, max_blocks,
-                                       out, stream);
+      return launch<T, kVec, 1, kRun>(x, src, n_ids, d, lanes_log2, scratch,
+                                      counter, blocks, out, stream);
     case 2:
-      return launch_gather<T, 2, kRun>(x, src, n_ids, d, scratch, max_blocks,
-                                       out, stream);
+      return launch<T, kVec, 2, kRun>(x, src, n_ids, d, lanes_log2, scratch,
+                                      counter, blocks, out, stream);
     case 4:
-      return launch_gather<T, 4, kRun>(x, src, n_ids, d, scratch, max_blocks,
-                                       out, stream);
+      return launch<T, kVec, 4, kRun>(x, src, n_ids, d, lanes_log2, scratch,
+                                      counter, blocks, out, stream);
     case 8:
-      return launch_gather<T, 8, kRun>(x, src, n_ids, d, scratch, max_blocks,
-                                       out, stream);
+      return launch<T, kVec, 8, kRun>(x, src, n_ids, d, lanes_log2, scratch,
+                                      counter, blocks, out, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int kVec>
+cudaError_t dispatch_run(int run, int in_flight, const void* x,
+                         const void* src, int n_ids, int d, int lanes_log2,
+                         void* scratch, void* counter, int blocks, void* out,
+                         cudaStream_t stream) {
+  switch (run) {
+    case 1:
+      return dispatch_in_flight<T, kVec, 1>(in_flight, x, src, n_ids, d,
+                                            lanes_log2, scratch, counter,
+                                            blocks, out, stream);
+    case 4:
+      return dispatch_in_flight<T, kVec, 4>(in_flight, x, src, n_ids, d,
+                                            lanes_log2, scratch, counter,
+                                            blocks, out, stream);
+    case 8:
+      return dispatch_in_flight<T, kVec, 8>(in_flight, x, src, n_ids, d,
+                                            lanes_log2, scratch, counter,
+                                            blocks, out, stream);
+    case 16:
+      return dispatch_in_flight<T, kVec, 16>(in_flight, x, src, n_ids, d,
+                                             lanes_log2, scratch, counter,
+                                             blocks, out, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -204,27 +300,34 @@ cudaError_t dispatch_in_flight(int in_flight, const void* x, const void* src,
 
 template <typename T>
 int gather_sum(const void* x, const void* src, int n_ids, int run,
-               int in_flight, void* scratch, int max_blocks, void* out, int d,
-               int device, void* stream) {
+               int in_flight, int vec, int lanes, void* scratch,
+               void* counter, int blocks, void* out, int d, int device,
+               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d <= 0 || d > 64 || (d & 1) || max_blocks <= 0) {
+  if (d <= 0 || d > kMaxD || (d & 1) || n_ids < 0 || blocks <= 0 ||
+      vec <= 0 || d % vec || lanes <= 0 || lanes > 32 ||
+      (lanes & (lanes - 1)) || lanes * vec < d) {
     return (int)cudaErrorInvalidValue;
   }
+  const int lanes_log2 = __builtin_ctz((unsigned)lanes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (run) {
-    case 1:
-      return (int)dispatch_in_flight<T, 1>(in_flight, x, src, n_ids, d,
-                                           scratch, max_blocks, out, s);
+  switch (vec) {
+    case 2:
+      return (int)dispatch_run<T, 2>(run, in_flight, x, src, n_ids, d,
+                                     lanes_log2, scratch, counter, blocks,
+                                     out, s);
     case 4:
-      return (int)dispatch_in_flight<T, 4>(in_flight, x, src, n_ids, d,
-                                           scratch, max_blocks, out, s);
+      return (int)dispatch_run<T, 4>(run, in_flight, x, src, n_ids, d,
+                                     lanes_log2, scratch, counter, blocks,
+                                     out, s);
     case 8:
-      return (int)dispatch_in_flight<T, 8>(in_flight, x, src, n_ids, d,
-                                           scratch, max_blocks, out, s);
-    case 16:
-      return (int)dispatch_in_flight<T, 16>(in_flight, x, src, n_ids, d,
-                                            scratch, max_blocks, out, s);
+      if constexpr (sizeof(T) == 2) {
+        return (int)dispatch_run<T, 8>(run, in_flight, x, src, n_ids, d,
+                                       lanes_log2, scratch, counter, blocks,
+                                       out, s);
+      }
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -234,25 +337,30 @@ int gather_sum(const void* x, const void* src, int n_ids, int run,
 
 extern "C" {
 
-// x: [N, d] f32 (d even, <= 64); src: [n_ids] int32, every id + run - 1 a
-// row of x; run in {1, 4, 8, 16}; in_flight in {1, 2, 4, 8}; scratch:
-// [max_blocks, d] f32; out: [d] f32. Two launches on `stream` (the gather
-// and the fixed-order pass over the block partials), no sync. Returns the
+// x: [N, d] f32, 16-byte aligned (d even, <= 64); src: [n_ids] int32, every
+// id + run - 1 a row of x; run in {1, 4, 8, 16}; in_flight in {1, 2, 4, 8};
+// vec (values per lane: 2 or 4, dividing d), lanes (per row, a power of
+// two, lanes * vec >= d) and blocks from probes.gather_schedule; scratch:
+// [ceil(n_ids * run / P1_CHUNK_ROWS), d] f32; counter: one unsigned, 0 (and
+// left at 0); out: [d] f32. One launch on `stream`, no sync. Returns the
 // cudaError_t (0 = success; cudaErrorInvalidValue for an unsupported run,
-// in_flight or d).
+// in_flight, d or schedule).
 int sagnn_gather_sum_f32(const void* x, const void* src, int n_ids, int run,
-                         int in_flight, void* scratch, int max_blocks,
-                         void* out, int d, int device, void* stream) {
-  return gather_sum<float>(x, src, n_ids, run, in_flight, scratch,
-                           max_blocks, out, d, device, stream);
+                         int in_flight, int vec, int lanes, void* scratch,
+                         void* counter, int blocks, void* out, int d,
+                         int device, void* stream) {
+  return gather_sum<float>(x, src, n_ids, run, in_flight, vec, lanes,
+                           scratch, counter, blocks, out, d, device, stream);
 }
 
-// The same with x: [N, d] bf16, summed in f32.
+// The same with x: [N, d] bf16 (vec 2, 4 or 8), summed in f32.
 int sagnn_gather_sum_bf16(const void* x, const void* src, int n_ids, int run,
-                          int in_flight, void* scratch, int max_blocks,
-                          void* out, int d, int device, void* stream) {
-  return gather_sum<__nv_bfloat16>(x, src, n_ids, run, in_flight, scratch,
-                                   max_blocks, out, d, device, stream);
+                          int in_flight, int vec, int lanes, void* scratch,
+                          void* counter, int blocks, void* out, int d,
+                          int device, void* stream) {
+  return gather_sum<__nv_bfloat16>(x, src, n_ids, run, in_flight, vec, lanes,
+                                   scratch, counter, blocks, out, d, device,
+                                   stream);
 }
 
 }  // extern "C"

@@ -39,12 +39,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def _flags() -> tuple[str, ...]:
-    """NVCC_FLAGS and the segment-sum kernel's schedule, defined once in
-    `spmm_cuda` (which sizes the grid and the scratch from it)."""
+    """NVCC_FLAGS and the kernels' schedules, each defined once in the
+    module that sizes its grid and scratch: the segment-sum kernel's and
+    the SDDMM's in `spmm_cuda`, P1's in `probes`."""
+    from sagnn_tpu_torch.ops import probes
     from sagnn_tpu_torch.ops import spmm_cuda as sc
-    return NVCC_FLAGS + (f"-DSAGNN_PIECE_ITEMS={sc.PIECE_ITEMS}",
-                         f"-DSAGNN_WARPS_PER_BLOCK={sc.WARPS_PER_BLOCK}",
-                         f"-DSAGNN_BLOCKS_PER_SM={sc.BLOCKS_PER_SM}")
+    return NVCC_FLAGS + (
+        f"-DSAGNN_PIECE_ITEMS={sc.PIECE_ITEMS}",
+        f"-DSAGNN_WARPS_PER_BLOCK={sc.WARPS_PER_BLOCK}",
+        f"-DSAGNN_BLOCKS_PER_SM={sc.BLOCKS_PER_SM}",
+        f"-DSAGNN_SDDMM_SPAN={sc.SDDMM_SPAN}",
+        f"-DSAGNN_SDDMM_BATCH={sc.SDDMM_BATCH}",
+        f"-DSAGNN_SDDMM_WARPS_PER_BLOCK={sc.SDDMM_WARPS_PER_BLOCK}",
+        f"-DSAGNN_SDDMM_BLOCKS_PER_SM={sc.SDDMM_BLOCKS_PER_SM}",
+        f"-DSAGNN_P1_CHUNK_ROWS={probes.P1_CHUNK_ROWS}",
+        f"-DSAGNN_P1_WARPS_PER_BLOCK={probes.P1_WARPS_PER_BLOCK}")
 
 
 @dataclass(frozen=True)
@@ -144,18 +153,19 @@ def load_library() -> ctypes.CDLL:
         tuple(f"sagnn_segsum{mode}_{t}" for t in ("f32", "bf16")
               for mode in ("", "_acc", "_fold", "_fold_acc", "_ablate")):
             [p, p, p, p, i, i, p, p, i, i, p],
-        # x, src, n_ids, run, in_flight, scratch, max_blocks, out, d,
-        # device, stream
+        # x, src, n_ids, run, in_flight, vec, lanes, scratch, counter,
+        # blocks, out, d, device, stream
         ("sagnn_gather_sum_f32", "sagnn_gather_sum_bf16"):
-            [p, p, i, i, i, p, i, p, i, i, p],
+            [p, p, i, i, i, i, i, p, p, i, p, i, i, p],
         # x, w, src, ptr, out, num_tgt, d, scratch, counters, blocks,
         # device, stream
         ("sagnn_wsegsum_f32", "sagnn_wsegsum_bf16",
          "sagnn_wsegsum_acc_f32"):
             [p, p, p, p, p, i, i, p, p, i, i, p],
-        # x, y, src, tgt, ptr, out, num_tgt, num_slots, d, device, stream
+        # x, y, src, tgt, ptr, out, num_tgt, num_slots, d, vec, lanes,
+        # chunks, blocks, device, stream
         ("sagnn_sddmm_f32", "sagnn_sddmm_bf16"):
-            [p, p, p, p, p, p, i, i, i, i, p],
+            [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
     }
     for names, argtypes in signatures.items():
         for name in names:

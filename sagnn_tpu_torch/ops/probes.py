@@ -14,8 +14,11 @@ tensor runs its plain version, which the tests and `chip_smoke.py` hold
 the kernel against):
   * `gather_sum(x, src, run, in_flight)` (P1, `csrc/probes.cu`): the f32
     sum of the rows src[i] + r, r < run, of an [N, D] f32 or bf16 table,
-    with `in_flight` independent row loads per warp. JAX's `dma_kernel`
-    (probe_dma_gather.py:100-134) fetched the same rows by async DMA.
+    with `in_flight` independent load instructions per lane, each of 16
+    bytes where D allows (the x gather of K5, `csrc/sddmm.cu`), in one
+    launch (`gather_schedule` sizes its chunks, grid and scratch). JAX's
+    `dma_kernel` (probe_dma_gather.py:100-134) fetched the same rows by
+    async DMA.
   * `segsum_ablate(x, src, ptr, exact)` (P2, the `kAblate` mode of
     `csrc/segsum.cu`): K1's walk and row loads without its adds; each row
     gives its last source's row, out[t] = x[src[ptr[t+1] - 1]], zeros for
@@ -41,6 +44,7 @@ stream.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -57,7 +61,13 @@ LAUNCHES = {f"{kernel}_{mode}": 0 for kernel in ("gather_sum",
 RUNS = (1, 4, 8, 16)         # consecutive rows per id (P1's tile gather)
 IN_FLIGHT = (1, 2, 4, 8)     # independent row loads per warp (P1)
 SPLIT_IN_FLIGHT = 8          # P1 on a hop's stream: K1's unroll
-MAX_BLOCKS = 132 * 8         # P1's blocks: 8 per SM of the H100
+# P1's schedule (csrc/probes.cu, which `_build` compiles with these
+# numbers): the rows (ids x run) are cut into chunks of P1_CHUNK_ROWS, each
+# summed by one block of P1_WARPS_PER_BLOCK warps into one partial row; at
+# most P1_BLOCKS_PER_SM blocks per SM walk the chunks with a stride
+P1_CHUNK_ROWS = 2048
+P1_WARPS_PER_BLOCK = 8
+P1_BLOCKS_PER_SM = 8
 GROUP = 32                   # edges per stream of the host factors
 TILE_WIDTHS = (16, 32, 64)
 # the probe's own shape (probe_dma_gather.py:166-186): 1,048,576 rows of 64
@@ -95,14 +105,41 @@ def gather_sum_plain(x: torch.Tensor, src: torch.Tensor,
     return x.index_select(0, _run_rows(src, run)).to(acc).sum(0)
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherSchedule:
+    vec: int             # values of a row each lane loads (<= 16 bytes)
+    lanes: int           # lanes per row, a power of two
+    rows_per_instruction: int  # 32 // lanes
+    chunks: int          # partial rows: ceil(n_ids * run / P1_CHUNK_ROWS)
+    blocks: int          # the grid
+    scratch_floats: int  # chunks x d (at least 1)
+
+
+def gather_schedule(n_ids: int, run: int, d: int, sm_count: int,
+                    elem_bytes: int = 4) -> GatherSchedule:
+    """P1's lane layout (`spmm_cuda.lane_layout`, one pass: d <= 64), its
+    chunks, grid and scratch for n_ids ids of `run` rows. The chunks, and so
+    the order of every sum, depend on n_ids and run alone; the grid only
+    spreads them (at most P1_BLOCKS_PER_SM blocks per SM)."""
+    if d % 2 or not 0 < d <= D:
+        raise ValueError(f"P1 takes an even d <= {D}, got {d}")
+    vec, lanes, _ = sc.lane_layout(d, elem_bytes)
+    chunks = -(-n_ids * run // P1_CHUNK_ROWS)
+    return GatherSchedule(
+        vec=vec, lanes=lanes, rows_per_instruction=32 // lanes,
+        chunks=chunks, blocks=max(1, min(chunks, sm_count * P1_BLOCKS_PER_SM)),
+        scratch_floats=max(1, chunks * d))
+
+
 def gather_sum(x: torch.Tensor, src: torch.Tensor, run: int = 1,
                in_flight: int = SPLIT_IN_FLIGHT) -> torch.Tensor:
     """[D] f32 = Σ over ids i and r < run of x[src[i] + r] (P1). CUDA: x
     [N, D] f32 or bf16 (D even, at most 64), src int32 with every
     src[i] + run - 1 a row of x (not checked: the kernel trusts it), run
-    in RUNS, in_flight in IN_FLIGHT; two launches on the current stream
-    (the gather, then the fixed-order sum of its block partials), no sync.
-    CPU: the plain version."""
+    in RUNS, in_flight in IN_FLIGHT (load instructions in flight per lane,
+    each fetching `rows_per_instruction` rows); one launch on the current
+    stream (the gather, and the sum of its chunks' partial rows by the
+    last block to finish), no sync. CPU: the plain version."""
     if run not in RUNS or in_flight not in IN_FLIGHT:
         raise ValueError(f"run {run} not in {RUNS} or in_flight "
                          f"{in_flight} not in {IN_FLIGHT}")
@@ -116,18 +153,21 @@ def gather_sum(x: torch.Tensor, src: torch.Tensor, run: int = 1,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     sc._check_ids(x.device, src=src)
-    table = x.contiguous()
-    if table.data_ptr() % (2 * table.element_size()):
-        table = table.clone()
+    table = sc._aligned(x)
     d = table.shape[1]
-    scratch = torch.empty((MAX_BLOCKS, d), dtype=torch.float32,
+    sched = gather_schedule(src.numel(), run, d, sc._sm_count(x.device.index),
+                            table.element_size())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = torch.empty(sched.scratch_floats, dtype=torch.float32,
                           device=x.device)
+    counter = sc._arrival_counters(x.device, stream, 1)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     mode = "f32" if x.dtype == torch.float32 else "bf16"
     sc._launch(f"gather_sum_{mode}", x.device, False, table.data_ptr(),
-               src.data_ptr(), src.numel(), run, in_flight,
-               scratch.data_ptr(), MAX_BLOCKS, out.data_ptr(), d,
-               launches=LAUNCHES)
+               src.data_ptr(), src.numel(), run, in_flight, sched.vec,
+               sched.lanes, scratch.data_ptr(), counter.data_ptr(),
+               sched.blocks, out.data_ptr(), d, launches=LAUNCHES,
+               stream=stream)
     return out
 
 

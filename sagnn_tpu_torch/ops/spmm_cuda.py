@@ -41,13 +41,16 @@ tensor runs its plain PyTorch version, which the tests and
   * `spmm_weighted_apply(x, w, src, ptr, exact)`: out[t] = Σ w[e]·x[src[e]]
     (K2, the weighted mode of the same kernel).
   * `sddmm_apply(x, y, src, tgt, ptr, exact)`: s[e] = x[src[e]]·y[tgt[e]]
-    for the plan's real edges, 0 on pad slots (K5, `csrc/sddmm.cu`).
+    for the plan's real edges, 0 on pad slots (K5, `csrc/sddmm.cu`): one
+    launch per call in both table modes (bf16 mode rounds f32 tables as
+    it reads them), laid out by `sddmm_schedule`.
   * `ring_bucket_accumulate(out, x, src, ptr, w)`: out[t] += Σ w[e]·x[src[e]]
     over one ring bucket's CSR rows (K6, the f32 accumulating modes,
     unweighted or weighted), the launch that
     `parallel/edge_partition.ring_spmm_apply` makes per (rank, ring step).
-In every one the sums run in f32; exact=False casts the gathered tables
-to bf16 first (as the JAX package does) and keeps weights in f32. Every
+In every one the sums run in f32; exact=False rounds the gathered tables
+to bf16 (as the JAX package does; the segment-sum casts them first, K5
+in registers) and keeps weights in f32. Every
 segment-sum mode (K1-K4, K6 and the probe P2) is one launch of the same
 kernel on an edge-balanced schedule: `segsum_schedule` sizes its grid and
 its scratch from num_tgt, len(src) and the SM count, without reading the
@@ -363,12 +366,9 @@ def _check_cuda_args(x: torch.Tensor, src: torch.Tensor,
 
 
 def _kernel_table(x: torch.Tensor, exact: bool) -> torch.Tensor:
-    """x as the kernel reads it: contiguous f32, or bf16 in bf16 mode,
-    aligned for float2 / bf16x2 loads."""
-    table = (x.float() if exact else x.to(torch.bfloat16)).contiguous()
-    if table.data_ptr() % (8 if exact else 4):
-        table = table.clone()
-    return table
+    """x as the segment-sum kernel reads it: f32, or bf16 in bf16 mode,
+    `_aligned`."""
+    return _aligned(x.float() if exact else x.to(torch.bfloat16))
 
 
 def _launch(name: str, device: torch.device, backward: bool,
@@ -535,9 +535,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# Per (device, stream handle): the segment-sum kernel's arrival counters,
-# grown to the largest launch (4 bytes per piece). The kernel leaves every
-# counter at 0, so the zero fill at allocation serves every later launch.
+# Per (device, stream handle): the arrival counters of the segment-sum
+# kernel and of P1, grown to the largest launch (4 bytes per piece). Each
+# kernel leaves every counter at 0, so the zero fill at allocation serves
+# every later launch.
 # Two launches must never share counters while both run: launches on one
 # stream run one after the other, and a handle names one stream for as long
 # as the process runs, since PyTorch never destroys the streams it makes
@@ -548,10 +549,11 @@ def _sm_count(index: int) -> int:
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _segsum_counters(device: torch.device, stream: int,
-                     pieces: int) -> torch.Tensor:
+def _arrival_counters(device: torch.device, stream: int,
+                      pieces: int) -> torch.Tensor:
     """At least `pieces` zeroed arrival counters for launches on `stream`,
-    the handle of `device`'s current stream."""
+    the handle of `device`'s current stream (the segment-sum kernel's, one
+    per piece, and P1's, `probes.gather_sum`, the first one)."""
     key = (device.index, stream)
     counters = _COUNTERS.get(key)
     if counters is None or counters.numel() < pieces:
@@ -590,7 +592,7 @@ def _launch_segsum(table: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     scratch = torch.empty(max(1, sched.scratch_floats), dtype=torch.float32,
                           device=device)
-    counters = _segsum_counters(device, stream, sched.pieces)
+    counters = _arrival_counters(device, stream, sched.pieces)
     x = table.data_ptr() + row0 * d * table.element_size()
     args = (src.data_ptr(), ptr.data_ptr(), out.data_ptr(), num_tgt, d,
             scratch.data_ptr(), counters.data_ptr(), sched.blocks)
@@ -649,6 +651,82 @@ def ring_bucket_accumulate_plain(acc: torch.Tensor, x: torch.Tensor,
                                     weights=w)
 
 
+# The SDDMM kernel's schedule (csrc/sddmm.cu, which `_build` compiles with
+# these numbers): a launch's slots are cut into spans of SDDMM_SPAN, one per
+# lane group; a group scores SDDMM_BATCH edges at a time (that many row
+# loads of x in flight); blocks of SDDMM_WARPS_PER_BLOCK warps, at most
+# SDDMM_BLOCKS_PER_SM per SM (the kernel's launch bound, so that they fit),
+# walk the spans with a stride.
+SDDMM_SPAN = 64
+SDDMM_BATCH = 4
+SDDMM_WARPS_PER_BLOCK = 8
+SDDMM_BLOCKS_PER_SM = 4
+LANE_BYTES = 16          # the widest load a lane makes
+
+
+@dataclasses.dataclass(frozen=True)
+class SddmmSchedule:
+    vec: int             # values of a row each lane loads (16 bytes of
+    #                      an f32 row where d allows)
+    lanes: int           # lanes per row, a power of two <= 32
+    rows_per_instruction: int  # 32 // lanes: rows one warp load fetches
+    chunks: int          # passes over the columns: ceil(d / (vec * lanes))
+    spans: int           # lane groups' spans of SDDMM_SPAN slots
+    blocks: int          # the grid
+
+
+def lane_layout(d: int, elem_bytes: int) -> tuple[int, int, int]:
+    """(vec, lanes, chunks) of a row of d values of `elem_bytes` each, for
+    tables 16-byte aligned: vec, the most values a lane loads in one load
+    of at most LANE_BYTES that divides d (d even: at least 2); lanes, the
+    power of two <= 32 that covers d / vec; chunks, the passes that take."""
+    vec = next(v for v in (8, 4, 2) if v * elem_bytes <= LANE_BYTES
+               and d % v == 0)
+    per_row = d // vec
+    lanes = min(32, 1 << (per_row - 1).bit_length())
+    return vec, lanes, -(-per_row // lanes)
+
+
+def sddmm_schedule(num_slots: int, d: int, sm_count: int) -> SddmmSchedule:
+    """The lane layout and grid of one SDDMM launch over num_slots =
+    len(src) slots of d-wide rows. The layout is an f32 row's in both
+    modes: the kernel reads f32 tables (bf16 mode rounds them in
+    registers). Nothing of the plan is read; the grid's size changes no
+    score."""
+    if d <= 0 or d % 2:
+        raise ValueError(f"d must be even and > 0, got {d}")
+    vec, lanes, chunks = lane_layout(d, 4)
+    rows = 32 // lanes
+    spans = -(-num_slots // SDDMM_SPAN)
+    warps = -(-spans // rows)
+    blocks = max(1, min(sm_count * SDDMM_BLOCKS_PER_SM,
+                        -(-warps // SDDMM_WARPS_PER_BLOCK)))
+    return SddmmSchedule(vec=vec, lanes=lanes, rows_per_instruction=rows,
+                         chunks=chunks, spans=spans, blocks=blocks)
+
+
+def sddmm_row_loads(tgt: torch.Tensor, n_edges: int) -> int:
+    """The rows of y one K5 pass over the columns loads for a plan whose
+    first n_edges slots are its real edges: one per run of equal targets
+    within a span of SDDMM_SPAN slots (the first real edge of a span, or
+    an edge whose target differs from the edge before it). Host-side, for
+    the tests and chip_smoke.py's records; the kernel never calls it."""
+    if n_edges <= 0:
+        return 0
+    t = tgt[:n_edges]
+    fresh = torch.ones(n_edges, dtype=torch.bool, device=t.device)
+    fresh[1:] = t[1:] != t[:-1]
+    fresh[::SDDMM_SPAN] = True
+    return int(fresh.sum())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with its data LANE_BYTES-aligned (a copy only where
+    the view is not), as the kernels' widest lanes read it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % LANE_BYTES else t
+
+
 def sddmm_apply(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
                 tgt: torch.Tensor, ptr: torch.Tensor,
                 exact: bool = True) -> torch.Tensor:
@@ -676,15 +754,20 @@ def _sddmm(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
                          f"{tuple(x.shape)} on {x.device}")
     if tgt.numel() != src.numel():
         raise ValueError(f"tgt has {tgt.numel()} slots, src {src.numel()}")
-    xt, yt = _kernel_table(x, exact), _kernel_table(y, exact)
-    slots = src.numel()
+    # f32 tables in both modes: bf16 mode rounds them to bf16 as it reads
+    # them (no cast kernel); a bf16 table is widened exactly, and rounding
+    # it again changes nothing
+    xt = _aligned(x.float())
+    yt = _aligned(y.float())
+    slots, d = src.numel(), x.shape[1]
     out = torch.empty(slots, dtype=torch.float32, device=x.device)
     if slots == 0:
         return out
+    sched = sddmm_schedule(slots, d, _sm_count(x.device.index))
     _launch(f"sddmm_{'f32' if exact else 'bf16'}", x.device, backward,
             xt.data_ptr(), yt.data_ptr(), src.data_ptr(), tgt.data_ptr(),
-            ptr.data_ptr(), out.data_ptr(), ptr.numel() - 1, slots,
-            x.shape[1])
+            ptr.data_ptr(), out.data_ptr(), ptr.numel() - 1, slots, d,
+            sched.vec, sched.lanes, sched.chunks, sched.blocks)
     return out
 
 

@@ -1,9 +1,12 @@
 """The CUDA kernels on the card against their plain versions: the
 segment-sum (K1) forward and backward, its weighted mode (K2), its
 accumulating (K3) and row-folded (K4) modes on sharded and sliced plans,
-the SDDMM (K5) with both autograd Functions, the ring buckets (K6)
-over a one-card mesh of four ranks with their backward, and the probes
-(P1, the row gather, in every template mode; P2, the ablated
+the SDDMM (K5) with both autograd Functions (also on a 10,000-edge
+target row; its bf16 rounding in registers held bit for bit against
+tables cast first; one CUDA kernel per call; independent of the grid),
+the ring buckets (K6) over a one-card mesh of four ranks with their
+backward, and the probes (P1, the row gather, in every template mode,
+one CUDA kernel per call, independent of the grid; P2, the ablated
 segment-sum); the segment-sum kernel's edge-balanced schedule in every
 mode on the plans that stress it (one row with every edge, rows ending on
 piece boundaries, mostly empty rows, a shard's and a slice's plan), with
@@ -955,3 +958,180 @@ def test_balanced_schedule_does_not_depend_on_the_grid(dev, monkeypatch):
                                src, ptr, base)[0]
         torch.cuda.synchronize()
         assert torch.equal(got, full[m]), m
+
+
+# -- K5 and P1 on their Hopper schedules ------------------------------------------
+
+def _hot_row_plans(dev, side):
+    """Both directions' plans of one interval in which user 3 holds 10,000
+    edges (a u-plan row that crosses ~157 spans of SDDMM_SPAN slots) and
+    the other rows runs of every length, with pad slots; the "i" side's
+    targets hold one or two edges each. (cpu plans, card plans) as
+    `test_weighted_functions_backward_match_plain` takes them."""
+    import dataclasses
+
+    import scipy.sparse as sp
+
+    from sagnn_tpu_torch.config import ModelConfig
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+    from sagnn_tpu_torch.models.selfgnn import graphs_to_device
+
+    rng = np.random.default_rng(9)
+    n_u, n_i = 500, 12_000
+    rows = np.concatenate([np.full(10_000, 3), rng.integers(0, n_u, 15_000)])
+    cols = np.concatenate([np.arange(10_000), rng.integers(0, n_i, 15_000)])
+    m = sp.coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(n_u, n_i))
+    cfg = dataclasses.replace(ModelConfig(), edge_norm="mean")
+    gb = compile_interval_graphs([m])
+    other = "i" if side == "u" else "u"
+    plans = []
+    for where in ("cpu", dev):
+        g = graphs_to_device(gb, where, cfg, [m])
+        plans.append(tuple(g[k][0] for k in (
+            f"{side}_src", f"{side}_tgt", f"{side}_ptr", f"{other}_src",
+            f"{other}_ptr", f"{other}_from_{side}")))
+    return plans
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("side", ["u", "i"])
+def test_sddmm_hot_row_and_crossing_runs(dev, exact, side):
+    """K5 on a plan with a 10,000-edge target row whose run crosses many
+    spans (u) or with one- and two-edge runs (i): forward, and through
+    SpmmWeightedFunction (dw) and SddmmFunction, against the CPU's plain
+    versions in f64 at K5's tolerance (rtol 1e-5, atol 1e-5 x sqrt(D) x
+    the largest |term|; the weighted sums' atol as `_tol`); pad slots
+    score 0; a second run gives the same bits."""
+    cpu, card = _hot_row_plans(dev, side)
+    n_x, n_t = cpu[4].numel() - 1, cpu[2].numel() - 1
+    n_edges, slots = int(cpu[2][-1]), cpu[0].numel()
+    assert slots > n_edges                            # pad slots
+    if side == "u":
+        assert int((cpu[2][1:] - cpu[2][:-1]).max()) >= 10_000
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn((n_x, 64), generator=gen)
+    y = torch.randn((n_t, 64), generator=gen)
+    w = torch.rand(slots, generator=gen)
+    g_out = torch.randn((n_t, 64), generator=gen)
+    g_s = torch.randn(slots, generator=gen)
+
+    def run(where, plans, dtype):
+        xs, ws, ys = (t.to(where, dtype).requires_grad_() for t in (x, w, y))
+        s0 = sc.sddmm_apply(xs.detach(), ys.detach(), plans[0], plans[1],
+                            plans[2], exact)
+        out = sc.spmm_weighted(xs, ws, *plans, exact)
+        dw = torch.autograd.grad(out, ws, g_out.to(where, dtype))[0]
+        s = sc.sddmm(xs, ys, *plans, exact)
+        dx, dy = torch.autograd.grad(s, (xs, ys), g_s.to(where, dtype))
+        return s0, dw, s, dx, dy
+
+    sc.reset_launches()
+    got = run(dev, card, torch.float32)
+    again = run(dev, card, torch.float32)
+    torch.cuda.synchronize()
+    mode = "f32" if exact else "bf16"
+    assert sc.LAUNCHES[f"sddmm_{mode}"] == 4
+    assert sc.LAUNCHES[f"sddmm_{mode}_bwd"] == 2
+    for name, a, b in zip(("s0", "dw", "s", "dx", "dy"), got, again):
+        assert torch.equal(a, b), f"{name}: two runs, different bits"
+    want = run("cpu", cpu, torch.float64)
+    atol5 = 1e-5 * 8.0 * float(x.abs().max()) * max(float(y.abs().max()),
+                                                    float(g_out.abs().max()))
+    for name, a, b in zip(("s0", "dw", "s"), got, want):
+        torch.testing.assert_close(a.cpu().double(), b.detach().double(),
+                                   rtol=1e-5, atol=atol5, msg=name)
+        assert not a[n_edges:].any(), f"{name}: pad slots score 0"
+    for name, a, b, tbl, p in (("dx", got[3], want[3], y, cpu[4]),
+                               ("dy", got[4], want[4], x, cpu[2])):
+        torch.testing.assert_close(
+            a.cpu().double(), b.detach().double(),
+            **_tol(p, tbl * float(g_s.abs().max())), msg=name)
+
+
+@pytest.mark.parametrize("d", [2, 16, 64, 96, 130])
+def test_sddmm_bf16_rounds_f32_tables_in_registers(dev, d):
+    """bf16 mode on f32 tables (rounded as the kernel reads them) gives the
+    bits it gives on the same tables cast to bf16 beforehand (which the
+    wrapper widens back to f32, exactly), either or both: the kernel's
+    rounding is `.to(torch.bfloat16)`'s."""
+    src, ptr = _graph(1000, 700, 20_003, 41, seed=d, skew=True)
+    tgt = torch.repeat_interleave(torch.arange(1000),
+                                  (ptr[1:] - ptr[:-1]).long())
+    tgt = torch.cat([tgt, torch.full((41,), 1000)]).to(torch.int32)
+    gen = torch.Generator().manual_seed(d)
+    x = torch.randn((700, d), generator=gen).to(dev)
+    y = torch.randn((1000, d), generator=gen).to(dev)
+    plan = [t.to(dev) for t in (src, tgt, ptr)]
+    bx, by = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    rounded = sc.sddmm_apply(x, y, *plan, exact=False)
+    for xt, yt in ((bx, by), (bx, y), (x, by)):
+        assert torch.equal(sc.sddmm_apply(xt, yt, *plan, exact=False),
+                           rounded)
+
+
+def test_sddmm_does_not_depend_on_the_grid(dev, monkeypatch):
+    """The grid only spreads the spans: on a one-SM card (at most
+    SDDMM_BLOCKS_PER_SM blocks) K5 gives the full grid's bits."""
+    src, ptr = _graph(1000, 700, 60_000, 41, seed=3, skew=True)
+    tgt = torch.repeat_interleave(torch.arange(1000),
+                                  (ptr[1:] - ptr[:-1]).long())
+    tgt = torch.cat([tgt, torch.full((41,), 1000)]).to(torch.int32)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((700, 64), generator=gen).to(dev)
+    y = torch.randn((1000, 64), generator=gen).to(dev)
+    plan = [t.to(dev) for t in (src, tgt, ptr)]
+    full = [sc.sddmm_apply(x, y, *plan, exact) for exact in (True, False)]
+    monkeypatch.setattr(sc, "_sm_count", lambda index: 1)
+    assert sc.sddmm_schedule(src.numel(), 64, 1).blocks == \
+        sc.SDDMM_BLOCKS_PER_SM
+    for exact, want in zip((True, False), full):
+        assert torch.equal(sc.sddmm_apply(x, y, *plan, exact), want)
+
+
+def _cuda_kernels(fn) -> int:
+    """The CUDA kernels one call of fn launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.lower().startswith(("memset", "memcpy")))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_probe_is_one_kernel_and_grid_free(dev, monkeypatch, dtype):
+    """P1 makes one CUDA kernel per call (the last block to finish sums the
+    chunks' partials) and gives the same bits on the full grid and on a
+    one-SM card's, in each run mode."""
+    from sagnn_tpu_torch.ops import probes
+    x = torch.randn((20_000, 64), generator=torch.Generator()
+                    .manual_seed(11)).to(dtype).to(dev)
+    ids = {run: torch.from_numpy(probes.probe_ids(20_000, 300_000, run)
+                                 ).to(dev) for run in probes.RUNS}
+    full = {run: probes.gather_sum(x, ids[run], run) for run in probes.RUNS}
+    assert _cuda_kernels(lambda: probes.gather_sum(x, ids[1], 1)) == 1
+    monkeypatch.setattr(sc, "_sm_count", lambda index: 1)
+    assert probes.gather_schedule(300_000, 1, 64, 1).blocks == \
+        probes.P1_BLOCKS_PER_SM
+    for run in probes.RUNS:
+        assert torch.equal(probes.gather_sum(x, ids[run], run), full[run])
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_sddmm_is_one_kernel_per_call(dev, exact):
+    """K5 on f32 tables makes one CUDA kernel per call in both modes: bf16
+    mode rounds the tables as it reads them and casts nothing first."""
+    src, ptr = _graph(1000, 700, 20_000, 41, seed=12)
+    tgt = torch.repeat_interleave(torch.arange(1000),
+                                  (ptr[1:] - ptr[:-1]).long())
+    tgt = torch.cat([tgt, torch.full((41,), 1000)]).to(torch.int32)
+    x = torch.randn((700, 64), device=dev)
+    y = torch.randn((1000, 64), device=dev)
+    plan = [t.to(dev) for t in (src, tgt, ptr)]
+    assert _cuda_kernels(lambda: sc.sddmm_apply(x, y, *plan, exact)) == 1
