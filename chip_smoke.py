@@ -4,8 +4,9 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases, in this order: 1-5, 8, 9, 6, 10, 7, 11, 13, 12, 14 (any failure raises
-and the script exits non-zero; it prints no result line then):
+Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 13, 12, 17, 14
+(any failure raises and the script exits non-zero; it prints no result
+line then):
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile sagnn_tpu_torch/csrc/*.cu (segsum.cu, sddmm.cu,
                probes.cu), one nvcc per source in parallel (timed).
@@ -137,6 +138,42 @@ and the script exits non-zero; it prints no result line then):
                Each P1 record holds the CUDA kernels one call makes; its
                `schedule` log line the modelled lane layout, chunks and
                grid.
+ 15. bf16 mode — the CLI's `--bf16` (`main.build_config`: bf16 tables,
+               fusion_dtype="bf16", the stable softmax) on the gowalla
+               preset, served by a `Recommender` on phase 5's weights:
+               five encodes (12 segsum_bf16 launches each) with the same
+               bits, held against the f32 encode at JAX's bf16 bound (rtol
+               and atol 0.05) and against its reference (the bf16 tables
+               summed hop by hop in f64, then the same bf16 fusion stack)
+               within 2 bf16 ulps of the largest |value|; at keepRate 1 on
+               phase 6's batch, the step's losses against the f32 step's
+               at JAX's bound (12 + 12 launches), then 3 steps with TF1
+               Adam, finite; encode and step ms.
+ 16. per-token attention — per_token_seq_attention at gowalla width
+               (pos_length 200, 16 heads), f32 and bf16: full-catalog
+               scores of 256 test users (padded sequences) against an f64
+               plain reference of the per-token branch on the same
+               encodings; 3 steps with TF1 Adam at keepRate 1 on phase 6's
+               batch (12 + 12 K1 launches each), finite; ms.
+ 17. flagship bf16_b4096 — scripts/bench_1m.py's bf16_b4096 recipe
+               (batch 4096, remat, fusion_chunk_rows 32,768, bf16 fusion,
+               stable softmax, bf16 tables, no fold) on phase 12's bundle
+               through a `Trainer`: the encode (84 segsum_acc_bf16
+               launches); four synchronised steps at keepRate 0.5 (168 +
+               84 K3 bf16 launches each), finite, with the peak device
+               memory, and a profiler pass over two more; the bf16
+               stream's `chunked_topk` (top 10 of 786,432 for 256 users)
+               against the exact f32 one: its scores the f32 scores of its
+               ids (rtol 1e-6), each at least the exact k-th score less
+               the bf16 stream's rounding bound (`check_bf16_selection`),
+               both timed; a streamed full-sort evaluation of the 4,096
+               test users.
+ 18. TF1 import — tests/fixtures/tf_reference_tiny.npz (the executed TF1
+               reference) through the port's `npz_getter` and
+               `map_reference_params`, served by a `Recommender` on the
+               card: the test batch's candidate scores against the
+               reference's (rtol 1e-4, atol 1e-5), HR exact, NDCG rtol
+               1e-6; `Trainer.load_imported_params` and one finite step.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -232,6 +269,26 @@ FULL_SORT_CUT_ITEMS = 100_000
 PROBES_SOURCE = "sagnn_tpu_torch/csrc/probes.cu"
 P1_REPLACES = "scripts/probe_dma_gather.py:149"
 P2_REPLACES = "scripts/probe_overhead.py:122"
+# phases 15-18, the throughput mode and the TF1 import. A bf16 fusion
+# stack against the f32 one: the JAX package's own bound
+# (tests/test_variants.py:287-310)
+BF16_FUSION_RTOL = BF16_FUSION_ATOL = 0.05
+# the --bf16 encode against its reference (the bf16 tables summed in f64
+# hop by hop, then the same bf16 fusion stack), in bf16 ulps of the
+# largest |value| (`bf16_ulps`); the per-token branch in bf16 against its
+# f64 reference, in bf16 ulps of the largest |score|
+BF16_REF_ULPS = 2.0
+PER_TOKEN_BF16_ULPS = 8.0
+# the per-token branch in f32 against its f64 reference: rtol, and atol
+# as a share of the largest |score|
+PER_TOKEN_RTOL, PER_TOKEN_ATOL_SHARE = 1e-4, 1e-5
+TRAIN_STEPS_NEW = 3         # steps of the --bf16 and per-token models
+FLAGSHIP_BF16_STEPS = 4     # timed bf16_b4096 Trainer steps
+# the bf16 stream's top-k: returned scores are the f32 scores of the
+# returned ids (rtol 1e-6); each is at least the exact k-th score less the
+# stream's rounding bound (`check_bf16_selection`)
+TOPK_RERANK_RTOL = 1e-6
+TF1_FIXTURE = "tests/fixtures/tf_reference_tiny.npz"
 
 
 def log(*a):
@@ -2707,7 +2764,7 @@ def full_sort_tie_check(trainer, n_items, device) -> dict:
     return out
 
 
-def flagship_phase(device) -> tuple[dict, dict, dict]:
+def flagship_phase(device) -> tuple[dict, dict, dict, object]:
     """The 1M-user flagship through the entry points: the bundle of
     scripts/bench_1m.py, a `Trainer` with the exact_b512 recipe (auto
     shard rows resolved to FLAGSHIP_SHARD_ROWS, sharded plans attached),
@@ -2723,7 +2780,8 @@ def flagship_phase(device) -> tuple[dict, dict, dict]:
     timed, with the device's peak memory, and a profiler pass over two
     more; the Trainer's full-sort evaluation of every test user (streamed
     over the catalog) and `full_sort_tie_check` on a cut catalog. Returns
-    (results, records, interval 0's CSR plans for phase 14)."""
+    (results, records, interval 0's CSR plans for phase 14, the bundle for
+    phase 17)."""
     import torch
     from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
     from sagnn_tpu_torch.models import selfgnn
@@ -3009,7 +3067,7 @@ def flagship_phase(device) -> tuple[dict, dict, dict]:
     hops0 = {k: trainer.graphs[k][:1].clone()
              for k in ("u_src", "u_ptr", "i_src", "i_ptr")}
     shutil.rmtree(root, ignore_errors=True)
-    return out, records, hops0
+    return out, records, hops0, bundle
 
 
 def p1_kernels_per_call(device) -> dict:
@@ -3192,6 +3250,527 @@ def probes_phase(gowalla, flagship, p1_kernels, device
                 f"{sp[mode]['i']['p2_ns_per_edge_longest']:.1f} ns per edge,"
                 f" K1 {sp[mode]['i']['k1_ns_per_edge_longest']:.1f}")
     return result, records
+
+
+def bf16_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of max |want| (one ulp: 2^(floor(log2
+    max|want|) - 7)); inf where got is not finite."""
+    import torch
+    got, want = got.double(), want.double()
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+    return float((got - want).abs().max()) / ulp
+
+
+def check_ulps(got, want, bound, what) -> float:
+    """Fails unless got is within `bound` bf16 ulps of max|want|; logs the
+    ulps and the share of elements that differ at all."""
+    ulps = bf16_ulps(got, want)
+    differ = float((got.double() != want.double()).float().mean())
+    check(ulps <= bound, f"{what}: {ulps:.2f} bf16 ulps of max|value| "
+          f"(bound {bound})")
+    log(f"  {what}: {ulps:.2f} bf16 ulps of max|value| (bound {bound}); "
+        f"{differ:.4f} of the elements differ")
+    return ulps
+
+
+def bf16_stream_error(q, table, ids):
+    """A bound on |bf16 stream score - exact score| of items `ids` [B, k]
+    for queries q [B, D]: rounding q and a row to bf16 (2^-9 relative
+    each) moves each product q_i t_i by at most (2^-8 + 2^-18)|q_i t_i|,
+    the f32 sum adds less than 2^-18 of sum |q_i t_i| at D = 64, and the
+    score rounds to bf16 (2^-9 relative): 2^-8 (1.01 sum |q_i t_i| + |s|)
+    bounds it."""
+    import torch
+    rows = table[ids].double()
+    qd = q.double()[:, None, :]
+    return 2.0 ** -8 * (1.01 * (qd.abs() * rows.abs()).sum(-1)
+                        + (qd * rows).sum(-1).abs())
+
+
+def check_bf16_selection(q, table, got_v, got_i, want_v, want_i, what
+                         ) -> float:
+    """A bf16 stream's top-k against the exact one: each returned item's
+    exact score is at least the exact k-th score less its own stream
+    error bound and the largest of the exact top k's (an item is chosen
+    over a missing top-k item only where its stream score is at least
+    that item's). Logs what share of the returned scores also meet
+    tests/test_recommend.py's tighter bound, the exact score at the same
+    place less 2^-8 |v| + 1e-6, which two items tied in the bf16 stream
+    (one ulp, up to 2^-7 |v| apart) can miss, JAX's own top-k too. Returns
+    the largest shortfall (<= 0)."""
+    e_got = bf16_stream_error(q, table, got_i)
+    e_top = bf16_stream_error(q, table, want_i).max(1, keepdim=True).values
+    kth = want_v[:, -1:].double()
+    short = float((kth - e_got - e_top - got_v.double()).max())
+    check(short <= 0.0, f"{what}: a returned score {short:.3e} below the "
+          "exact k-th less the bf16 rounding bound")
+    tight = float((got_v >= want_v - (want_v.abs() * 2.0 ** -8 + 1e-6))
+                  .float().mean())
+    log(f"  {what}: every score within the bf16 rounding bound of the "
+        f"exact k-th (largest shortfall {short:.3e}, mean bound "
+        f"{float((e_got + e_top).mean()):.3e}); {tight:.4f} of them within "
+        f"2^-8 |v| + 1e-6 of the exact score at their place")
+    return short
+
+
+def adam_steps(model, leaves, graphs, batch, tc, n) -> list:
+    """n training steps of `model` on one batch at keep_rate 1: the whole
+    loss, its gradient and a TF1-Adam update of `leaves` in place; the
+    losses of each step, checked finite with finite gradients."""
+    import torch
+    from sagnn_tpu_torch.train.optim import TF1Adam
+
+    opt = TF1Adam(tc.lr, tc.decay, tc.decay_step)
+    state = opt.init(leaves)
+    out = []
+    for i in range(n):
+        pre, ssl, grads = loss_and_grads(model, leaves, graphs, batch, tc)
+        check(bool(torch.isfinite(pre)) and bool(torch.isfinite(ssl))
+              and all(bool(torch.isfinite(g).all())
+                      for g in grads.values()),
+              f"step {i}: finite losses and gradients")
+        opt.step(leaves, grads, state)
+        out.append({"preLoss": float(pre), "sslloss": float(ssl)})
+    return out
+
+
+def bf16_mode_phase(f32_cfg, bundle, params, f32_encoding, batch, device
+                    ) -> dict:
+    """15. The --bf16 model at gowalla width: its config built by the CLI's
+    `build_config` from `--data gowalla --bf16` (spmm_exact=False,
+    fusion_dtype="bf16", stable_softmax), served by a `Recommender` on
+    phase 5's weights. Five encodes (12 segsum_bf16 launches each), bit
+    for bit the same; the encode against the f32 encode at JAX's bf16
+    bound and against its reference (the bf16 tables summed hop by hop in
+    f64, then the same bf16 fusion stack) within BF16_REF_ULPS; at
+    keepRate 1 on phase 6's batch, the step's losses against the f32
+    step's at JAX's bound (12 + 12 launches), then TRAIN_STEPS_NEW steps
+    with TF1 Adam, finite; encode and step ms."""
+    import torch
+    from sagnn_tpu_torch import main as cli
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.serve import Recommender
+
+    cfg = cli.build_config(cli.parse_args(
+        ["--data", "gowalla", "--bf16", "--spmm_backend", "pallas",
+         "--seed", str(PARAM_SEED)]))
+    mc, tc = cfg.model, cfg.train
+    check((mc.spmm_exact, mc.fusion_dtype, mc.stable_softmax)
+          == (False, "bf16", True), "--bf16 sets the throughput mode")
+    check(dataclasses.replace(mc, spmm_exact=True, fusion_dtype="f32",
+                              stable_softmax=False) == f32_cfg.model,
+          "--bf16 changes nothing else")
+    nu, ni = bundle.num_users, bundle.num_items
+    hops = mc.graph_num * mc.gnn_layer * 2
+    out = {"card": gpu_name_and_power()}
+    rec = Recommender(cfg, bundle, params, device=device)
+    sc.reset_launches()
+    fu, fi = rec.encode()
+    torch.cuda.synchronize()
+    out["launches_encode"] = dict(sc.LAUNCHES)
+    expect_launches(out["launches_encode"], "--bf16 encode",
+                    segsum_bf16=hops)
+    check(fu.dtype == fi.dtype == torch.float32
+          and fu.shape == (nu, 64) and fi.shape == (ni, 64),
+          "--bf16 encoding shapes and dtype")
+    first = torch.cat([fu, fi])
+    for i in range(4):
+        check(torch.equal(torch.cat(rec.encode()), first),
+              f"--bf16 encode {i + 2} of 5: the first encode's bits")
+    log("  --bf16 encode: 5 encodes, the same bits")
+    f32_fu, f32_fi = f32_encoding
+    out["dev_from_f32"] = max(
+        check_close(fu, f32_fu, BF16_FUSION_RTOL, BF16_FUSION_ATOL,
+                    "--bf16 final_user vs the f32 encode"),
+        check_close(fi, f32_fi, BF16_FUSION_RTOL, BF16_FUSION_ATOL,
+                    "--bf16 final_item vs the f32 encode"))
+    with torch.no_grad():
+        uv_ref, iv_ref = bf16_propagation_reference(
+            rec.params, rec.graphs, mc, nu, ni)
+        ru, ri = selfgnn._temporal_fusion(rec.params, uv_ref.float(),
+                                          iv_ref.float(), mc)
+    del uv_ref, iv_ref
+    out["ulps_vs_reference"] = max(
+        check_ulps(fu, ru, BF16_REF_ULPS, "--bf16 final_user vs reference"),
+        check_ulps(fi, ri, BF16_REF_ULPS, "--bf16 final_item vs reference"))
+    out["encode_ms"] = cuda_ms(rec.encode, iters=5, warmup=1)
+
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    bf = selfgnn.SelfGNN(dataclasses.replace(mc, keep_rate=1.0), nu, ni)
+    f32 = selfgnn.SelfGNN(dataclasses.replace(f32_cfg.model, keep_rate=1.0),
+                          nu, ni)
+    sc.reset_launches()
+    pre, ssl, grads = loss_and_grads(bf, leaves, rec.graphs, batch, tc)
+    torch.cuda.synchronize()
+    out["launches_step"] = dict(sc.LAUNCHES)
+    expect_launches(out["launches_step"], "--bf16 step", segsum_bf16=hops,
+                    segsum_bf16_bwd=hops)
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "--bf16 step gradients finite")
+    pre32, ssl32, _ = loss_and_grads(f32, leaves, rec.graphs, batch, tc)
+    check_close(pre.reshape(1), pre32.reshape(1), BF16_FUSION_RTOL, 0.0,
+                "--bf16 step preLoss vs the f32 step's")
+    check_close(ssl.reshape(1), ssl32.reshape(1), BF16_FUSION_RTOL, 0.0,
+                "--bf16 step sslloss vs the f32 step's")
+    out["losses_vs_f32"] = {"preLoss": [float(pre), float(pre32)],
+                            "sslloss": [float(ssl), float(ssl32)]}
+    del grads
+    for name, model in (("step", bf), ("f32_step", f32)):
+        out[f"{name}_ms"] = cuda_ms(lambda: loss_and_grads(
+            model, leaves, rec.graphs, batch, tc), iters=3, warmup=1)
+        out[f"{name}_device_ms"] = step_device_ms(lambda: loss_and_grads(
+            model, leaves, rec.graphs, batch, tc))
+    out["step_losses"] = adam_steps(bf, leaves, rec.graphs, batch, tc,
+                                    TRAIN_STEPS_NEW)
+    log(f"--bf16 gowalla ({out['card']}): encode {out['encode_ms']:.3f} "
+        f"ms; step "
+        f"{out['step_ms']:.3f} ms, device {out['step_device_ms']} ms (f32 "
+        f"step {out['f32_step_ms']:.3f} ms, device "
+        f"{out['f32_step_device_ms']} ms); {TRAIN_STEPS_NEW} Adam steps, "
+        f"losses " + ", ".join(f"{x['preLoss']:.4f}"
+                               for x in out["step_losses"]))
+    return out
+
+
+def step_device_ms(step, n: int = 3) -> float | None:
+    """The device time of one call of `step` (torch.profiler over n calls,
+    `profiled_ms`); None where the profiler saw no device events."""
+    _wall, by_name = profiled_ms(step, n)
+    return sum(by_name.values()) if by_name else None
+
+
+def per_token_phase(cfg, bundle, params, graphs, batch, device) -> dict:
+    """16. Per-token sequence attention at gowalla width (pos_length 200,
+    16 heads), in f32 and in bf16 (fusion_dtype): the full-catalog scores
+    of SERVE_USERS test users, whose sequences are padded, against an f64
+    plain reference of the per-token branch on the same encodings (the
+    head q = final_user + leakyReLU(att_user) and its scores in f64);
+    TRAIN_STEPS_NEW steps with TF1 Adam at keepRate 1 on phase 6's batch,
+    finite; score and step ms."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch.data.sampler import user_sequences
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.models.layers import leaky_relu
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    nu, ni = bundle.num_users, bundle.num_items
+    hops = cfg.model.graph_num * cfg.model.gnn_layer * 2
+    users = np.asarray(bundle.tst_usrs[:SERVE_USERS])
+    seq, mask = user_sequences(bundle, users, cfg.model.pos_length)
+    check(bool((mask == 0).any()) and bool((mask.sum(1) > 0).all()),
+          "per-token requests: padded, non-empty sequences")
+    uid, seq_t, mask_t = (torch.from_numpy(a).to(device)
+                          for a in (users, seq, mask))
+    p64 = {k: v.detach().double() for k, v in params.items()}
+    out = {"card": gpu_name_and_power()}
+    for dtype in ("f32", "bf16"):
+        mc = dataclasses.replace(cfg.model, per_token_seq_attention=True,
+                                 fusion_dtype=dtype)
+        check((mc.pos_length, mc.num_heads) == (200, 16),
+              "per-token widths")
+        model = selfgnn.SelfGNN(mc, nu, ni)
+        fu, fi, _, _ = model.encode(params, graphs)
+        scores = model.score_all_items(params, fu, fi, uid, seq_t, mask_t)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            att64 = selfgnn._sequence_branch(
+                p64, fi.double(), seq_t, mask_t.double(),
+                dataclasses.replace(mc, fusion_dtype="f32"))
+            q64 = fu[uid.long()].double() + leaky_relu(att64, mc.leaky)
+            want = q64 @ fi.double().T
+        rec = {}
+        if dtype == "f32":
+            scale = float(want.abs().max())
+            rec["max_abs_err"] = check_close(
+                scores, want, PER_TOKEN_RTOL, PER_TOKEN_ATOL_SHARE * scale,
+                "per-token f32 scores vs the f64 reference")
+        else:
+            rec["ulps"] = check_ulps(scores, want, PER_TOKEN_BF16_ULPS,
+                                     "per-token bf16 scores vs the f64 "
+                                     "reference")
+        del att64, q64, want
+        rec["score_ms"] = cuda_ms(lambda: model.score_all_items(
+            params, fu, fi, uid, seq_t, mask_t), iters=5, warmup=1)
+        step_model = selfgnn.SelfGNN(dataclasses.replace(mc, keep_rate=1.0),
+                                     nu, ni)
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sc.reset_launches()
+        rec["step_losses"] = adam_steps(step_model, leaves, graphs, batch,
+                                        cfg.train, TRAIN_STEPS_NEW)
+        torch.cuda.synchronize()
+        rec["launches_steps"] = {k: v for k, v in sc.LAUNCHES.items() if v}
+        expect_launches(dict(sc.LAUNCHES), f"per-token {dtype} steps",
+                        segsum_f32=hops * TRAIN_STEPS_NEW,
+                        segsum_f32_bwd=hops * TRAIN_STEPS_NEW)
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        def step():
+            return loss_and_grads(step_model, leaves, graphs, batch,
+                                  cfg.train)
+
+        rec["step_ms"] = cuda_ms(step, iters=3, warmup=1)
+        rec["step_device_ms"] = step_device_ms(step)
+        log(f"per-token {dtype} ({out['card']}): scores of {len(users)} "
+            f"users x {ni} items "
+            f"{rec['score_ms']:.3f} ms; step {rec['step_ms']:.3f} ms, device "
+            f"{rec['step_device_ms']} ms; peak memory of the steps "
+            f"{rec['peak_memory_gb']:.2f} GB; losses "
+            + ", ".join(f"{x['preLoss']:.4f}" for x in rec["step_losses"]))
+        out[dtype] = rec
+        del leaves, fu, fi, scores
+    return out
+
+
+def bf16_b4096_config():
+    """scripts/bench_1m.py's bf16_b4096 recipe (`RECIPES`, :35-41) on the
+    flagship's model: batch 4096, remat_propagation, fusion_chunk_rows
+    32,768, fusion_dtype "bf16", the stable softmax and bf16 tables; no
+    spmm_fold_gather."""
+    cfg = flagship_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, fusion_chunk_rows=32_768,
+                                  fusion_dtype="bf16", stable_softmax=True,
+                                  spmm_exact=False, spmm_fold_gather=False),
+        train=dataclasses.replace(cfg.train, batch=4096))
+
+
+def flagship_bf16_phase(bundle, device) -> dict:
+    """17. The flagship's bf16_b4096 recipe on phase 12's bundle: a
+    `Trainer` (shard rows resolved to FLAGSHIP_SHARD_ROWS); the encode
+    (84 segsum_acc_bf16 launches), finite; FLAGSHIP_BF16_STEPS
+    synchronised `train_step`s at keepRate 0.5 (K3 bf16 launches counted:
+    forward, recompute, backward), finite, with the peak device memory,
+    then a profiler pass over two more (device time, busy share); the
+    bf16 stream's `chunked_topk` for SERVE_USERS users, top 10 of the
+    catalog, against the exact f32 one (TOPK_RERANK_RTOL and
+    `check_bf16_selection`), both timed; a streamed full-sort evaluation
+    of the test users."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch.data.sampler import user_sequences
+    from sagnn_tpu_torch.models.selfgnn import chunked_topk
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.ops.chunking import AUTO_CHUNK_ROWS
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    cfg = bf16_b4096_config()
+    tc = cfg.train
+    nu, ni = bundle.num_users, bundle.num_items
+    out = {"recipe": "bf16_b4096", "batch": tc.batch,
+           "card": gpu_name_and_power()}
+    root = tempfile.mkdtemp()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, bundle, ckpt_root=root, device=device)
+    torch.cuda.synchronize()
+    out["trainer_setup_s"] = time.perf_counter() - t0
+    mc = trainer.cfg.model
+    check(mc.spmm_src_shard_rows == FLAGSHIP_SHARD_ROWS,
+          f"bf16_b4096 shard rows {mc.spmm_src_shard_rows}")
+    ss = trainer.graphs["plans_ss"]
+    per_encode = mc.graph_num * mc.gnn_layer * (ss["u_ptr"].shape[1]
+                                                + ss["i_ptr"].shape[1])
+    params = trainer.state["params"]
+    sc.reset_launches()
+    fu, fi, _, _ = trainer.model.encode(params, trainer.graphs)
+    torch.cuda.synchronize()
+    out["launches_encode"] = {k: v for k, v in sc.LAUNCHES.items() if v}
+    expect_launches(dict(sc.LAUNCHES), "bf16_b4096 encode",
+                    segsum_acc_bf16=per_encode)
+    check(fu.shape == (nu, 64) and fi.shape == (ni, 64)
+          and bool(torch.isfinite(fu).all())
+          and bool(torch.isfinite(fi).all()), "bf16_b4096 encode finite")
+    out["encode_ms"] = cuda_ms(
+        lambda: trainer.model.encode(params, trainer.graphs), iters=3,
+        warmup=1)
+    log(f"bf16_b4096 ({out['card']}): Trainer set-up "
+        f"{out['trainer_setup_s']:.1f} s; "
+        f"encode {out['encode_ms']:.2f} ms ({per_encode} K3 bf16 "
+        f"launches)")
+
+    ids = trainer.sampler.epoch_user_ids(tc.trn_num)
+    torch.cuda.synchronize()
+    # what the earlier phases still hold counts in the peak; it is logged
+    out["memory_before_steps_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_launches()
+    step_s, sample_ms, losses = [], [], []
+    for i in range(FLAGSHIP_BF16_STEPS):
+        t0 = time.perf_counter()
+        b = trainer.sampler.train_batch(ids[i * tc.batch:(i + 1) * tc.batch])
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        b = b.to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = trainer.train_step(b)
+        losses.append({k: float(v) for k, v in stats.items()})
+        step_s.append(time.perf_counter() - t0)
+    out["launches_steps"] = {k: v for k, v in sc.LAUNCHES.items() if v}
+    expect_launches(dict(sc.LAUNCHES), "bf16_b4096 Trainer steps",
+                    segsum_acc_bf16=2 * per_encode * FLAGSHIP_BF16_STEPS,
+                    segsum_acc_bf16_bwd=per_encode * FLAGSHIP_BF16_STEPS)
+    check(all(math.isfinite(v) for x in losses for v in x.values()),
+          "bf16_b4096 Trainer losses finite")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()),
+          "bf16_b4096 params finite after the steps")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["trainer_step_s"] = step_s
+    out["trainer_losses"] = losses
+    out["host_sample_ms"] = sample_ms
+    out["profile"] = profile_steps(lambda: trainer.train_step(b), n=2)
+    log(f"bf16_b4096 Trainer steps ({out['card']}; batch {tc.batch}, "
+        f"keepRate "
+        f"{mc.keep_rate}): " + ", ".join(f"{x:.3f}" for x in step_s)
+        + f" s; peak device memory {out['peak_memory_gb']:.2f} GB (of it "
+        f"{out['memory_before_steps_gb']:.2f} GB held before the steps); "
+        f"host sampling {sum(sample_ms) / len(sample_ms):.1f} ms per batch")
+
+    # serving: the bf16 stream's top-k against the exact one
+    users = np.asarray(bundle.tst_usrs[:SERVE_USERS])
+    seq, mask = user_sequences(bundle, users, mc.pos_length)
+    with torch.no_grad():
+        fu, fi, _, _ = trainer.model.encode(params, trainer.graphs)
+        q = trainer.model.serving_queries(
+            params, fu, fi, *(torch.from_numpy(a).to(device)
+                              for a in (users, seq, mask)))
+
+        def exact():
+            return chunked_topk(q, fi, ni, 10, AUTO_CHUNK_ROWS)
+
+        def stream():
+            return chunked_topk(q, fi, ni, 10, AUTO_CHUNK_ROWS,
+                                score_dtype=torch.bfloat16)
+
+        want_v, want_i = exact()
+        got_v, got_i = stream()
+        rescored = torch.einsum("bd,bkd->bk", q, fi[got_i])
+    check(got_v.dtype == torch.float32 and got_v.shape == (len(users), 10)
+          and bool((got_v[:, :-1] >= got_v[:, 1:]).all()),
+          "bf16 top-k: f32, sorted")
+    out["topk_rerank_err"] = check_close(
+        got_v, rescored, TOPK_RERANK_RTOL, 0.0,
+        "bf16 top-k scores vs the f32 scores of its ids")
+    out["topk_short_of_bound"] = check_bf16_selection(
+        q, fi, got_v, got_i, want_v, want_i, "bf16_b4096 top-k")
+    same = float(sum(len(set(a) & set(b)) for a, b in zip(
+        got_i.tolist(), want_i.tolist())) / got_i.numel())
+    out["topk_same_ids_share"] = same
+    out["topk_exact_ms"] = cuda_ms(exact, iters=5, warmup=1)
+    out["topk_bf16_ms"] = cuda_ms(stream, iters=5, warmup=1)
+    log(f"bf16_b4096 top-10 of {ni} for {len(users)} users ({out['card']})"
+        f": exact f32 "
+        f"{out['topk_exact_ms']:.3f} ms, bf16 stream + rerank "
+        f"{out['topk_bf16_ms']:.3f} ms; {same:.4f} of the ids the exact "
+        f"ones")
+    del fu, fi, q
+    t0 = time.perf_counter()
+    metrics = trainer.test_epoch(full_sort=True)
+    torch.cuda.synchronize()
+    out["full_sort_s"] = time.perf_counter() - t0
+    out["full_sort_users"] = len(bundle.tst_usrs)
+    out["full_sort_metrics"] = {k: metrics[k] for k in ("HR@10", "NDCG@10")}
+    for k, v in metrics.items():
+        check(math.isfinite(v) and 0.0 <= v <= 1.0,
+              f"bf16_b4096 full-sort metric {k}={v}")
+    log(f"bf16_b4096 full-sort evaluate over {out['full_sort_users']} users"
+        f" x {ni} items ({out['card']}): {out['full_sort_s']:.2f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def tf1_import_phase(device) -> dict:
+    """18. The executed TF1 reference's weights (TF1_FIXTURE) imported by
+    the port's `npz_getter` and `map_reference_params`, served by a
+    `Recommender` on the card ("pallas", K1): the candidate scores of the
+    reference's test batch against the reference's (rtol 1e-4, atol
+    1e-5), HR exact and NDCG at rtol 1e-6 (tests/test_torch_fixture.py's
+    tolerances); then `Trainer.load_imported_params` and one step, finite."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.serve import Recommender
+    from sagnn_tpu_torch.train.import_tf1 import (map_reference_params,
+                                                  npz_getter)
+    from sagnn_tpu_torch.train.metrics import topk_metrics
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    z = np.load(os.path.join(ROOT, TF1_FIXTURE))
+    fx = json.loads(bytes(z["cfg/json"]).decode())
+    mc = ModelConfig(graph_num=int(fx["graphNum"]),
+                     gnn_layer=int(fx["gnn_layer"]),
+                     att_layer=int(fx["att_layer"]), latdim=int(fx["latdim"]),
+                     num_heads=int(fx["num_attention_heads"]),
+                     ssldim=int(fx["ssldim"]),
+                     pos_length=int(fx["pos_length"]),
+                     leaky=float(fx["leaky"]), keep_rate=1.0,
+                     spmm_backend="pallas")
+    tc = TrainConfig(batch=int(fx["batch"]), samp_num=int(fx["samp_num"]),
+                     ssl_num=int(fx["sslNum"]), trn_num=int(fx["trnNum"]),
+                     test_size=int(fx["testSize"]), reg=float(fx["reg"]),
+                     ssl_reg=float(fx["ssl_reg"]), lr=float(fx["lr"]))
+    cfg = Config(model=mc, train=tc)
+    params = map_reference_params(npz_getter(z), mc)
+    bundle = synthetic_dataset(num_users=fx["num_users"],
+                               num_items=fx["num_items"],
+                               graph_num=mc.graph_num, test_size=8,
+                               seed=fx["bundle_seed"])
+    rec = Recommender(cfg, bundle, params, device=device)
+    sc.reset_launches()
+    fu, fi = rec.encode()
+    torch.cuda.synchronize()
+    out = {"card": gpu_name_and_power(),
+           "launches_encode": {k: v for k, v in sc.LAUNCHES.items() if v}}
+    expect_launches(dict(sc.LAUNCHES), "TF1 fixture encode",
+                    segsum_f32=mc.graph_num * mc.gnn_layer * 2)
+
+    def t(name):
+        return torch.from_numpy(z[name]).to(device)
+
+    scores = rec.model.score_with_encodings(
+        rec.params, fu, fi, t("tst/user_ids"), t("tst/cands"),
+        t("tst/sequence"), t("tst/mask"))
+    out["scores_max_abs_err"] = check_close(
+        scores, torch.from_numpy(z["tst/preds"]).to(device), 1e-4, 1e-5,
+        "TF1 fixture candidate scores vs the reference's")
+    m = topk_metrics(scores, ks=(5, 10, 20))
+    want = dict(zip(("HR@10", "NDCG@10", "HR@5", "NDCG@5", "HR@20",
+                     "NDCG@20"), (float(v) for v in z["tst/metrics"])))
+    for k, w in want.items():
+        got = float(m[k])
+        ok = (abs(got - w) <= 1e-9 if k.startswith("HR")
+              else abs(got - w) <= 1e-6 * abs(w))
+        check(ok, f"TF1 fixture {k}: {got} vs the reference's {w}")
+    out["metrics"] = {k: float(m[k]) for k in want}
+    log(f"TF1 fixture on the card ({out['card']}): scores within rtol 1e-4 "
+        f"/ atol 1e-5 "
+        f"(max abs err {out['scores_max_abs_err']:.3e}); HR@10 "
+        f"{out['metrics']['HR@10']:.4f}, NDCG@10 "
+        f"{out['metrics']['NDCG@10']:.6f} = the reference's")
+    root = tempfile.mkdtemp()
+    trainer = Trainer(cfg, bundle, ckpt_root=root, device=device)
+    trainer.load_imported_params(params)
+    check(all(torch.equal(trainer.state["params"][k].detach().cpu(), v)
+              for k, v in params.items()), "imported params installed")
+    ids = trainer.sampler.epoch_user_ids(tc.trn_num)
+    stats = trainer.train_step(
+        trainer.sampler.train_batch(ids[:tc.batch]).to(device))
+    out["step_losses"] = {k: float(v) for k, v in stats.items()}
+    check(all(math.isfinite(v) for v in out["step_losses"].values())
+          and trainer.state["step"] == 1, "imported Trainer step finite")
+    log(f"TF1 fixture Trainer: one step from the imported weights, losses "
+        f"{out['step_losses']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def main() -> None:
@@ -3426,6 +4005,27 @@ def drive(device) -> None:
     phase_s["variant steps"] = time.perf_counter() - t0
     log(f"phase variant steps: {phase_s['variant steps']:.1f} s")
 
+    # 15. the --bf16 throughput mode at gowalla width
+    t0 = time.perf_counter()
+    bf16_mode = bf16_mode_phase(cfg, bundle, rec.params, (fu, fi), batch,
+                                device)
+    phase_s["bf16 mode"] = time.perf_counter() - t0
+    log(f"phase bf16 mode: {phase_s['bf16 mode']:.1f} s")
+
+    # 16. per-token sequence attention at gowalla width, f32 and bf16
+    t0 = time.perf_counter()
+    per_token = per_token_phase(cfg, bundle, rec.params, rec.graphs, batch,
+                                device)
+    phase_s["per-token attention"] = time.perf_counter() - t0
+    log(f"phase per-token attention: "
+        f"{phase_s['per-token attention']:.1f} s")
+
+    # 18. the TF1 reference's weights imported, served and trained on
+    t0 = time.perf_counter()
+    tf1 = tf1_import_phase(device)
+    phase_s["tf1 import"] = time.perf_counter() - t0
+    log(f"phase tf1 import: {phase_s['tf1 import']:.1f} s")
+
     # 7. training through the Trainer: one epoch, evaluation, checkpoint,
     # resume
     t0 = time.perf_counter()
@@ -3450,10 +4050,18 @@ def drive(device) -> None:
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
     t0 = time.perf_counter()
-    flagship, frecords, flagship_hops = flagship_phase(device)
+    flagship, frecords, flagship_hops, flagship_bundle = flagship_phase(
+        device)
     records.update(frecords)
     phase_s["flagship"] = time.perf_counter() - t0
     log(f"phase flagship: {phase_s['flagship']:.1f} s")
+
+    # 17. the flagship's bf16_b4096 recipe on the same bundle
+    t0 = time.perf_counter()
+    bf16_b4096 = flagship_bf16_phase(flagship_bundle, device)
+    del flagship_bundle
+    phase_s["flagship bf16_b4096"] = time.perf_counter() - t0
+    log(f"phase flagship bf16_b4096: {phase_s['flagship bf16_b4096']:.1f} s")
 
     # 14. the probes: P1 and P2 against their plain versions, then the
     # probe CLI's measurements on both bundles' interval 0
@@ -3560,6 +4168,19 @@ def drive(device) -> None:
         records[name].update(
             launches=count.get(name, 0), launches_path=path,
             launches_per_train_step=rl[step_path].get(name, 0))
+    # this slice's paths, each counted from 0 just before it: the --bf16
+    # model (K1 bf16) and the bf16_b4096 recipe (K3 bf16, no fold)
+    records["segsum_bf16"].update(
+        launches_bf16_mode_encode=bf16_mode["launches_encode"]["segsum_bf16"],
+        launches_bf16_mode_step=bf16_mode["launches_step"]["segsum_bf16"])
+    records["segsum_bf16_bwd"].update(
+        launches_bf16_mode_step=bf16_mode["launches_step"][
+            "segsum_bf16_bwd"])
+    for name in ("segsum_acc_bf16", "segsum_acc_bf16_bwd"):
+        records[name].update(
+            launches_bf16_b4096_steps=bf16_b4096["launches_steps"][name],
+            launches_bf16_b4096_encode=bf16_b4096["launches_encode"].get(
+                name, 0))
     schedule_report(records)
     kernels = []
     for r in records.values():
@@ -3606,7 +4227,11 @@ def drive(device) -> None:
             "host_sample_ms_by_backend"], "epoch_s": {
             "native": training["epoch_s"],
             "numpy": training["epoch_s_numpy"]}},
-        "probes": probe_results}
+        "probes": probe_results, "bf16_mode": bf16_mode,
+        "per_token": per_token,
+        "bf16_b4096": {k: v for k, v in bf16_b4096.items()
+                       if k != "trainer_losses"},
+        "tf1_import": tf1}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

@@ -83,8 +83,9 @@ class ModelConfig:
     # recomputed in the backward. 0 = unchunked.
     fusion_chunk_rows: int = 0
     # compute dtype for the temporal-fusion + sequence-attention stack:
-    # "f32" | "bf16". Parity needs f32 (Q5's raw-exp attention overflows
-    # bf16). The port runs "f32" only so far (ROADMAP Queue A5).
+    # "f32" | "bf16". bf16 casts the stack's inputs and parameters per
+    # block (the f32 parameters stay the masters) and forces the stable
+    # softmax; parity needs f32 (Q5's raw-exp attention overflows bf16).
     fusion_dtype: str = "f32"  # "f32" | "bf16"
 
     @property

@@ -11,10 +11,14 @@ large-scale generator (the 1M-user flagship is `--synth_users 1048576
 --synth_items 786432 --synth_edges 60000000 --graphNum 3`).
 `--spmm_backend ring --mesh_model N` trains over a mesh of N model ranks:
 the visible cards (`--mesh_data` x N of them), or with `--device cpu` N
-ranks on the CPU. Flags of features the port does not carry yet are left
-out (supervisor, TF1 import, profiler trace, `--bf16`); config options it
-does not carry raise NotImplementedError naming the ROADMAP item that
-will.
+ranks on the CPU. `--bf16` is the throughput mode: a bf16 table for the
+segment-sum (spmm_exact=False), the fusion stack and sequence branch in
+bf16 (fusion_dtype="bf16") and the stable softmax, each unless given
+explicitly. `--import_tf1 PREFIX` starts from a reference TF1 Saver
+checkpoint (weights, Adam moments and global step; reading it needs
+tensorflow). Flags of features the port does not carry yet are left out
+(supervisor, profiler trace); config options it does not carry raise
+NotImplementedError naming the ROADMAP item that will.
 """
 
 from __future__ import annotations
@@ -48,6 +52,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--gnn_layer", type=int)
     p.add_argument("--trnNum", type=int, dest="trn_num")
     p.add_argument("--load_model")
+    p.add_argument("--import_tf1",
+                   help="prefix of a reference tf.train.Saver checkpoint "
+                        "(its Models/<save_path>) to import weights, Adam "
+                        "moments and global step from (needs tensorflow "
+                        "to read it)")
     p.add_argument("--shoot", type=int)
     p.add_argument("--keepRate", type=float, dest="keep_rate")
     p.add_argument("--tstEpoch", type=int, dest="tst_epoch")
@@ -92,7 +101,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="evaluate by ranking the positive against the full "
                         "catalog (minus the user's history) instead of the "
                         "999-precomputed-negative protocol")
-    p.add_argument("--fusion_dtype", choices=["f32", "bf16"])
+    p.add_argument("--fusion_dtype", choices=["f32", "bf16"],
+                   help="temporal-fusion/attention compute dtype")
+    p.add_argument("--bf16", action="store_true", default=None,
+                   help="throughput mode (non-parity): bf16 segment-sum "
+                        "table, bf16 fusion stack and the stable softmax, "
+                        "each unless given explicitly")
     p.add_argument("--fusion_chunk_rows", type=int,
                    help="run the fusion stack in node blocks of this size, "
                         "each recomputed in the backward (0 = off)")
@@ -129,10 +143,16 @@ TRAIN_KEYS = {f.name for f in dataclasses.fields(TrainConfig)}
 
 def build_config(ns: argparse.Namespace) -> Config:
     """The dataset's preset (the default Config for others) with every
-    given flag as an override."""
+    given flag as an override; `--bf16` sets spmm_exact=False,
+    fusion_dtype="bf16" and stable_softmax=True where those are not given
+    (JAX main.py:162-165)."""
     cfg = PRESETS.get(ns.data, Config())
     m_over = {k: v for k, v in vars(ns).items()
               if k in MODEL_KEYS and v is not None}
+    if ns.bf16:
+        m_over.setdefault("spmm_exact", False)
+        m_over.setdefault("fusion_dtype", "bf16")
+        m_over.setdefault("stable_softmax", True)
     t_over = {k: v for k, v in vars(ns).items()
               if k in TRAIN_KEYS and v is not None}
     return Config(
@@ -187,6 +207,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       mesh=mesh)
     trainer.debug_uid = ns.uid
     log("Model Prepared")
+    if ns.import_tf1:
+        from sagnn_tpu_torch.train.import_tf1 import import_tf1_checkpoint
+        imported = import_tf1_checkpoint(ns.import_tf1, cfg.model,
+                                         with_optimizer=True)
+        trainer.load_imported_params(**imported)
+        log(f"Imported TF1 checkpoint {ns.import_tf1} "
+            f"(global step {imported['step']})")
     trainer.run(resume=cfg.train.load_model is not None)
 
 

@@ -34,9 +34,19 @@ def tf_glorot_uniform(gen: torch.Generator, shape: Sequence[int],
     return (u * (2.0 * limit) - limit).to(device)
 
 
+def scalar_as(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype` where that is a 16-bit float type, as JAX
+    rounds a Python scalar (a weak type) to the array's dtype before a
+    bf16 op; PyTorch would apply the scalar unrounded. Other dtypes get
+    `value` as given (f32 ops round it to f32 either way)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(value, dtype=dtype))
+    return value
+
+
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     """NNLayers.py:136: maximum(leaky*data, data)."""
-    return torch.maximum(slope * x, x)
+    return torch.maximum(scalar_as(slope, x.dtype) * x, x)
 
 
 def l2_sum(tensors: Iterable[torch.Tensor]) -> torch.Tensor:

@@ -13,15 +13,21 @@ Quirks kept (PARITY.md): Q1/Q2 unweighted propagation, Q3 pooled sequence
 branch, Q4 shared user/item LSTM, Q5 exp-attention. The opt-in variants of
 Q1/Q2 are carried too: degree-normalised edge weights (`edge_norm`),
 functional edge dropout in training (`edge_dropout_keep`) and GAT-style
-edge attention (`edge_attention`). So are the options for huge graphs:
+edge attention (`edge_attention`), and the one of Q3, masked attention
+over every token of the sequence (`per_token_seq_attention`). So are the
+options for huge graphs:
 source-sharded propagation (`spmm_src_shard_rows`), row-folded gathers
 (`spmm_fold_gather`), recomputing propagation and fusion in the backward
 (`remat_propagation`) and the node-blocked fusion with one checkpoint per
 block (`fusion_chunk_rows`). So is the "ring" backend: propagation edge-
 partitioned over a mesh's 'model' axis (`parallel/edge_partition.py`).
 
-Precision: the encode runs in f32 throughout; the entry points turn TF32
-off on the card (`device.resolve_device`).
+Precision: the encode runs in f32 throughout unless asked otherwise; the
+entry points turn TF32 off on the card (`device.resolve_device`). The
+throughput mode (`--bf16`: spmm_exact=False, fusion_dtype="bf16",
+stable_softmax) sums bf16 tables in f32 and runs the fusion stack and the
+sequence branch in bf16 with JAX's dtype rules; `chunked_topk` can select
+from a bf16 score stream and rerank the winners in f32.
 """
 
 from __future__ import annotations
@@ -223,34 +229,61 @@ def _weighted(cfg: ModelConfig) -> bool:
     return cfg.edge_norm is not None or cfg.edge_dropout_keep < 1.0
 
 
-def topk_descending(scores: torch.Tensor, k: int
+def check_recall_target(recall_target: float) -> None:
+    """recall_target must lie in (0, 1], as JAX's approx_max_k requires."""
+    if not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target={recall_target} is outside (0, 1]")
+
+
+def topk_descending(scores: torch.Tensor, k: int,
+                    recall_target: float = 1.0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over the last axis, descending (the JAX package's
-    approx_max_k at recall_target=1.0 is exact too)."""
+    """Top-k over the last axis, descending (JAX `topk_descending`,
+    selfgnn.py:126-140). JAX selects with approx_max_k, which trades
+    recall for speed on a TPU only; off the TPU it returns the exact top-k
+    at any recall_target, and so does this function (torch.topk).
+    recall_target is checked to lie in (0, 1]."""
+    check_recall_target(recall_target)
     return torch.topk(scores, k, dim=-1, largest=True, sorted=True)
 
 
 def chunked_topk(queries: torch.Tensor, item_table: torch.Tensor,
                  num_items: int, k: int, chunk_rows: int = 65_536,
+                 recall_target: float = 1.0,
                  seen_seq: Optional[torch.Tensor] = None,
-                 seen_mask: Optional[torch.Tensor] = None
+                 seen_mask: Optional[torch.Tensor] = None,
+                 score_dtype: Optional[torch.dtype] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streaming top-k over a catalog too big to score densely: score one
-    [B, chunk_rows] block at a time, top-k it, and merge into a running
-    top-k with an exact [B, 2k] merge. Exact: the global top-k is a subset
-    of the per-chunk top-ks. seen_seq/seen_mask [B, L] exclude each user's
-    own items per chunk. Returns (scores [B, k], item_ids [B, k])."""
+    """Streaming top-k over a catalog too big to score densely (JAX
+    `chunked_topk`, selfgnn.py:143-235): score one [B, chunk_rows] block
+    at a time, top-k it, and merge into a running top-k with an exact
+    [B, 2k] merge. Exact: the global top-k is a subset of the per-chunk
+    top-ks (recall_target as in `topk_descending`). seen_seq/seen_mask
+    [B, L] exclude each user's own items per chunk.
+
+    score_dtype=torch.bfloat16 casts the queries and each chunk, scores
+    and selects from the bf16 stream, then gathers the k winners' rows,
+    rescores them in f32 with the f32 queries (winners that were -inf in
+    the stream stay -inf: a catalog with fewer than k real candidates) and
+    re-sorts: quantised retrieval, exact rerank. The returned scores are
+    exact f32; the selection can differ from the exact one only where two
+    items' scores agree to bf16 resolution.
+    Returns (scores [B, k], item_ids [B, k]) descending."""
     if k > num_items:
         raise ValueError(f"k={k} > num_items={num_items}")
+    check_recall_target(recall_target)
     B = queries.shape[0]
     I = item_table.shape[0]
-    best_v = torch.full((B, k), float("-inf"), dtype=queries.dtype,
+    q_s = queries if score_dtype is None else queries.to(score_dtype)
+    best_v = torch.full((B, k), float("-inf"), dtype=q_s.dtype,
                         device=queries.device)
     best_i = torch.zeros((B, k), dtype=torch.long, device=queries.device)
     for gid0 in range(0, I, chunk_rows):
         chunk = item_table[gid0:gid0 + chunk_rows]
+        if score_dtype is not None:
+            chunk = chunk.to(score_dtype)
         width = chunk.shape[0]
-        scores = queries @ chunk.T                             # [B, width]
+        scores = q_s @ chunk.T                                 # [B, width]
         gids = gid0 + torch.arange(width, device=queries.device)
         scores = torch.where(gids[None, :] < num_items, scores,
                              torch.full_like(scores, float("-inf")))
@@ -262,7 +295,12 @@ def chunked_topk(queries: torch.Tensor, item_table: torch.Tensor,
         mi = torch.cat([best_i, gid0 + i], dim=1)
         best_v, order = torch.topk(mv, k, dim=-1)
         best_i = torch.gather(mi, 1, order)
-    return best_v, best_i
+    if score_dtype is None:
+        return best_v, best_i
+    exact = torch.einsum("bd,bkd->bk", queries, item_table[best_i])
+    exact = exact.masked_fill(torch.isneginf(best_v), float("-inf"))
+    vals, order = torch.topk(exact, k, dim=-1)
+    return vals, torch.gather(best_i, 1, order)
 
 
 def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
@@ -471,17 +509,36 @@ def _temporal_fusion(params: Params, user_vec: torch.Tensor,
     port's streams cannot match JAX's anyway, ROADMAP Queue C.) The caller
     draws the masks outside every checkpoint, because a checkpoint's
     recompute restores only the default generators and would draw other
-    masks from an explicit generator."""
-    lstm_p = sub(params, "free/lstm")
+    masks from an explicit generator.
+
+    fusion_dtype="bf16" runs the stack in bf16 (JAX selfgnn.py:572-653):
+    the LSTM, MHSA and layer-norm parameters are cast to bf16 (the f32
+    params stay the masters; gradients flow through the casts), each block
+    of node states is cast inside its own checkpoint, after the split, so
+    no bf16 copy of the whole [N, g, D] stays live, and the stable softmax
+    is forced (Q5's raw exp overflows in bf16). PyTorch's bf16 reductions
+    accumulate in f32 and round once, as jnp's do (tests/test_torch_bf16.py
+    and the card test hold it). The outputs are f32."""
+    bf16 = cfg.fusion_dtype == "bf16"
+    stable = cfg.stable_softmax or bf16
+
+    def cast(p: Params) -> Params:
+        return {k: v.to(torch.bfloat16) for k, v in p.items()} if bf16 \
+            else p
+
+    lstm_p = cast(sub(params, "free/lstm"))
 
     def stream(x_t, mhsa_p, ln_p, keep):
-        """[n, g, D] -> [n, D]"""
+        """[n, g, D] -> [n, D] (f32 from a bf16 stack)"""
+        if bf16:
+            x_t = x_t.to(torch.bfloat16)
         x_t = lstm_scan(lstm_p, x_t, keep_rate=cfg.keep_rate,
                         keep_mask=keep)
         m = multi_head_self_attention(
             mhsa_p, layer_norm(x_t, ln_p["scale"], ln_p["shift"]),
-            cfg.num_heads, stable=cfg.stable_softmax)
-        return torch.mean(m, dim=1)
+            cfg.num_heads, stable=stable)
+        m = torch.mean(m, dim=1)
+        return m.float() if bf16 else m
 
     def fuse(vec, mhsa_p, ln_p, keep):
         rows = cfg.fusion_chunk_rows
@@ -499,35 +556,71 @@ def _temporal_fusion(params: Params, user_vec: torch.Tensor,
                           for b, k in zip(blocks, keeps)])
 
     keep_u, keep_i = (None, None) if keep is None else keep
-    mu = fuse(user_vec, sub(params, "free/mhsa_user"),
-              sub(params, "free/ln_user"), keep_u)
-    mi = fuse(item_vec, sub(params, "free/mhsa_item"),
-              sub(params, "free/ln_item"), keep_i)
+    mu = fuse(user_vec, cast(sub(params, "free/mhsa_user")),
+              cast(sub(params, "free/ln_user")), keep_u)
+    mi = fuse(item_vec, cast(sub(params, "free/mhsa_item")),
+              cast(sub(params, "free/ln_item")), keep_i)
     return mu, mi
 
 
 def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
                      seq: torch.Tensor, seq_mask: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
-    """Pooled sequence branch, quirk Q3 (model.py:158-167): the mask-matmul
-    collapses the sequence to ONE token [B, 1, D] before the attention
-    stack. Returns att_user [B, D]."""
-    seq_emb = rows(item_att_emb, seq)                           # [B, L, D]
-    pos_embed = params["reg/pos_embed"]
-    pooled_items = torch.einsum("bl,bld->bd", seq_mask, seq_emb)[:, None]
-    pooled_pos = torch.einsum("bl,ld->bd", seq_mask, pos_embed)[:, None]
-    ln_item = sub(params, "free/seq_ln_item")
-    ln_pos = sub(params, "free/seq_ln_pos")
-    x = layer_norm(pooled_items, ln_item["scale"], ln_item["shift"])
-    x = x + layer_norm(pooled_pos, ln_pos["scale"], ln_pos["shift"])
-    for i in range(cfg.att_layer):
-        ln = sub(params, f"free/seq_ln/{i}")
-        h = multi_head_self_attention(
-            sub(params, f"free/seq_mhsa/{i}"),
-            layer_norm(x, ln["scale"], ln["shift"]),
-            cfg.num_heads, stable=cfg.stable_softmax)
-        x = leaky_relu(h, cfg.leaky) + x  # model.py:166
-    return torch.sum(x, dim=1)  # [B, D] (model.py:167)
+    """Sequence branch (JAX selfgnn.py:656-714). Parity mode replicates
+    quirk Q3 (model.py:158-167): the mask-matmul collapses the sequence to
+    ONE token [B, 1, D] before the attention stack. With
+    cfg.per_token_seq_attention, masked self-attention runs over every
+    token of the [B, L, D] sequence instead (the non-parity fix of Q3;
+    stable softmax whatever the config says, the masked tokens' logits at
+    -1e30) and the tokens are summed under the mask. Returns att_user
+    [B, D] (f32 from a bf16 branch).
+
+    fusion_dtype="bf16" runs the branch in bf16: the gathered sequence
+    embeddings, the mask, pos_embed and the free parameters are cast, and
+    the pooled path's attention takes the stable softmax too."""
+    bf16 = cfg.fusion_dtype == "bf16"
+
+    def cast(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.bfloat16) if bf16 else t
+
+    def free(prefix: str) -> Params:
+        return {k: cast(v) for k, v in sub(params, prefix).items()}
+
+    seq_emb = cast(rows(item_att_emb, seq))                     # [B, L, D]
+    seq_mask = cast(seq_mask)
+    pos_embed = cast(params["reg/pos_embed"])
+    ln_item, ln_pos = free("free/seq_ln_item"), free("free/seq_ln_pos")
+
+    if cfg.per_token_seq_attention:
+        # the layer norm of the positions is the same for every row:
+        # computed once, [1, L, D], and broadcast
+        x = layer_norm(seq_emb, ln_item["scale"], ln_item["shift"])
+        x = x + layer_norm(pos_embed[None], ln_pos["scale"],
+                           ln_pos["shift"])
+        x = x * seq_mask[:, :, None]
+        for i in range(cfg.att_layer):
+            ln = free(f"free/seq_ln/{i}")
+            h = multi_head_self_attention(
+                free(f"free/seq_mhsa/{i}"),
+                layer_norm(x, ln["scale"], ln["shift"]), cfg.num_heads,
+                stable=True, mask=seq_mask)
+            x = leaky_relu(h, cfg.leaky) + x
+        att = torch.sum(x * seq_mask[:, :, None], dim=1)
+    else:
+        stable = cfg.stable_softmax or bf16
+        pooled_items = torch.einsum("bl,bld->bd", seq_mask, seq_emb)[:, None]
+        pooled_pos = torch.einsum("bl,ld->bd", seq_mask, pos_embed)[:, None]
+        x = layer_norm(pooled_items, ln_item["scale"], ln_item["shift"])
+        x = x + layer_norm(pooled_pos, ln_pos["scale"], ln_pos["shift"])
+        for i in range(cfg.att_layer):
+            ln = free(f"free/seq_ln/{i}")
+            h = multi_head_self_attention(
+                free(f"free/seq_mhsa/{i}"),
+                layer_norm(x, ln["scale"], ln["shift"]),
+                cfg.num_heads, stable=stable)
+            x = leaky_relu(h, cfg.leaky) + x  # model.py:166
+        att = torch.sum(x, dim=1)  # [B, D] (model.py:167)
+    return att.float() if bf16 else att
 
 
 def rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -597,12 +690,8 @@ _NOT_PORTED = (
     ("spmm_backend", lambda c: c.spmm_backend not in ("xla", "pallas",
                                                       "ring"),
      "the port has the 'xla', 'pallas' and 'ring' backends"),
-    ("per_token_seq_attention", lambda c: c.per_token_seq_attention,
-     "per-token sequence attention is not ported yet: ROADMAP Queue A5"),
     ("seq_parallel", lambda c: c.seq_parallel,
      "sequence-parallel attention is not ported yet: ROADMAP Queue A6"),
-    ("fusion_dtype", lambda c: c.fusion_dtype != "f32",
-     "the port runs the fusion stack in f32 only: ROADMAP Queue A5"),
 )
 
 
@@ -773,14 +862,18 @@ class SelfGNN:
     def recommend_top_k(self, params: Params, graphs: Dict,
                         user_ids: torch.Tensor, seq: torch.Tensor,
                         seq_mask: torch.Tensor, k: int = 10,
-                        exclude_seen: bool = True, chunk_rows: int = 0,
+                        exclude_seen: bool = True,
+                        recall_target: float = 1.0, chunk_rows: int = 0,
                         encodings: Optional[Tuple[torch.Tensor,
                                                   torch.Tensor]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k items over the full catalog for a user batch, optionally
-        masking each user's own input sequence. Returns (scores [B, k],
-        item_ids [B, k]) descending.
+        masking each user's own input sequence (JAX `recommend_top_k`,
+        selfgnn.py:905-949). Returns (scores [B, k], item_ids [B, k])
+        descending.
 
+        recall_target: in (0, 1], passed to the top-k, which is exact at
+        any value (`topk_descending`).
         chunk_rows: 0 = auto (dense up to 131,072 items, streamed past
         it); -1 = dense; >0 = stream in chunks of this many items.
         encodings: (final_user, final_item) from an earlier `encode`; the
@@ -797,10 +890,11 @@ class SelfGNN:
             queries = self.serving_queries(params, final_user, final_item,
                                            user_ids, seq, seq_mask)
             return chunked_topk(queries, final_item, self.num_items, k,
-                                chunk_rows, seen_seq, seen_mask)
+                                chunk_rows, recall_target, seen_seq,
+                                seen_mask)
         scores = self.score_all_items(params, final_user, final_item,
                                       user_ids, seq, seq_mask)
         if exclude_seen:
             seen = scatter_local_mask(seq, 0, self.num_items, valid=seq_mask)
             scores = scores.masked_fill(seen, float("-inf"))
-        return topk_descending(scores, k)
+        return topk_descending(scores, k, recall_target)

@@ -10,6 +10,14 @@ Reference semantics (Utils/attention.py:31-78):
 Raw exp overflows for large logits, so the parity path runs in float32.
 `stable=True` switches to the max-subtracted softmax. Parameters are dicts
 with the JAX package's leaf names (wq, bq, wk, bk, wv, bv / scale, shift).
+
+bf16 inputs (fusion_dtype="bf16") follow the JAX functions' dtype rules:
+the attention casts x to f32 and multiplies it by the bf16 parameters,
+which jnp promotes to f32, so q, k, v, the logits, the softmax and the
+context are f32 computed from bf16-rounded weights, and only the output
+goes back to bf16; the layer norm's mean and variance accumulate in f32
+and are rounded to bf16 once (PyTorch's bf16 reductions do so), its
+other ops run in bf16.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import math
 from typing import Dict
 
 import torch
+
+from sagnn_tpu_torch.models.layers import scalar_as
 
 
 def multi_head_self_attention(params: Dict[str, torch.Tensor],
@@ -33,11 +43,13 @@ def multi_head_self_attention(params: Dict[str, torch.Tensor],
     """
     B, T, D = x.shape
     dk = D // num_heads
-    # f32 at least (the parity path), f64 for an f64 reference
+    # f32 at least (the parity path), f64 for an f64 reference; bf16
+    # parameters widen exactly, as jnp promotes f32 @ bf16 to f32
     xf = x if x.dtype == torch.float64 else x.float()
-    q = xf @ params["wq"] + params["bq"]
-    k = xf @ params["wk"] + params["bk"]
-    v = xf @ params["wv"] + params["bv"]
+    w = {k: v.to(xf.dtype) for k, v in params.items()}
+    q = xf @ w["wq"] + w["bq"]
+    k = xf @ w["wk"] + w["bk"]
+    v = xf @ w["wv"] + w["bv"]
     scale = math.sqrt(dk)
 
     if T <= 16:
@@ -81,8 +93,17 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     """tf.contrib.layers.layer_norm with its DEFAULTS: mean/variance over ALL
     axes after the leading batch axis (for [N, T, D] inputs that is T·D
     jointly), scale/shift per last axis, variance_epsilon=1e-12
-    (model.py:152-153,161-162,165)."""
+    (model.py:152-153,161-162,165). For a bf16 x, PyTorch's mean and var
+    accumulate in f32 and round to bf16 once, as jnp.mean and jnp.var do;
+    the rest runs in x's dtype."""
     axes = tuple(range(1, x.dim()))
     mean = torch.mean(x, dim=axes, keepdim=True)
     var = torch.var(x, dim=axes, keepdim=True, unbiased=False)
-    return (x - mean) * torch.rsqrt(var + eps) * scale + shift
+    v = var + scalar_as(eps, x.dtype)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        # one rounding of the f32 rsqrt, as XLA computes it (PyTorch's CPU
+        # bf16 rsqrt is off by an ulp on some [N, 1, 1] inputs)
+        inv = torch.rsqrt(v.float()).to(x.dtype)
+    else:
+        inv = torch.rsqrt(v)
+    return (x - mean) * inv * scale + shift

@@ -17,6 +17,11 @@ generator on that device, outside any region that is recomputed in the
 backward (`torch.utils.checkpoint`): the checkpoint restores only the
 default generators, so a mask drawn inside from an explicit generator
 would differ between the forward and its recompute.
+
+In bf16 (x and the parameters cast by the caller, fusion_dtype="bf16")
+the gates, c and h stay bf16, as the JAX scan keeps them: each op rounds
+to bf16, with the Python scalars (the forget bias, the 1/keep scale)
+rounded to bf16 first, as JAX rounds a weak-typed scalar.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+
+from sagnn_tpu_torch.models.layers import scalar_as
 
 
 def dropout_keep_mask(gen: torch.Generator, shape, keep_rate: float,
@@ -52,11 +59,12 @@ def lstm_scan(params: Dict[str, torch.Tensor], x: torch.Tensor,
     for t in range(T):
         gates = x_gates[:, t] + h @ w_h
         i, j, f, o = torch.split(gates, H, dim=-1)
-        c = c * torch.sigmoid(f + forget_bias) + \
+        c = c * torch.sigmoid(f + scalar_as(forget_bias, x.dtype)) + \
             torch.sigmoid(i) * torch.tanh(j)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
     out = torch.stack(hs, dim=1)
     if keep_rate < 1.0 and keep_mask is not None:
-        out = torch.where(keep_mask, out / keep_rate, torch.zeros_like(out))
+        out = torch.where(keep_mask, out / scalar_as(keep_rate, out.dtype),
+                          torch.zeros_like(out))
     return out

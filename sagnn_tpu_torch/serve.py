@@ -3,7 +3,8 @@
 evaluation in `Trainer.test_epoch` (`sagnn_tpu/train/trainer.py`).
 
     python -m sagnn_tpu_torch.serve --data synthetic --preset gowalla \\
-        --users 0 1 2 --k 10 [--params file.npz] [--device cpu]
+        --users 0 1 2 --k 10 [--params file.npz] [--device cpu] \
+        [--recall 0.95]
 
 prints one JSON line per user: {"user", "items", "scores"}. Without
 --params the weights are random, drawn from the preset's train seed.
@@ -90,10 +91,13 @@ class Recommender:
             else self.encode()
 
     def recommend(self, users: Sequence[int], k: int = 10,
-                  exclude_seen: bool = True, chunk_rows: int = 0
+                  exclude_seen: bool = True, chunk_rows: int = 0,
+                  recall_target: float = 1.0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k (scores [B, k], item ids [B, k]) for `users`, on the
-        device, from each user's whole train sequence."""
+        device, from each user's whole train sequence. recall_target in
+        (0, 1] is the JAX package's; the port's top-k is exact at any
+        value (`models.selfgnn.topk_descending`)."""
         users = np.asarray(users, np.int64)
         seq, mask = user_sequences(self.bundle, users,
                                    self.cfg.model.pos_length)
@@ -102,8 +106,8 @@ class Recommender:
             torch.from_numpy(users).to(self.device),
             torch.from_numpy(seq).to(self.device),
             torch.from_numpy(mask).to(self.device), k=k,
-            exclude_seen=exclude_seen, chunk_rows=chunk_rows,
-            encodings=self.encodings)
+            exclude_seen=exclude_seen, recall_target=recall_target,
+            chunk_rows=chunk_rows, encodings=self.encodings)
 
     def evaluate(self, max_users: Optional[int] = None,
                  ks=(1, 5, 10, 15, 20)) -> Dict[str, float]:
@@ -146,6 +150,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--users", type=int, nargs="+", required=True)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--include_seen", action="store_true")
+    ap.add_argument("--recall", type=float, default=1.0,
+                    help="top-k recall target in (0, 1] (the JAX "
+                         "package's flag; the port's top-k is exact at "
+                         "any value)")
     ap.add_argument("--catalog_chunk", type=int, default=0,
                     help="stream the catalog in chunks of this many items "
                          "(0 = auto: dense up to 131k items)")
@@ -187,7 +195,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rec = Recommender(cfg, bundle, params, device=args.device)
     scores, items = rec.recommend(args.users, k=args.k,
                                   exclude_seen=not args.include_seen,
-                                  chunk_rows=args.catalog_chunk)
+                                  chunk_rows=args.catalog_chunk,
+                                  recall_target=args.recall)
     scores, items = scores.cpu().numpy(), items.cpu().numpy()
     for i, u in enumerate(args.users):
         print(json.dumps({"user": int(u), "items": items[i].tolist(),

@@ -28,8 +28,13 @@ params, the optimizer state and the fusion stack live on the mesh's first
 device, so checkpoints keep the single-device format: a ring-trained
 checkpoint restores into a "pallas" Trainer. Not here yet (ROADMAP Queue
 A6): a mesh with data > 1, the TP shardings of the other backends
-(`parallel/sharding.py`) and multi-process runs; nor
-`load_imported_params` (A3), `fusion_dtype="bf16"` (A5).
+(`parallel/sharding.py`) and multi-process runs.
+
+`fusion_dtype="bf16"` (the CLI's `--bf16` with a bf16 table) trains the
+fusion stack and the sequence branch in bf16 from f32 master weights.
+`load_imported_params` installs weights imported from a reference TF1
+checkpoint (`train/import_tf1.py`), with its Adam moments and global step
+when given, on either kind of Trainer.
 
 Evaluation ranks each test user's positive among 999 precomputed
 negatives (the reference's protocol) or, with `full_sort`, among the
@@ -63,7 +68,7 @@ from sagnn_tpu_torch.train.metrics import (MetricsHistory,
                                            metrics_from_ranks,
                                            streaming_positive_ranks,
                                            topk_metrics)
-from sagnn_tpu_torch.train.optim import TF1Adam
+from sagnn_tpu_torch.train.optim import AdamState, TF1Adam
 from sagnn_tpu_torch.utils.logger import log
 from sagnn_tpu_torch.utils.profiling import StepTimer
 
@@ -148,6 +153,51 @@ class Trainer:
         self.state = {"params": params,
                       "opt_state": self.optimizer.init(params), "step": 0}
         self._steps_last_epoch = 0
+
+    def load_imported_params(self, params: Dict[str, torch.Tensor],
+                             mu: Optional[Dict[str, torch.Tensor]] = None,
+                             nu: Optional[Dict[str, torch.Tensor]] = None,
+                             step: int = 0) -> None:
+        """Install imported weights (e.g. a reference TF1 Saver checkpoint
+        through `train.import_tf1`) in place of the initial ones (JAX
+        trainer.py:332-394). With mu/nu/step (Adam's moments and the
+        saved global step) the TF1-Adam state is rebuilt, so training
+        continues where the reference run stopped: the bias corrections and
+        the staircase decay count from `step`. Without them Adam restarts
+        at count 0; the step counter is `step` either way, as in JAX.
+        Every tensor must have its parameter's key and shape."""
+        old = self.state["params"]
+
+        def check(new: Dict[str, torch.Tensor], what: str) -> None:
+            if set(new) != set(old):
+                diff = sorted(set(new) ^ set(old))
+                raise ValueError(f"imported {what} keys differ from the "
+                                 f"model's: {diff[:6]}")
+            for k, v in new.items():
+                if tuple(v.shape) != tuple(old[k].shape):
+                    raise ValueError(f"imported {what} {k} shape "
+                                     f"{tuple(v.shape)} != model "
+                                     f"{tuple(old[k].shape)}")
+
+        def put(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            return {k: torch.as_tensor(tree[k]).to(self.device, torch.float32)
+                    for k in old}
+
+        check(params, "param")
+        if (mu is None) != (nu is None):
+            raise ValueError("mu and nu must be given together (Adam's "
+                             "first and second moments)")
+        new = put(params)
+        for v in new.values():
+            v.requires_grad_(True)
+        if mu is None:
+            opt_state = self.optimizer.init(new)
+        else:
+            check(mu, "mu")
+            check(nu, "nu")
+            opt_state = AdamState(mu=put(mu), nu=put(nu), count=int(step))
+        self.state = {"params": new, "opt_state": opt_state,
+                      "step": int(step)}
 
     # -- one step ------------------------------------------------------------
 

@@ -1135,3 +1135,157 @@ def test_sddmm_is_one_kernel_per_call(dev, exact):
     y = torch.randn((1000, 64), device=dev)
     plan = [t.to(dev) for t in (src, tgt, ptr)]
     assert _cuda_kernels(lambda: sc.sddmm_apply(x, y, *plan, exact)) == 1
+
+
+# -- the bf16 throughput mode, per-token attention, the bf16 top-k --------
+
+def _bf16_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of max |want| (one ulp:
+    2^(floor(log2 max|want|) - 7))."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+    return float((got - want).abs().max()) / ulp
+
+
+def _small_recommenders(dev, **model):
+    import dataclasses
+
+    from sagnn_tpu_torch.config import PRESETS
+    from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+    from sagnn_tpu_torch.serve import Recommender
+
+    base = PRESETS["gowalla"]
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, spmm_backend="pallas",
+                                  **model),
+        train=dataclasses.replace(base.train, test_size=30, seed=1))
+    bundle = synthetic_dataset(num_users=70, num_items=90, graph_num=3,
+                               test_size=30, seed=2)
+    cpu = Recommender(cfg, bundle, device="cpu")
+    return cpu, Recommender(cfg, bundle, cpu.params, device=dev)
+
+
+def test_layer_norm_bf16_on_card_matches_cpu(dev):
+    """PyTorch's bf16 reductions on the card accumulate in f32 and round
+    once (as jnp's do, and as the CPU's do, tests/test_torch_bf16.py): the
+    layer norm's mean and variance, the fusion stack's mean and the
+    sequence branch's sum. The card's f32 sums run in another order, so
+    the norm may differ from the CPU's by an ulp."""
+    from sagnn_tpu_torch.ops.attention import layer_norm
+
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.randn((4096, 3, 64), generator=gen) * 2 + 0.5).bfloat16()
+    sc_, sh = torch.randn((2, 64), generator=gen).bfloat16()
+    cpu = layer_norm(x, sc_, sh)
+    card = layer_norm(x.to(dev), sc_.to(dev), sh.to(dev))
+    assert card.dtype == torch.bfloat16
+    assert _bf16_ulps(card, cpu) <= 1.0
+    xd = x.to(dev)
+    native = (torch.mean(xd, dim=(1, 2)),
+              torch.var(xd, dim=(1, 2), unbiased=False),
+              torch.mean(xd, dim=1), torch.sum(xd, dim=1))
+    explicit = (xd.float().mean(dim=(1, 2)).bfloat16(),
+                xd.float().var(dim=(1, 2), unbiased=False).bfloat16(),
+                xd.float().mean(dim=1).bfloat16(),
+                xd.float().sum(dim=1).bfloat16())
+    print(f"layer norm card vs cpu {int((card.cpu() != cpu).sum())} of "
+          f"{cpu.numel()} elements differ")
+    for a, b in zip(native, explicit):
+        assert torch.equal(a, b)
+
+
+def test_bf16_encode_on_card_matches_cpu(dev):
+    """--bf16's model (bf16 table, bf16 fusion, stable softmax): 12
+    segsum_bf16 launches, the card's encode within 2 bf16 ulps of the
+    largest |value| of the CPU's, finite, and repeatable bit for bit."""
+    cpu, gpu = _small_recommenders(dev, spmm_exact=False,
+                                   fusion_dtype="bf16", stable_softmax=True)
+    sc.reset_launches()
+    card = gpu.encode()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in sc.LAUNCHES.items() if v} == {"segsum_bf16": 12}
+    want = cpu.encode()
+    for c, w in zip(card, want):
+        assert c.dtype == torch.float32 and bool(torch.isfinite(c).all())
+        ulps = _bf16_ulps(c, w)
+        print(f"bf16 encode card vs cpu: {ulps:.2f} ulps of max")
+        assert ulps <= 2.0
+    again = gpu.encode()
+    assert all(torch.equal(a, b) for a, b in zip(card, again))
+
+
+@pytest.mark.parametrize("fusion_dtype", ["f32", "bf16"])
+def test_per_token_scores_on_card_match_cpu(dev, fusion_dtype):
+    """per_token_seq_attention (pos_length 200, 16 heads) scores of every
+    item for 20 users, some with padded sequences: f32 within rtol 1e-4,
+    atol 1e-5 x max|score| of the CPU's; bf16 within 2 bf16 ulps."""
+    from sagnn_tpu_torch.data.sampler import user_sequences
+
+    cpu, gpu = _small_recommenders(dev, per_token_seq_attention=True,
+                                   fusion_dtype=fusion_dtype)
+    users = np.arange(20)
+    seq, mask = user_sequences(cpu.bundle, users, 200)
+    assert (mask == 0).any() and (mask.sum(1) > 0).all()
+    out = []
+    for rec in (cpu, gpu):
+        fu, fi = rec.encode()
+        out.append(rec.model.score_all_items(
+            rec.params, fu, fi, *(torch.from_numpy(a).to(rec.device)
+                                  for a in (users, seq, mask))))
+    want, got = out[0], out[1].cpu()
+    assert bool(torch.isfinite(got).all())
+    if fusion_dtype == "f32":
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
+    else:
+        assert _bf16_ulps(got, want) <= 2.0
+
+
+def bf16_stream_error(q, table, ids):
+    """A bound on |bf16 stream score - exact score| of items `ids` [B, k]
+    for queries q [B, D]: rounding q and a row to bf16 (2^-9 relative
+    each) moves each product q_i t_i by at most (2^-8 + 2^-18)|q_i t_i|,
+    the f32 sum adds less than 2^-18 of sum |q_i t_i| at D = 64, and the
+    score rounds to bf16 (2^-9 relative): 2^-8 (1.01 sum |q_i t_i| + |s|)
+    bounds it. An item is chosen over a missing top-k item only where its
+    stream score is at least that item's, so each returned item's exact
+    score is at least the exact k-th less its bound and the largest of
+    the exact top k's."""
+    rows = table[ids].double()
+    qd = q.double()[:, None, :]
+    return 2.0 ** -8 * (1.01 * (qd.abs() * rows.abs()).sum(-1)
+                        + (qd * rows).sum(-1).abs())
+
+
+def test_chunked_topk_bf16_on_card(dev):
+    """The bf16 stream on the card: the returned scores are the f32
+    scores of the returned ids, each within the stream's rounding bound
+    of the exact k-th (`bf16_stream_error`), and the CPU's selection
+    wherever the stream's k-th and (k+1)-th scores differ on both
+    devices."""
+    from sagnn_tpu_torch.models.selfgnn import chunked_topk
+
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((64, 64), generator=gen)
+    tbl = torch.randn((50_000, 64), generator=gen)
+    k = 10
+    got_v, got_i = chunked_topk(q.to(dev), tbl.to(dev), 50_000, k, 8192,
+                                score_dtype=torch.bfloat16)
+    cpu_v, cpu_i = chunked_topk(q, tbl, 50_000, k, 8192,
+                                score_dtype=torch.bfloat16)
+    got_v, got_i = got_v.cpu(), got_i.cpu()
+    dense = q.double() @ tbl.double().T
+    torch.testing.assert_close(torch.gather(dense, 1, got_i),
+                               got_v.double(), rtol=1e-6, atol=0)
+    exact_v, exact_i = torch.topk(dense, k)
+    slack = (bf16_stream_error(q, tbl, got_i)
+             + bf16_stream_error(q, tbl, exact_i).max(1, keepdim=True).values)
+    assert bool((got_v.double() >= exact_v[:, -1:] - slack).all())
+    determined = torch.ones(64, dtype=torch.bool)
+    for d in ("cpu", dev):
+        qb, tb = q.to(d).bfloat16(), tbl.to(d).bfloat16()
+        stream = torch.topk((qb @ tb.T).float(), k + 1).values.cpu()
+        determined &= stream[:, k - 1] > stream[:, k]
+    assert int(determined.sum()) >= 16
+    for b in torch.nonzero(determined).flatten().tolist():
+        assert set(got_i[b].tolist()) == set(cpu_i[b].tolist()), b

@@ -207,8 +207,7 @@ def test_chunked_topk_matches_jax(chunk):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spmm_backend", "cusparse"), ("seq_parallel", True),
-    ("per_token_seq_attention", True), ("fusion_dtype", "bf16")])
+    ("spmm_backend", "cusparse"), ("seq_parallel", True)])
 def test_options_not_ported_raise(field, value):
     cfg = dataclasses.replace(torch_cfg(MCFG), **{field: value})
     with pytest.raises(NotImplementedError, match=field):

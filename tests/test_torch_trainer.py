@@ -145,10 +145,7 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(bundle, tmp_path):
 
 
 @pytest.mark.parametrize("train,model,match", [
-    ({}, {"fusion_dtype": "bf16"}, "fusion_dtype.*ROADMAP"),
     ({}, {"seq_parallel": True}, "seq_parallel.*ROADMAP"),
-    ({}, {"per_token_seq_attention": True},
-     "per_token_seq_attention.*ROADMAP"),
 ])
 def test_unported_options_raise(bundle, tmp_path, train, model, match):
     cfg = _cfg(**train)
