@@ -4,7 +4,8 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 13, 12, 17, 14
+Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 19, 21, 13,
+12, 17, 20, 14
 (any failure raises and the script exits non-zero; it prints no result
 line then):
   1. device  — require CUDA; print the card's name and power limit.
@@ -174,6 +175,31 @@ line then):
                card: the test batch's candidate scores against the
                reference's (rtol 1e-4, atol 1e-5), HR exact, NDCG rtol
                1e-6; `Trainer.load_imported_params` and one finite step.
+ 19. user path — a seeded raw log of 1.5M user,item,timestamp events
+               (~49k users, ~41k items, power-law popularity) through
+               `python -m sagnn_tpu_torch.preprocess` (5-core, 3
+               intervals), timed; training on it at the gowalla preset's
+               widths under the wedge watchdog `main --supervise` builds,
+               polled every second, the child SIGSTOPped at its first step
+               line: rc 0 after one recovery (WEDGE, the preemption
+               checkpoint, the CUDA probe, the resume), no staging file,
+               history.json through the last epoch; the checkpoint served
+               by `Recommender.from_checkpoint` on one device and over 4
+               catalog shards on the card (12 K1 launches per encode,
+               each encode held against the plain backend on this graph
+               with its propagation in f64; top 10 for 256 users agree)
+               and by the serve CLI. Logged: the CPU a child burns while
+               blocked on a device op.
+ 20. sharded serving — top-10 over 4 catalog ranks on the card against
+               the single-device path on the same queries: phase 5's
+               gowalla encodings (40,960 items) dense and streamed, the
+               bf16_b4096 flagship's 786,432 items (streamed by the auto
+               policy), both timed.
+ 21. profiler trace — `main.profile_epoch` (what --profile_dir runs) on
+               a gowalla `Trainer`: a trace that parses with CPU op
+               events, state and RNG bit-equal after the restore, 12 + 12
+               K1 launches per step, a positive edge rate; its CUDA kernel
+               events logged.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -196,6 +222,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3552,7 +3579,8 @@ def flagship_bf16_phase(bundle, device) -> dict:
     bf16 stream's `chunked_topk` for SERVE_USERS users, top 10 of the
     catalog, against the exact f32 one (TOPK_RERANK_RTOL and
     `check_bf16_selection`), both timed; a streamed full-sort evaluation
-    of the test users."""
+    of the test users. Returns its record and, for phase 20, the
+    queries, item encodings and sequences of the top-k users."""
     import numpy as np
     import torch
     from sagnn_tpu_torch.data.sampler import user_sequences
@@ -3670,7 +3698,9 @@ def flagship_bf16_phase(bundle, device) -> dict:
         f"{out['topk_exact_ms']:.3f} ms, bf16 stream + rerank "
         f"{out['topk_bf16_ms']:.3f} ms; {same:.4f} of the ids the exact "
         f"ones")
-    del fu, fi, q
+    del fu
+    catalog = (q, fi, torch.from_numpy(seq).to(device),
+               torch.from_numpy(mask).to(device))
     t0 = time.perf_counter()
     metrics = trainer.test_epoch(full_sort=True)
     torch.cuda.synchronize()
@@ -3683,7 +3713,7 @@ def flagship_bf16_phase(bundle, device) -> dict:
     log(f"bf16_b4096 full-sort evaluate over {out['full_sort_users']} users"
         f" x {ni} items ({out['card']}): {out['full_sort_s']:.2f} s")
     shutil.rmtree(root, ignore_errors=True)
-    return out
+    return out, catalog
 
 
 def tf1_import_phase(device) -> dict:
@@ -3770,6 +3800,461 @@ def tf1_import_phase(device) -> dict:
     log(f"TF1 fixture Trainer: one step from the imported weights, losses "
         f"{out['step_losses']}")
     shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# phases 19-21, the user path. 19: a raw user,item,timestamp log (power-law
+# popularity and activity, a year of timestamps) preprocessed by the
+# port's CLI with a 5-core, trained at gowalla width under the wedge
+# watchdog (`build_supervisor`, as `main --supervise` builds it, polled
+# every SUPERVISOR_POLL_S instead of the CLI's 15 s) with the child
+# SIGSTOPped at its first step line, and its checkpoint served
+RAW_USERS = 49_152
+RAW_ITEMS = 40_960
+RAW_EVENTS = 1_500_000
+RAW_SEED = 11
+RAW_CORE = 5
+USER_PATH_EPOCHS = 3
+USER_PATH_TRN_NUM = 10_240      # 20 steps of 512
+WEDGE_SECS = 10.0               # --supervise_wedge_secs
+SUPERVISOR_POLL_S = 1.0
+CATALOG_SHARDS = 4
+CLI_SERVE_USERS = 3
+# a child blocked on a long device op: seconds of the spin kernel it waits
+# on (torch.cuda._sleep), once through synchronize and once through .item()
+BLOCKED_SLEEP_S = 3.0
+BLOCKED_CHILD = """
+import json, sys, time, torch
+s = float(sys.argv[1])
+torch.ones(1, device="cuda").sum().item()
+out = {}
+for how in ("synchronize", "item"):
+    x = torch.ones(1, device="cuda")
+    c0, t0 = time.process_time(), time.perf_counter()
+    torch.cuda._sleep(int(s * 2e9))
+    torch.cuda.synchronize() if how == "synchronize" else x.sum().item()
+    out[how] = {"wall_s": time.perf_counter() - t0,
+                "cpu_s": time.process_time() - c0}
+print(json.dumps(out))
+"""
+# 20: sharded against single-device top-k. Scores within rtol/atol 1e-5
+# (JAX's bound, tests/test_serving_sharded.py); ids equal wherever the
+# single-device scores leave a gap wider than that around them
+SHARDED_TOL = 1e-5
+SHARDED_CHUNK_ROWS = 4_096
+
+
+def write_raw_log(path: str) -> int:
+    """A seeded raw interaction log as `user,item,timestamp` CSV: users and
+    items drawn with power-law weights (1/(rank+100)^0.5 and
+    1/(rank+20)^0.9), ids shuffled, timestamps uniform over 2010."""
+    import numpy as np
+    rng = np.random.default_rng(RAW_SEED)
+    pu = 1.0 / (np.arange(RAW_USERS) + 100.0) ** 0.5
+    pi = 1.0 / (np.arange(RAW_ITEMS) + 20.0) ** 0.9
+    u = rng.permutation(RAW_USERS)[rng.choice(RAW_USERS, RAW_EVENTS,
+                                              p=pu / pu.sum())]
+    i = rng.permutation(RAW_ITEMS)[rng.choice(RAW_ITEMS, RAW_EVENTS,
+                                              p=pi / pi.sum())]
+    t = rng.integers(1_262_304_000, 1_293_840_000, RAW_EVENTS)
+    np.savetxt(path, np.stack([u, i, t], 1), fmt="%d", delimiter=",",
+               header="user,item,timestamp", comments="")
+    return RAW_EVENTS
+
+
+def check_same_topk(got, want, what) -> dict:
+    """got and want are (scores [B, k], ids [B, k]); want is one longer
+    (top k+1) so the k-th score's gap below is known. Scores within
+    SHARDED_TOL; ids equal wherever want's score is more than the tolerance
+    from both neighbours; every id a real item. Returns the max abs error
+    and the share of places held to equal ids."""
+    import torch
+    gv, gi = got
+    wv, wi = want
+    k = gv.shape[1]
+    err = check_close(gv, wv[:, :k], SHARDED_TOL, SHARDED_TOL, what)
+    w = wv.double()
+    inf = torch.full_like(w[:, :1], math.inf)
+    w = torch.cat([inf, w], 1)
+    gap = torch.minimum((w[:, 1:k + 1] - w[:, :k]).abs(),
+                        (w[:, 2:k + 2] - w[:, 1:k + 1]).abs())
+    clear = gap > SHARDED_TOL * (1 + w[:, 1:k + 1].abs())
+    check(bool((gi.to(wi.device)[clear] == wi[:, :k][clear]).all()),
+          f"{what}: ids differ away from ties")
+    return {"max_abs_err": err, "ids_held_share": float(clear.float().mean())}
+
+
+def blocked_child_cpu(proc) -> dict:
+    """The blocked child's JSON line (started by `user_path_phase`)."""
+    out, err = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"blocked child: {err[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    for how, r in res.items():
+        r["cpu_share"] = r["cpu_s"] / r["wall_s"]
+        log(f"a child blocked {r['wall_s']:.2f} s on a device op through "
+            f"{how} burns {r['cpu_s']:.2f} CPU-s ({r['cpu_share']:.2f} of "
+            f"its wall time)")
+    return res
+
+
+def user_path_phase(device) -> dict:
+    """19. The user's life cycle with the port's own tools, at the gowalla
+    preset's widths: a raw CSV of RAW_EVENTS interactions
+    (`write_raw_log`) through `python -m sagnn_tpu_torch.preprocess`
+    (5-core, 3 intervals, 999 negatives), timed, its counts logged;
+    training on the result (`main --data gowalla --spmm_backend pallas`,
+    USER_PATH_EPOCHS epochs of USER_PATH_TRN_NUM users) under the
+    watchdog that `main --supervise --supervise_wedge_secs WEDGE_SECS`
+    builds (`build_supervisor`), polled every SUPERVISOR_POLL_S, with the
+    child SIGSTOPped once its log shows a step line: the supervisor exits
+    0 after one recovery (WEDGE, the preemption checkpoint, the CUDA
+    probe, the resume), no staging file left, history.json through the
+    last epoch. Then the checkpoint served in this process by
+    `Recommender.from_checkpoint` on one device and over CATALOG_SHARDS
+    catalog shards on the card (12 K1 launches per encode), each encode
+    held against the plain backend on this graph (its propagation summed
+    in f64, phase 5's tolerances), top-10 for SERVE_USERS users held
+    equal, and by the serve CLI in a subprocess.
+    Logged, not checked: the CPU a child burns while blocked on a device
+    op (`blocked_child_cpu`)."""
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch import main as tmain
+    from sagnn_tpu_torch.data.io import load_dataset
+    from sagnn_tpu_torch.data.sampler import user_sequences
+    from sagnn_tpu_torch.models.selfgnn import (_interval_propagation,
+                                                _temporal_fusion)
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.serve import Recommender, catalog_mesh
+    from sagnn_tpu_torch.train.supervisor import build_supervisor
+
+    out = {"card": gpu_name_and_power()}
+    work = tempfile.mkdtemp()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    blocked = subprocess.Popen(
+        [sys.executable, "-c", BLOCKED_CHILD, str(BLOCKED_SLEEP_S)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    sup, serve_cli = None, None
+    try:
+        t0 = time.perf_counter()
+        csv = os.path.join(work, "raw.csv")
+        write_raw_log(csv)
+        out["raw_log_s"] = time.perf_counter() - t0
+        data_dir = os.path.join(work, "Datasets")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "sagnn_tpu_torch.preprocess", "--csv",
+             csv, "--out", os.path.join(data_dir, "gowalla"), "--graph_num",
+             "3", "--user_core", str(RAW_CORE), "--item_core",
+             str(RAW_CORE)], capture_output=True, text=True, timeout=600,
+            cwd=ROOT, env=env)
+        out["preprocess_s"] = time.perf_counter() - t0
+        check(r.returncode == 0, f"preprocess CLI: {r.stderr[-2000:]}")
+        for line in r.stdout.splitlines():
+            log(f"  preprocess: {line}")
+        after = [x for x in r.stdout.splitlines() if "after filtering" in x]
+        check(len(after) == 1, "preprocess logged its k-core counts")
+        nums = [int(x) for x in re.findall(r"(\d+) (?:users|items|interval)",
+                                           after[0])]
+        out["kcore"] = dict(zip(("users", "items", "interval_edges"), nums))
+        log(f"preprocess CLI: {RAW_EVENTS} events -> {out['kcore']} in "
+            f"{out['preprocess_s']:.1f} s (CSV written in "
+            f"{out['raw_log_s']:.1f} s)")
+
+        ckpt_root = os.path.join(work, "Models")
+        # the entry points run on the card unless asked for the CPU (a
+        # rehearsal of this phase without a card)
+        on = [] if device.type == "cuda" else ["--device", "cpu"]
+        raw = on + ["--data", "gowalla", "--data_dir", data_dir,
+               "--spmm_backend", "pallas", "--epoch", str(USER_PATH_EPOCHS),
+               "--trnNum", str(USER_PATH_TRN_NUM), "--tstEpoch", "1",
+               "--ckpt_root", ckpt_root, "--supervise",
+               "--supervise_wedge_secs", str(WEDGE_SECS)]
+        ns = tmain.parse_args(raw)
+        ns.save_path = tmain.build_config(ns).train.save_path
+        sup = build_supervisor(ns, raw)
+        sup.check_every = SUPERVISOR_POLL_S
+        result = {}
+        runner = threading.Thread(
+            target=lambda: result.update(rc=sup.run()), daemon=True)
+        t0 = time.perf_counter()
+        runner.start()
+        stopped = None
+        while stopped is None and runner.is_alive() \
+                and time.perf_counter() - t0 < 300:
+            time.sleep(0.05)
+            pids = [int(m.group(1)) for m in (
+                re.search(r"launched pid (\d+)", e) for e in sup.events)
+                if m]
+            if pids and os.path.exists(sup.log_path):
+                with open(sup.log_path) as f:
+                    if "Step " in f.read():
+                        os.kill(pids[0], signal.SIGSTOP)
+                        stopped = time.perf_counter() - t0
+        check(stopped is not None, "the supervised child logged a step")
+        log(f"supervised child SIGSTOPped {stopped:.1f} s after launch")
+        runner.join(600)
+        check(not runner.is_alive(), "the supervisor finished in 600 s")
+        out["supervised_s"] = time.perf_counter() - t0
+        out["stopped_at_s"] = stopped
+        with open(sup.log_path) as f:
+            text = f.read()
+        events = "\n".join(sup.events)
+        for line in text.replace("\r", "\n").splitlines()[-8:]:
+            log(f"  train.log: {line.strip()}")
+        out["supervisor_rc"] = result.get("rc")
+        out["recoveries"] = sup.recoveries
+        out["supervisor_events"] = sup.events
+        check(result.get("rc") == 0 and sup.recoveries == 1,
+              f"supervisor rc {result.get('rc')}, {sup.recoveries} "
+              "recoveries (want 0 and 1)")
+        check("WEDGE" in events and ("relay probe ok" in events
+                                     or device.type != "cuda"),
+              "the wedge and the CUDA relay probe in the events")
+        check("writing preemption checkpoint" in text
+              and "Model Loaded, resuming at epoch" in text,
+              "the preemption checkpoint and the resume in train.log")
+        left = [f for f in os.listdir(sup.ckpt_dir) if f.endswith(".tmp")]
+        check(not left, f"staging files left: {left}")
+        with open(os.path.join(sup.ckpt_dir, "history.json")) as f:
+            hist = json.load(f)
+        out["history_epochs"] = len(hist["TrainLoss"])
+        out["test_ndcg"] = hist["TestNDCG"]
+        check(len(hist["TrainLoss"]) == USER_PATH_EPOCHS
+              and f"Epoch {USER_PATH_EPOCHS - 1}/{USER_PATH_EPOCHS}, Train"
+              in text, f"history.json holds {len(hist['TrainLoss'])} "
+              f"epochs, want {USER_PATH_EPOCHS}")
+        log(f"supervised training ({out['card']}): rc 0, 1 recovery, "
+            f"{out['supervised_s']:.1f} s; test NDCG by epoch "
+            f"{hist['TestNDCG']}")
+
+        bundle = load_dataset(os.path.join(data_dir, "gowalla"))
+        users = np.asarray(bundle.tst_usrs[:SERVE_USERS])
+        serve_cli_users = [int(u) for u in users[:CLI_SERVE_USERS]]
+        serve_cli = subprocess.Popen(
+            [sys.executable, "-m", "sagnn_tpu_torch.serve"] + on + [
+             "--data", "gowalla", "--data_dir", data_dir, "--ckpt_root",
+             ckpt_root,
+             "--save_path", ns.save_path, "--k", "10", "--users"]
+            + [str(u) for u in serve_cli_users], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+        t0 = time.perf_counter()
+        results, launches = {}, {}
+        for shards in (0, CATALOG_SHARDS):
+            mesh = (catalog_mesh(shards, device) if shards else None)
+            rec = Recommender.from_checkpoint(ckpt_root, ns.save_path,
+                                              bundle, device=device,
+                                              catalog_mesh=mesh)
+            check(rec.cfg.model.spmm_backend == "pallas",
+                  "the checkpoint's config serves the kernel")
+            sc.reset_launches()
+            fu, fi = rec.encode()
+            torch.cuda.synchronize()
+            launches[shards] = dict(sc.LAUNCHES)
+            expect_launches(launches[shards], f"checkpoint encode "
+                            f"({shards} shards)", segsum_f32=12)
+            if not shards:
+                # the encode on this graph against the plain ("xla")
+                # backend's propagation summed in f64, then the same
+                # fusion stack in f32, at phase 5's tolerances
+                mc = rec.cfg.model
+                nu, ni = bundle.num_users, bundle.num_items
+                p64 = dict(rec.params)
+                for key in ("reg/u_embed", "reg/i_embed"):
+                    p64[key] = p64[key].double()
+                uv64, iv64 = _interval_propagation(
+                    p64, rec.graphs,
+                    dataclasses.replace(mc, spmm_backend="xla"), nu, ni)
+                uv, iv = _interval_propagation(rec.params, rec.graphs, mc,
+                                               nu, ni)
+                ref = _temporal_fusion(rec.params, uv64.float(),
+                                       iv64.float(), mc)
+                torch.cuda.synchronize()
+                check_close(uv, uv64, 1e-5, 1e-5,
+                            "checkpoint user_vec kernel vs plain f64")
+                check_close(iv, iv64, 1e-5, 1e-5,
+                            "checkpoint item_vec kernel vs plain f64")
+                del uv64, iv64, uv, iv, p64
+            out[f"encode_vs_plain_{shards}_shards"] = max(
+                check_close(fu, ref[0], 1e-4, 1e-5, f"checkpoint final_user "
+                            f"kernel vs plain ({shards} shards)"),
+                check_close(fi, ref[1], 1e-4, 1e-5, f"checkpoint final_item "
+                            f"kernel vs plain ({shards} shards)"))
+            del fu, fi
+            results[shards] = rec.recommend(users, k=10)
+            if not shards:
+                want = rec.recommend(users, k=11)
+                seq, mask = user_sequences(bundle, users,
+                                           rec.cfg.model.pos_length)
+            torch.cuda.synchronize()
+            del rec
+        out["serve_setup_s"] = time.perf_counter() - t0
+        out["launches_encode"] = {k: v for k, v in launches[0].items() if v}
+        out["sharded_vs_single"] = check_same_topk(
+            results[CATALOG_SHARDS], want,
+            f"checkpoint top-10, {CATALOG_SHARDS} shards vs one device")
+        v, i = results[0]
+        check(bool(torch.isfinite(v).all())
+              and int(i.max()) < bundle.num_items, "served top-10")
+        for b in range(len(users)):
+            seen = set(seq[b][mask[b] > 0].tolist())
+            check(not seen & set(i[b].tolist()), "seen item served")
+        out_cli, err_cli = serve_cli.communicate(timeout=600)
+        check(serve_cli.returncode == 0, f"serve CLI: {err_cli[-2000:]}")
+        lines = [json.loads(x) for x in out_cli.strip().splitlines()]
+        check([x["user"] for x in lines] == serve_cli_users
+              and all(x["items"] == i[b].tolist()
+                      for b, x in enumerate(lines)),
+              "the serve CLI's top-10 is the in-process one")
+        log(f"checkpoint served ({out['card']}): 12 K1 launches per "
+            f"encode, top-10 for {len(users)} users on one device and "
+            f"over {CATALOG_SHARDS} shards agree "
+            f"({out['sharded_vs_single']}); the serve CLI printed "
+            f"{len(lines)} JSON lines")
+        out["blocked_child"] = blocked_child_cpu(blocked)
+    finally:
+        if blocked.poll() is None:
+            blocked.kill()
+            blocked.wait()
+        if serve_cli is not None and serve_cli.poll() is None:
+            serve_cli.kill()
+            serve_cli.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def sharded_serving_phase(catalogs, device) -> dict:
+    """20. Catalog-sharded top-10 at scale on a one-card mesh of
+    CATALOG_SHARDS ranks, against the single-device path on the same
+    queries (`check_same_topk`), both timed with CUDA events: phase 5's
+    gowalla encodings (40,960 items) dense and streamed in
+    SHARDED_CHUNK_ROWS chunks against the dense top-k; the flagship's
+    786,432 items (196,608 rows per rank, streamed by the auto policy)
+    against `chunked_topk`. Each user's own items are excluded."""
+    import torch
+    from sagnn_tpu_torch.models.selfgnn import chunked_topk, topk_descending
+    from sagnn_tpu_torch.ops.chunking import (AUTO_CHUNK_ROWS,
+                                              auto_chunk_rows,
+                                              scatter_local_mask)
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.serving import (pad_catalog, shard_catalog,
+                                                  sharded_topk)
+
+    out = {"card": gpu_name_and_power(), "shards": CATALOG_SHARDS}
+    mesh = make_mesh(data=1, model=CATALOG_SHARDS,
+                     devices=[device] * CATALOG_SHARDS)
+    for name, (q, fi, seq, mask), chunks in catalogs:
+        ni = fi.shape[0]
+        table = shard_catalog(mesh, pad_catalog(fi, CATALOG_SHARDS))
+        single_chunk = auto_chunk_rows(ni)
+
+        def single(k=10):
+            if single_chunk > 0:
+                return chunked_topk(q, fi, ni, k, AUTO_CHUNK_ROWS,
+                                    seen_seq=seq, seen_mask=mask)
+            scores = (q @ fi.T).masked_fill(
+                scatter_local_mask(seq, 0, ni, valid=mask), float("-inf"))
+            return topk_descending(scores, k)
+
+        want = single(11)
+        res = {"items": ni, "rows_per_rank": table[0].shape[0],
+               "single_ms": cuda_ms(single, iters=5, warmup=1)}
+        for chunk in chunks:
+            def sharded(chunk=chunk):
+                return sharded_topk(mesh, q, table, ni, 10, seen_seq=seq,
+                                    seen_mask=mask, chunk_rows=chunk)
+            got = sharded()
+            torch.cuda.synchronize()
+            mode = {0: "auto", -1: "dense"}.get(chunk, f"chunk {chunk}")
+            res[mode] = check_same_topk(
+                got, want, f"{name} sharded ({mode}) vs single device")
+            res[mode]["ms"] = cuda_ms(sharded, iters=5, warmup=1)
+            log(f"{name} top-10 of {ni} for {q.shape[0]} users over "
+                f"{CATALOG_SHARDS} ranks ({mode}, {table[0].shape[0]} rows "
+                f"each; {out['card']}): {res[mode]['ms']:.3f} ms; single "
+                f"device {res['single_ms']:.3f} ms")
+        out[name] = res
+        del table
+    return out
+
+
+def profiler_trace_phase(cfg, bundle, device) -> dict:
+    """21. `main.profile_epoch` (what `--profile_dir` runs) on a gowalla
+    `Trainer`: one train_epoch under `utils.profiling.trace`, then the
+    state and RNG restored. Checks: the trace file parses as JSON with CPU
+    op events; params, Adam moments, counts and the RNG state after it
+    bit-equal to a snapshot taken before; its K1 launches (12 + 12 per
+    step); a positive edge rate (`EdgeRateCounter`). Logged: the trace's
+    CUDA kernel events and K1 symbols among them."""
+    import copy
+    import glob
+
+    import torch
+    from sagnn_tpu_torch import main as tmain
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.train.trainer import Trainer
+    from sagnn_tpu_torch.utils.profiling import EdgeRateCounter
+
+    out = {"card": gpu_name_and_power()}
+    work = tempfile.mkdtemp()
+    try:
+        trainer = Trainer(cfg.replace(train=dataclasses.replace(
+            cfg.train, save_path="trace")), bundle, ckpt_root=work,
+            device=device)
+        steps = -(-cfg.train.trn_num // cfg.train.batch)
+        snap = copy.deepcopy(trainer.state)
+        rng = trainer.capture_rng_state(0)
+        logdir = os.path.join(work, "trace")
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        tmain.profile_epoch(trainer, logdir)
+        torch.cuda.synchronize()
+        out["profiled_epoch_s"] = time.perf_counter() - t0
+        out["launches"] = {k: v for k, v in sc.LAUNCHES.items() if v}
+        expect_launches(dict(sc.LAUNCHES), "profiled epoch",
+                        segsum_f32=12 * steps, segsum_f32_bwd=12 * steps)
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        check(len(files) == 1, f"one trace file under {logdir}: {files}")
+        out["trace_mb"] = os.path.getsize(files[0]) / 1e6
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        cats = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        check(cats.get("cpu_op", 0) > 0, "the trace holds CPU op events")
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        out["cpu_op_events"] = cats["cpu_op"]
+        out["cuda_kernel_events"] = len(kernels)
+        out["k1_kernel_events"] = sum("segsum_pieces_kernel" in k
+                                      for k in kernels)
+        st = trainer.state
+        same = (st["step"] == snap["step"]
+                and st["opt_state"].count == snap["opt_state"].count
+                and all(torch.equal(st[part][k].detach(),
+                                    snap[part][k].detach())
+                        for part in ("params",) for k in snap["params"])
+                and all(torch.equal(getattr(st["opt_state"], m)[k],
+                                    getattr(snap["opt_state"], m)[k])
+                        for m in ("mu", "nu") for k in snap["params"]))
+        check(same, "state after the profiled epoch bit-equal to before")
+        check(trainer.capture_rng_state(0) == rng,
+              "RNG state after the profiled epoch equal to before")
+        rate = EdgeRateCounter(trainer.edges_per_step,
+                               trainer.step_timer.windowed(steps))
+        out["edges_per_sec"] = rate.edges_per_sec
+        check(rate.edges_per_sec > 0, "a positive edge rate")
+        log(f"profiled epoch ({out['card']}): {out['profiled_epoch_s']:.1f}"
+            f" s, trace {out['trace_mb']:.1f} MB, {out['cpu_op_events']} "
+            f"CPU op events, {out['cuda_kernel_events']} CUDA kernel events"
+            f" ({out['k1_kernel_events']} of them K1); "
+            f"{rate.edges_per_sec / 1e9:.3f} Gedges/s; state and RNG "
+            "restored bit for bit")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -4039,6 +4524,19 @@ def drive(device) -> None:
     phase_s["variant training"] = time.perf_counter() - t0
     log(f"phase variant training: {phase_s['variant training']:.1f} s")
 
+    # 19. the user path: a raw log preprocessed, trained under the wedge
+    # watchdog through an induced wedge, its checkpoint served
+    t0 = time.perf_counter()
+    user_path = user_path_phase(device)
+    phase_s["user path"] = time.perf_counter() - t0
+    log(f"phase user path: {phase_s['user path']:.1f} s")
+
+    # 21. the profiler trace of one epoch, state and RNG restored
+    t0 = time.perf_counter()
+    profiler_trace = profiler_trace_phase(cfg, bundle, device)
+    phase_s["profiler trace"] = time.perf_counter() - t0
+    log(f"phase profiler trace: {phase_s['profiler trace']:.1f} s")
+
     # 13. the ring backend (K6) on a one-card mesh of four ranks
     t0 = time.perf_counter()
     ring, rrecords = ring_phase(cfg, bundle, rec.params, batch, rec, vrecs,
@@ -4058,10 +4556,27 @@ def drive(device) -> None:
 
     # 17. the flagship's bf16_b4096 recipe on the same bundle
     t0 = time.perf_counter()
-    bf16_b4096 = flagship_bf16_phase(flagship_bundle, device)
+    bf16_b4096, flagship_catalog = flagship_bf16_phase(flagship_bundle,
+                                                       device)
     del flagship_bundle
     phase_s["flagship bf16_b4096"] = time.perf_counter() - t0
     log(f"phase flagship bf16_b4096: {phase_s['flagship bf16_b4096']:.1f} s")
+
+    # 20. catalog-sharded top-k on the gowalla and the flagship catalogs
+    t0 = time.perf_counter()
+    from sagnn_tpu_torch.data.sampler import user_sequences
+    s_seq, s_mask = (torch.from_numpy(a).to(device) for a in
+                     user_sequences(bundle, users, mc.pos_length))
+    s_fu, s_fi = rec.encodings
+    s_q = rec.model.serving_queries(rec.params, s_fu, s_fi,
+                                    torch.from_numpy(users).to(device),
+                                    s_seq, s_mask)
+    sharded = sharded_serving_phase(
+        (("gowalla", (s_q, s_fi, s_seq, s_mask), (-1, SHARDED_CHUNK_ROWS)),
+         ("flagship", flagship_catalog, (0,))), device)
+    del flagship_catalog, s_q
+    phase_s["sharded serving"] = time.perf_counter() - t0
+    log(f"phase sharded serving: {phase_s['sharded serving']:.1f} s")
 
     # 14. the probes: P1 and P2 against their plain versions, then the
     # probe CLI's measurements on both bundles' interval 0
@@ -4181,6 +4696,16 @@ def drive(device) -> None:
             launches_bf16_b4096_steps=bf16_b4096["launches_steps"][name],
             launches_bf16_b4096_encode=bf16_b4096["launches_encode"].get(
                 name, 0))
+    # phases 19 and 21, each counted from 0 just before it: the served
+    # checkpoint's encode and the profiled epoch
+    records["segsum_f32"].update(
+        launches_user_path_encode=user_path["launches_encode"].get(
+            "segsum_f32", 0),
+        launches_profiled_epoch=profiler_trace["launches"].get(
+            "segsum_f32", 0))
+    records["segsum_f32_bwd"].update(
+        launches_profiled_epoch=profiler_trace["launches"].get(
+            "segsum_f32_bwd", 0))
     schedule_report(records)
     kernels = []
     for r in records.values():
@@ -4231,7 +4756,8 @@ def drive(device) -> None:
         "per_token": per_token,
         "bf16_b4096": {k: v for k, v in bf16_b4096.items()
                        if k != "trainer_losses"},
-        "tf1_import": tf1}
+        "tf1_import": tf1, "user_path": user_path,
+        "sharded_serving": sharded, "profiler_trace": profiler_trace}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

@@ -1,5 +1,5 @@
-"""Dataset loading in the reference's pickle formats; the port's copy of
-`sagnn_tpu/data/io.py` (ref: DataHandler.py:71-133).
+"""Dataset loading and saving in the reference's pickle formats; the port's
+copy of `sagnn_tpu/data/io.py` (ref: DataHandler.py:71-133).
 
 On-disk layout per dataset directory (identical to the reference so its
 preprocessed datasets drop in unchanged):
@@ -94,3 +94,21 @@ def load_dataset(predir: str, noise_percent: float = 0.0) -> DatasetBundle:
         tst_int=tst_int,
         test_dict=test_dict,
     )
+
+
+def save_dataset(predir: str, bundle: DatasetBundle,
+                 full_mat: Optional[sp.spmatrix] = None) -> None:
+    """Write a DatasetBundle in the reference's pickle layout (the four
+    files above; `full_mat` defaults to the bundle's trn_mat)."""
+    os.makedirs(predir, exist_ok=True)
+    if full_mat is None:
+        full_mat = bundle.trn_mat
+    with open(os.path.join(predir, "trn_mat_time"), "wb") as fs:
+        pickle.dump([sp.csr_matrix(full_mat), list(bundle.sub_mats),
+                     bundle.time_mat], fs)
+    with open(os.path.join(predir, "tst_int"), "wb") as fs:
+        pickle.dump(list(bundle.tst_int), fs)
+    with open(os.path.join(predir, "sequence"), "wb") as fs:
+        pickle.dump(bundle.sequences, fs)
+    with open(os.path.join(predir, "test_dict"), "wb") as fs:
+        pickle.dump(bundle.test_dict, fs)

@@ -16,8 +16,12 @@ segment-sum (spmm_exact=False), the fusion stack and sequence branch in
 bf16 (fusion_dtype="bf16") and the stable softmax, each unless given
 explicitly. `--import_tf1 PREFIX` starts from a reference TF1 Saver
 checkpoint (weights, Adam moments and global step; reading it needs
-tensorflow). Flags of features the port does not carry yet are left out
-(supervisor, profiler trace); config options it does not carry raise
+tensorflow). `--profile_dir DIR` writes a torch.profiler trace of one
+throwaway epoch under DIR before the run (the state and RNG are restored
+after it, so the run is unchanged). `--supervise` runs the training under
+the wedge watchdog (`train/supervisor.py`): the same command without the
+supervisor's flags as a child, recovered with `--load_model` when it
+wedges or crashes. Config options the port does not carry raise
 NotImplementedError naming the ROADMAP item that will.
 """
 
@@ -134,6 +138,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="mesh 'model' axis size (the ring's ranks)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--profile_dir",
+                   help="write a torch.profiler trace of one throwaway "
+                        "epoch here (state and RNG restored after it)")
+    p.add_argument("--supervise", action="store_true",
+                   help="run under the wedge watchdog "
+                        "(train/supervisor.py): detect a hung run (no log "
+                        "output and ~zero CPU), SIGTERM it so the "
+                        "preemption handler saves, clean staging files, "
+                        "probe the card, and relaunch with --load_model")
+    p.add_argument("--supervise_wedge_secs", type=float, default=300.0,
+                   help="how long the (no-log AND no-CPU) conjunction "
+                        "must hold before a wedge is declared")
+    p.add_argument("--supervise_max_recoveries", type=int, default=8)
     return p.parse_args(argv)
 
 
@@ -163,9 +180,41 @@ def build_config(ns: argparse.Namespace) -> Config:
     )
 
 
+def profile_epoch(trainer, logdir: str) -> None:
+    """One `train_epoch(verbose=False)` under a torch.profiler trace
+    written to `logdir`, then the Trainer's state (params, Adam moments,
+    step) and RNGs (sampler and dropout) put back as they were, so the
+    run that follows is unchanged (JAX main.py:229-242). Logs the epoch's
+    propagation edges/s."""
+    import copy
+
+    from sagnn_tpu_torch.utils.profiling import EdgeRateCounter, trace
+    state = copy.deepcopy(trainer.state)
+    rng = trainer.capture_rng_state(0)
+    with trace(logdir, cuda=trainer.device.type == "cuda"):
+        trainer.train_epoch(verbose=False)
+    rate = EdgeRateCounter(trainer.edges_per_step, trainer.step_timer
+                           .windowed(trainer._steps_last_epoch))
+    trainer.state = state
+    trainer.restore_rng_state(rng)
+    log(f"Profile trace written to {logdir}: {len(rate.timer.times)} "
+        f"steps, {rate.timer.mean * 1e3:.1f} ms per step, propagation "
+        f"{rate.edges_per_sec / 1e9:.4f} Gedges/s")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    ns = parse_args(argv)
+    """argv: the arguments without the program name (sys.argv[1:] by
+    default); `--supervise` re-execs them as its child."""
+    import sys
+    raw = list(sys.argv[1:] if argv is None else argv)
+    ns = parse_args(raw)
     cfg = build_config(ns)
+    if ns.supervise:
+        # the supervisor touches no device: it re-execs these arguments
+        # (minus its own flags) as a watched child
+        from sagnn_tpu_torch.train.supervisor import supervise_main
+        ns.save_path = cfg.train.save_path  # preset-aware
+        raise SystemExit(supervise_main(ns, raw))
     log("Start")
     if ns.data == "synthetic" and ns.synth_edges > 0:
         from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
@@ -214,6 +263,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         trainer.load_imported_params(**imported)
         log(f"Imported TF1 checkpoint {ns.import_tf1} "
             f"(global step {imported['step']})")
+    if ns.profile_dir:
+        profile_epoch(trainer, ns.profile_dir)
     trainer.run(resume=cfg.train.load_model is not None)
 
 

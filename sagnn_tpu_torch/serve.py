@@ -1,21 +1,31 @@
 """Serving and evaluation entry point; the port of `scripts/recommend.py`
-(top-k over the full catalog) and of the single-process candidate
-evaluation in `Trainer.test_epoch` (`sagnn_tpu/train/trainer.py`).
+(top-k over the full catalog, from a trained checkpoint, optionally over a
+sharded catalog) and of the single-process candidate evaluation in
+`Trainer.test_epoch` (`sagnn_tpu/train/trainer.py`).
 
     python -m sagnn_tpu_torch.serve --data synthetic --preset gowalla \\
-        --users 0 1 2 --k 10 [--params file.npz] [--device cpu] \
+        --users 0 1 2 --k 10 [--params file.npz] [--device cpu] \\
         [--recall 0.95]
+    python -m sagnn_tpu_torch.serve --data gowalla --data_dir Datasets \\
+        --ckpt_root Models --save_path gowalla --users 0 1 2 \\
+        [--catalog_shards 4]
 
 prints one JSON line per user: {"user", "items", "scores"}. Without
---params the weights are random, drawn from the preset's train seed.
-`--edge_norm sym_sqrt|mean` serves degree-normalised propagation and
-`--edge_attention` edge attention. It propagates through the CUDA kernels
-on the card (the segment-sum, weighted with edge_norm, with the SDDMM
-for edge attention; source-sharded past 32 MiB of node table, as the
-Trainer resolves it) and through their plain versions on the CPU. The
-graph is encoded once per `Recommender`; recommendations and evaluation
-reuse it (eval is deterministic, keepRate=1). A config trained on the
-"ring" backend is served on one device from the same weights, as
+--params or a checkpoint the weights are random, drawn from the preset's
+train seed. With `--ckpt_root` / `--save_path` the model is rebuilt from
+the checkpoint's config.json (written by the Trainer) and its params
+restored, as `scripts/recommend.py` does (`--params` and the edge flags
+are refused then: the checkpoint defines the model). `--catalog_shards
+N` serves the top-k over the item encodings split across N ranks
+(`parallel/serving.py`): the visible cards, or N ranks on the one card
+or on the CPU. Without a checkpoint, `--edge_norm sym_sqrt|mean` serves
+degree-normalised propagation and `--edge_attention` edge attention. It propagates through
+the CUDA kernels on the card (the segment-sum, weighted with edge_norm,
+with the SDDMM for edge attention; source-sharded past 32 MiB of node
+table, as the Trainer resolves it) and through their plain versions on
+the CPU. The graph is encoded once per `Recommender`; recommendations and
+evaluation reuse it (eval is deterministic, keepRate=1). A config trained
+on the "ring" backend is served on one device from the same weights, as
 `scripts/recommend.py:67-73` does (the ring is a training layout): on the
 "pallas" backend, so that the card still runs the segment-sum kernel,
 where the JAX script picks its compiled "xla" path.
@@ -26,6 +36,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import sys
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +50,52 @@ from sagnn_tpu_torch.data.sampler import test_batch, user_sequences
 from sagnn_tpu_torch.device import resolve_device
 from sagnn_tpu_torch.models.selfgnn import (Params, SelfGNN,
                                             graphs_to_device, param_shapes)
+from sagnn_tpu_torch.parallel.mesh import Mesh, make_mesh
+from sagnn_tpu_torch.parallel.serving import (pad_catalog, shard_catalog,
+                                              sharded_recommend_top_k)
+from sagnn_tpu_torch.train.checkpoint import CheckpointManager
 from sagnn_tpu_torch.train.metrics import topk_metrics
+
+
+def catalog_mesh(shards: int, device: torch.device | str = "cuda") -> Mesh:
+    """A ('data' 1, 'model' `shards`) mesh to shard a catalog over: the
+    visible cards (as many as `shards`, or make_mesh refuses), or, on the
+    CPU or with one card, `shards` ranks all on that device."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return make_mesh(data=1, model=shards, devices=["cpu"] * shards)
+    if torch.cuda.device_count() == 1:
+        return make_mesh(data=1, model=shards,
+                         devices=[f"cuda:{dev.index or 0}"] * shards)
+    return make_mesh(data=1, model=shards)
+
+
+def load_checkpoint(ckpt_root: str, save_path: str,
+                    default_cfg: Optional[Config] = None
+                    ) -> Tuple[Config, Params]:
+    """The Config and params a Trainer saved under <ckpt_root>/<save_path>:
+    the model is rebuilt from its config.json, or from `default_cfg` (a
+    preset) where it has none (JAX scripts/recommend.py:59-99). Raises
+    FileNotFoundError, and creates nothing, when the directory, a config
+    or the params are missing."""
+    where = os.path.join(ckpt_root, save_path)
+    if not os.path.isdir(where):
+        raise FileNotFoundError(f"no checkpoint under {where}")
+    ckpt = CheckpointManager(ckpt_root, save_path)
+    cfg = ckpt.load_config() or default_cfg
+    params = ckpt.load_params()
+    if cfg is None or params is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt.dir}")
+    return cfg, params
+
+
+def fit_graph_num(cfg: Config, bundle: DatasetBundle) -> Config:
+    """`cfg` with the bundle's interval count: a dataset's graphs win over
+    the config's graph_num."""
+    if bundle.graph_num == cfg.model.graph_num:
+        return cfg
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, graph_num=bundle.graph_num))
 
 
 class Recommender:
@@ -46,12 +103,16 @@ class Recommender:
 
     def __init__(self, cfg: Config, bundle: DatasetBundle,
                  params: Optional[Params] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 catalog_mesh: Optional[Mesh] = None):
         """params: the port's flat dict (`convert.py`); None draws random
         weights from a CPU `torch.Generator` seeded with cfg.train.seed, so
         every device gets the same weights. spmm_src_shard_rows=0 resolves
         as the Trainer resolves it; explicit or resolved shard rows serve
-        through the source-sharded plans."""
+        through the source-sharded plans. catalog_mesh: serve the top-k
+        over the item encodings sharded across its 'model' axis
+        (`parallel.serving.sharded_recommend_top_k`); the encode and the
+        queries stay on `device`."""
         self.device = resolve_device(device)
         if bundle.graph_num != cfg.model.graph_num:
             raise ValueError(f"dataset has {bundle.graph_num} interval "
@@ -77,12 +138,28 @@ class Recommender:
         self.params = {k: v.to(self.device, torch.float32)
                        for k, v in params.items()}
         self._encodings: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.catalog_mesh = catalog_mesh
+        self._catalog: Optional[list] = None   # the sharded final_item
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_root: str, save_path: str,
+                        bundle: DatasetBundle,
+                        device: torch.device | str = "cuda",
+                        catalog_mesh: Optional[Mesh] = None
+                        ) -> "Recommender":
+        """The model a Trainer saved under <ckpt_root>/<save_path>, with
+        its saved params (`load_checkpoint`), on the bundle's interval
+        count."""
+        cfg, params = load_checkpoint(ckpt_root, save_path)
+        return cls(fit_graph_num(cfg, bundle), bundle, params,
+                   device=device, catalog_mesh=catalog_mesh)
 
     def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encode the whole graph; returns (final_user, final_item)."""
         final_user, final_item, _, _ = self.model.encode(self.params,
                                                          self.graphs)
         self._encodings = (final_user, final_item)
+        self._catalog = None
         return self._encodings
 
     @property
@@ -97,17 +174,29 @@ class Recommender:
         """Top-k (scores [B, k], item ids [B, k]) for `users`, on the
         device, from each user's whole train sequence. recall_target in
         (0, 1] is the JAX package's; the port's top-k is exact at any
-        value (`models.selfgnn.topk_descending`)."""
+        value (`models.selfgnn.topk_descending`). With a catalog_mesh the
+        top-k runs over the sharded catalog (sharded once per encode) and
+        returns on the mesh's first device."""
         users = np.asarray(users, np.int64)
         seq, mask = user_sequences(self.bundle, users,
                                    self.cfg.model.pos_length)
-        return self.model.recommend_top_k(
-            self.params, self.graphs,
-            torch.from_numpy(users).to(self.device),
-            torch.from_numpy(seq).to(self.device),
-            torch.from_numpy(mask).to(self.device), k=k,
-            exclude_seen=exclude_seen, recall_target=recall_target,
-            chunk_rows=chunk_rows, encodings=self.encodings)
+        user_ids = torch.from_numpy(users).to(self.device)
+        seq = torch.from_numpy(seq).to(self.device)
+        mask = torch.from_numpy(mask).to(self.device)
+        if self.catalog_mesh is None:
+            return self.model.recommend_top_k(
+                self.params, self.graphs, user_ids, seq, mask, k=k,
+                exclude_seen=exclude_seen, recall_target=recall_target,
+                chunk_rows=chunk_rows, encodings=self.encodings)
+        final_user, final_item = self.encodings
+        if self._catalog is None:
+            self._catalog = shard_catalog(self.catalog_mesh, pad_catalog(
+                final_item, len(self.catalog_mesh.model_devices)))
+        return sharded_recommend_top_k(
+            self.model, self.catalog_mesh, self.params, final_user,
+            final_item, user_ids, seq, mask, k=k, exclude_seen=exclude_seen,
+            recall_target=recall_target, item_table=self._catalog,
+            chunk_rows=chunk_rows)
 
     def evaluate(self, max_users: Optional[int] = None,
                  ks=(1, 5, 10, 15, 20)) -> Dict[str, float]:
@@ -160,6 +249,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--params", default=None,
                     help="weights as an .npz in the flat layout of "
                          "sagnn_tpu_torch.convert (default: random)")
+    ap.add_argument("--ckpt_root", default=None,
+                    help="serve the checkpoint a Trainer saved under "
+                         "<ckpt_root>/<save_path> (default ./Models when "
+                         "--save_path is given)")
+    ap.add_argument("--save_path", default=None,
+                    help="the checkpoint's directory under --ckpt_root "
+                         "(default tem when --ckpt_root is given)")
+    ap.add_argument("--catalog_shards", type=int, default=0,
+                    help="shard the item catalog over this many ranks "
+                         "(the visible cards, or ranks on the one card or "
+                         "the CPU) and merge their top-k; 0 = one device")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--synth_users", type=int, default=2048,
                     help="--data synthetic: number of users")
@@ -170,11 +270,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--edge_attention", action="store_true",
                     help="edge-attention propagation")
     args = ap.parse_args(argv)
+    from_ckpt = args.ckpt_root is not None or args.save_path is not None
+    if from_ckpt and (args.params or args.edge_norm or args.edge_attention):
+        ap.error("--params, --edge_norm and --edge_attention do not apply "
+                 "to a checkpoint: its weights and config.json define the "
+                 "model")
 
     cfg = PRESETS[args.preset]
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, spmm_backend="pallas", edge_norm=args.edge_norm,
         edge_attention=args.edge_attention))
+    params = None
+    if from_ckpt:
+        # the checkpoint carries its training Config: the model (and a
+        # synthetic bundle's seed) come from it
+        try:
+            cfg, params = load_checkpoint(args.ckpt_root or "./Models",
+                                          args.save_path or "tem", cfg)
+        except FileNotFoundError as e:
+            print(e, file=sys.stderr)
+            sys.exit(1)
+    elif args.params:
+        from sagnn_tpu_torch.convert import load_npz
+        params = load_npz(args.params)
     if args.data == "synthetic":
         from sagnn_tpu_torch.data.synthetic import synthetic_dataset
         bundle = synthetic_dataset(num_users=args.synth_users,
@@ -185,14 +303,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     else:
         from sagnn_tpu_torch.data.io import load_dataset
         bundle = load_dataset(f"{args.data_dir}/{args.data}")
-        if bundle.graph_num != cfg.model.graph_num:
-            cfg = cfg.replace(model=dataclasses.replace(
-                cfg.model, graph_num=bundle.graph_num))
-    params = None
-    if args.params:
-        from sagnn_tpu_torch.convert import load_npz
-        params = load_npz(args.params)
-    rec = Recommender(cfg, bundle, params, device=args.device)
+    mesh = (catalog_mesh(args.catalog_shards, args.device)
+            if args.catalog_shards > 1 else None)
+    rec = Recommender(fit_graph_num(cfg, bundle), bundle, params,
+                      device=args.device, catalog_mesh=mesh)
     scores, items = rec.recommend(args.users, k=args.k,
                                   exclude_seen=not args.include_seen,
                                   chunk_rows=args.catalog_chunk,

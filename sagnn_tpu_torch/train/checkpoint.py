@@ -106,6 +106,14 @@ class CheckpointManager:
                       train=TrainConfig(**d["train"]),
                       data=DataConfig(**d["data"]))
 
+    def load_params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The saved params alone, on the CPU (None when nothing was
+        saved): what serving needs of a checkpoint."""
+        if not os.path.exists(self._state_path):
+            return None
+        return torch.load(self._state_path, map_location="cpu",
+                          weights_only=True)["params"]
+
     def restore(self, template: Dict
                 ) -> Tuple[Optional[Dict], MetricsHistory]:
         """The saved state, on the device of `template` (a state of the

@@ -46,6 +46,7 @@ chunks past it, as `cfg.train.full_sort_chunk` says, on every backend.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import signal
 import time
 from typing import Dict, Optional
@@ -153,6 +154,8 @@ class Trainer:
         self.state = {"params": params,
                       "opt_state": self.optimizer.init(params), "step": 0}
         self._steps_last_epoch = 0
+        self._deferring = False
+        self._deferred_signal: Optional[int] = None
 
     def load_imported_params(self, params: Dict[str, torch.Tensor],
                              mu: Optional[Dict[str, torch.Tensor]] = None,
@@ -218,8 +221,12 @@ class Trainer:
                                     allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(keys, grads)}
-        self.optimizer.step(params, grads, self.state["opt_state"])
-        self.state["step"] += 1
+        # the update changes the params, Adam's moments and the step count
+        # over several statements; a preemption signal that lands among
+        # them is saved once they are all done
+        with self._signals_deferred():
+            self.optimizer.step(params, grads, self.state["opt_state"])
+            self.state["step"] += 1
         return {"loss": loss.detach(), "preLoss": pre.detach(),
                 "regLoss": reg.detach()}
 
@@ -390,19 +397,56 @@ class Trainer:
 
     # -- full run (ref model.py:41-71) ------------------------------------------
 
+    @contextlib.contextmanager
+    def _signals_deferred(self):
+        """A preemption signal that lands inside the block is handled when
+        the block ends (install_preemption_handler)."""
+        self._deferring = True
+        try:
+            yield
+        finally:
+            self._deferring = False
+        if self._deferred_signal is not None:
+            signum, self._deferred_signal = self._deferred_signal, None
+            self._preempt(signum)
+
+    def _checkpoint(self, rng_state: Dict) -> None:
+        """The best-NDCG save, whole whatever signal lands during it."""
+        with self._signals_deferred():
+            self.ckpt.save(self.state, self.history, self.cfg, block=False,
+                           rng_state=rng_state)
+
+    def _preempt(self, signum: int) -> None:
+        """Save a checkpoint and exit with 128 + signum."""
+        log(f"signal {signum}: writing preemption checkpoint")
+        self._deferring = True   # a second signal must not re-enter the save
+        # the RNG snapshot from the START of the epoch in progress: resume
+        # re-enters that epoch drawing the same batches (params are from
+        # the moment of the signal, so a mid-epoch kill resumes safely but
+        # not bit-exactly)
+        self.ckpt.save(self.state, self.history, self.cfg,
+                       rng_state=getattr(self, "_epoch_rng_snapshot", None))
+        raise SystemExit(128 + signum)
+
     def install_preemption_handler(self) -> Dict:
         """Save a checkpoint on SIGTERM/SIGINT before exiting. Returns the
-        handlers it replaced (run() puts them back when it ends)."""
+        handlers it replaced (run() puts them back when it ends).
+
+        A signal that lands inside the optimizer update (`train_step`) is
+        saved when the update ends: the update changes the params, Adam's
+        moments and the step count in place over several statements, and
+        a save among them would mix two steps' state (JAX's jitted step
+        swaps the whole state at once). One that lands inside a checkpoint
+        save is handled when that save has committed: a second save
+        started inside the first writes the same staging files, which the
+        first then finishes over the committed checkpoint. Anywhere else
+        the save is made at once, without waiting for the step in
+        progress."""
         def _handler(signum, _frame):
-            log(f"signal {signum}: writing preemption checkpoint")
-            # the RNG snapshot from the START of the epoch in progress:
-            # resume re-enters that epoch drawing the same batches (params
-            # are from the moment of the signal, so a mid-epoch kill
-            # resumes safely but not bit-exactly)
-            self.ckpt.save(self.state, self.history, self.cfg,
-                           rng_state=getattr(self, "_epoch_rng_snapshot",
-                                             None))
-            raise SystemExit(128 + signum)
+            if self._deferring:
+                self._deferred_signal = signum
+                return
+            self._preempt(signum)
 
         return {s: signal.signal(s, _handler)
                 for s in (signal.SIGTERM, signal.SIGINT)}
@@ -500,7 +544,6 @@ class Trainer:
                 raise FloatingPointError(
                     f"non-finite loss at epoch {ep} with no checkpoint to "
                     f"restore")
-            self.history.append("Train", tr)
             log(self.history.format_line("Train", ep, cfg.train.epoch, tr))
             ts = self.throughput_stats()
             if ts["edges_per_sec"] > 0:
@@ -510,13 +553,18 @@ class Trainer:
             if test:
                 te = self.test_epoch()
                 res = {"HR": te["HR"], "NDCG": te["NDCG"]}
-                self.history.append("Test", res)
                 log(self.history.format_line("Test", ep, cfg.train.epoch,
                                              res))
-                if te["NDCG"] > max_ndcg:  # best-NDCG save policy
-                    self.ckpt.save(self.state, self.history, self.cfg,
-                                   block=False,
-                                   rng_state=self.capture_rng_state(ep + 1))
-                    max_ndcg, max_res, max_epoch = te["NDCG"], te, ep
+            # the epoch enters the history and the resume point moves past
+            # it together: a preemption checkpoint then never holds an
+            # epoch that its resume runs again
+            with self._signals_deferred():
+                self.history.append("Train", tr)
+                if test:
+                    self.history.append("Test", res)
+                self._epoch_rng_snapshot = self.capture_rng_state(ep + 1)
+            if test and te["NDCG"] > max_ndcg:  # best-NDCG save policy
+                self._checkpoint(self.capture_rng_state(ep + 1))
+                max_ndcg, max_res, max_epoch = te["NDCG"], te, ep
             epoch_times.append(time.monotonic() - t_ep)
         return max_ndcg, max_res, max_epoch

@@ -272,8 +272,7 @@ def test_trainer_bf16_steps_match_jax(monkeypatch, tmp_path):
 
 
 def _m131k_argv():
-    """scripts/m131k_fullcov.sh's flags, minus the supervisor's (not
-    ported yet: ROADMAP Queue A4)."""
+    """scripts/m131k_fullcov.sh's flags, the supervisor's included."""
     import os
     import shlex
     path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
@@ -283,9 +282,6 @@ def _m131k_argv():
     line = next(x for x in text.splitlines()
                 if x.startswith("python main.py"))
     argv = shlex.split(line)[2:]
-    argv.remove("--supervise")
-    i = argv.index("--supervise_wedge_secs")
-    del argv[i:i + 2]
     return [a for a in argv if a != "$@"]
 
 
@@ -296,7 +292,9 @@ def test_m131k_flags_build_jax_config(monkeypatch):
     argv = _m131k_argv()
     assert "--bf16" in argv and "--full_sort" in argv
     want = jax_config(monkeypatch, argv)
-    got = tmain.build_config(tmain.parse_args(argv))
+    ns = tmain.parse_args(argv)
+    assert ns.supervise and ns.supervise_wedge_secs > 0
+    got = tmain.build_config(ns)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.model.fusion_dtype == "bf16" and got.train.batch == 4096
 
