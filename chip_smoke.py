@@ -5,7 +5,7 @@ and check them.
     python3 chip_smoke.py
 
 Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 19, 21, 13,
-12, 17, 20, 14
+22, 23, 12, 17, 20, 14
 (any failure raises and the script exits non-zero; it prints no result
 line then):
   1. device  — require CUDA; print the card's name and power limit.
@@ -200,6 +200,32 @@ line then):
                events, state and RNG bit-equal after the restore, 12 + 12
                K1 launches per step, a positive edge rate; its CUDA kernel
                events logged.
+ 22. mesh     — training over data x model meshes whose ranks all sit on
+               the card (one process drives the grid): one keepRate-1 step
+               on 2 x 2 and 4 x 1 ("pallas", the node tables split over the
+               model ranks) against the single-device step on phase 6's
+               batch (losses rtol 1e-5, every gradient rtol 1e-4 and atol
+               1e-5 x max|g|, each hop's leaky-relu on the mesh's side of
+               the kink), 12 + 12 K1 launches per data rank per model rank,
+               device time against the single-device step's; 2 x 2 at
+               keepRate 0.5 on one generator state, with sym_sqrt (K2) and
+               with spmm_fold_gather (K4); the ring on 2 x 2 (one ring per
+               data rank, 96 + 96 K6 launches) against "pallas";
+               `Trainer(mesh=2x2).run()` for 4 steps with both evaluations,
+               its checkpoint restored into a "pallas" Trainer (params bit
+               for bit, metrics within one user's rank); the host time of a
+               single-device step with the card's waits spinning and
+               blocking (cudaDeviceScheduleBlockingSync, what a supervised
+               child sets), each setting's CPU share of a device wait
+               checked.
+ 23. multi-process — the bundle written once (`data/io.save_dataset`);
+               `python -m sagnn_tpu_torch.parallel.multihost --mode train
+               --procs 2 --device cuda` (two processes on the card over
+               gloo, each sampling its half of every batch) against the
+               single-process 2 x 1 mesh on the same bundle and flags (rtol
+               1e-5: losses, HR/NDCG with candidates and full sort), its
+               K1 launches; `--mode ring --procs 2` (a 'model' axis of
+               processes, K6) and its checksum.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -548,23 +574,30 @@ def _plain_ring_spmm(blocks, fwd, _bwd, k, mesh):
 @contextlib.contextmanager
 def _hop_relu(relu):
     """While active, each propagation hop's leaky-relu (and nothing else's)
-    is `relu`."""
+    is `relu`: the hops of `_interval_propagation` and of the tensor-
+    parallel `_tp_interval_propagation`."""
     from sagnn_tpu_torch.models import selfgnn
 
-    propagation, real = selfgnn._interval_propagation, selfgnn.leaky_relu
+    names = ("_interval_propagation", "_tp_interval_propagation")
+    saved = {name: getattr(selfgnn, name) for name in names}
+    real = selfgnn.leaky_relu
 
-    def wrapped(*args, **kw):
-        selfgnn.leaky_relu = relu
-        try:
-            return propagation(*args, **kw)
-        finally:
-            selfgnn.leaky_relu = real
+    def wrap(propagation):
+        def wrapped(*args, **kw):
+            selfgnn.leaky_relu = relu
+            try:
+                return propagation(*args, **kw)
+            finally:
+                selfgnn.leaky_relu = real
+        return wrapped
 
-    selfgnn._interval_propagation = wrapped
+    for name, fn in saved.items():
+        setattr(selfgnn, name, wrap(fn))
     try:
         yield
     finally:
-        selfgnn._interval_propagation = propagation
+        for name, fn in saved.items():
+            setattr(selfgnn, name, fn)
 
 
 @contextlib.contextmanager
@@ -4258,6 +4291,513 @@ def profiler_trace_phase(cfg, bundle, device) -> dict:
     return out
 
 
+# phase 22, mesh training at gowalla width on the card: the meshes whose
+# keepRate-1 step is held against the single-device step, the 2 x 2
+# Trainer's short epoch (4 steps of 512), and the cost of blocking sync:
+# BLOCKING_SYNC_ROUNDS rounds, each setting's turn first in every other
+# round, each turn BLOCKING_SYNC_WAITS device waits of BLOCKING_SYNC_CYCLES
+# (torch.cuda._sleep, about 1 ms) and BLOCKING_SYNC_STEPS single-device
+# steps, each synchronised
+MESH_SHAPES = ((2, 2), (4, 1))
+MESH_TRN_NUM = 2_048
+BLOCKING_SYNC_ROUNDS = 16
+BLOCKING_SYNC_WAITS = 16
+BLOCKING_SYNC_CYCLES = 2_000_000
+BLOCKING_SYNC_STEPS = 4
+# phase 23: two processes over gloo sharing the card; the epoch cut to 4
+# steps of 512 and the evaluation to EVAL_USERS test users, as the
+# single-process 2 x 1 mesh run it is held to: the losses at MP_RTOL, the
+# metrics within one user's rank (the card's backward of the row gathers
+# sums with atomics, so the weights of two runs agree to rounding only,
+# and a near-tie can move one user's rank by one)
+MP_PROCS = 2
+MP_RTOL = 1e-5
+MP_TIMEOUT_S = 300
+
+
+def _mesh_step(cfg, mesh, params, graphs, bundle=None):
+    """(MeshState, ShardedTrainStep) of `cfg` over `mesh` from the
+    single-device `params`: "pallas" on `graphs` (phase 5's), the tables
+    split over the model ranks (whole with one), or, with `bundle`, the
+    ring per data rank."""
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+    from sagnn_tpu_torch.models.selfgnn import SelfGNN
+    from sagnn_tpu_torch.parallel import distributed as dist_
+    from sagnn_tpu_torch.parallel.edge_partition import ring_graphs_per_row
+    from sagnn_tpu_torch.parallel.sharding import (ShardingRules,
+                                                   graphs_per_row,
+                                                   param_shardings)
+    from sagnn_tpu_torch.train.optim import TF1Adam
+
+    ring = cfg.model.spmm_backend == "ring"
+    rules = ShardingRules(mesh)
+    model = SelfGNN(cfg.model, NUM_USERS, NUM_ITEMS, mesh=mesh.row(0))
+    opt = TF1Adam(cfg.train.lr, cfg.train.decay, cfg.train.decay_step)
+    state = dist_.place_state(
+        {"params": params, "opt_state": opt.init(params), "step": 0},
+        param_shardings(rules, params, split_tables=not ring), mesh)
+    if ring:
+        rows, masks = ring_graphs_per_row(
+            compile_interval_graphs(bundle.sub_mats), mesh), {}
+    else:
+        rows = graphs_per_row(graphs, mesh, NUM_USERS, NUM_ITEMS)
+        masks = graphs
+    return state, dist_.make_sharded_train_step(rules, model, opt, cfg, rows,
+                                                masks)
+
+
+def _per_hop(kinks: list, hops: int, model_ranks: int) -> list:
+    """Data rank 0's recorded kinks (the first hops x model_ranks; every
+    data rank encodes the same), one mask per hop, its model ranks' rows
+    laid end to end (`_ring_hop_kinks`)."""
+    return _ring_hop_kinks(kinks[:hops * model_ranks], model_ranks)
+
+
+def check_mesh_step(got, want, tc, what) -> tuple[float, str]:
+    """A mesh step's (totals, whole gradients) against the single-device
+    step's `loss_and_grads`: preLoss and loss at LOSS_RTOL, every gradient
+    at GRAD_RTOL with atol GRAD_ATOL_SHARE x the largest |g| (`check_step`'s
+    tolerances)."""
+    import torch
+    from sagnn_tpu_torch.models.selfgnn import reg_loss
+    totals, grads = got
+    pre, ssl, g_r, leaves = want
+    loss = pre + tc.reg * reg_loss(leaves).detach() + tc.ssl_reg * ssl
+    for name, a, b in (("preLoss", totals["preLoss"], pre),
+                       ("loss", totals["loss"], loss)):
+        check_close(a.reshape(1), b.reshape(1), LOSS_RTOL, 0.0,
+                    f"{what} {name} vs the single-device step")
+    g_max = max(float(g.abs().max()) for g in g_r.values())
+    atol = GRAD_ATOL_SHARE * g_max
+    used = {k: tolerance_used(grads[k], g_r[k], GRAD_RTOL, atol)
+            for k in g_r}
+    worst = max(used.items(), key=lambda kv: kv[1][1])
+    log(f"  {what} gradients vs the single-device step (rtol {GRAD_RTOL}, "
+        f"atol {atol:.3e} = {GRAD_ATOL_SHARE} x max|g| {g_max:.3e}): "
+        f"largest share {worst[1][1]:.2f} ({worst[0]}, err "
+        f"{worst[1][0]:.2e})")
+    check(worst[1][1] <= 1.0 and all(bool(torch.isfinite(v).all())
+                                     for v in grads.values()),
+          f"{what} gradient {worst[0]}: {worst[1][1]:.2f} of the tolerance")
+    return worst[1][1], worst[0]
+
+
+def _blocked_wait_cpu_share() -> float:
+    """The CPU share of this process over a 0.5 s device wait
+    (torch.cuda._sleep, then synchronize)."""
+    import torch
+    c0, t0 = time.process_time(), time.perf_counter()
+    torch.cuda._sleep(int(0.5 * 2e9))
+    torch.cuda.synchronize()
+    return (time.process_time() - c0) / (time.perf_counter() - t0)
+
+
+def _quartiles(xs: list) -> dict:
+    """The median and quartiles of `xs`, unrounded."""
+    import statistics
+    q1, med, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return {"n": len(xs), "q1": q1, "median": med, "q3": q3}
+
+
+def _host_waits(step) -> int:
+    """The host waits on the card that torch reports in one `step`
+    (`torch.cuda.set_sync_debug_mode`; a copy or launch made outside torch
+    is not seen)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchronizing" in str(w.message) for w in seen)
+
+
+def blocking_sync_cost(step) -> dict:
+    """The cost of blocking sync (`device.set_blocking_sync`, what a
+    supervised child sets) against CUDA's default spinning waits, taken in
+    BLOCKING_SYNC_ROUNDS rounds that alternate which setting goes first:
+    (1) one device wait's wake-up, the host ms of a BLOCKING_SYNC_CYCLES
+    `torch.cuda._sleep` and its synchronize less the sleep's own device ms
+    (CUDA events); (2) the host ms of one synchronised `step`. Each gives
+    the median and quartiles per setting and the difference of medians;
+    the step's host waits as torch counts them say how many wake-ups a
+    step pays. Each setting's CPU share of a device wait is checked, so
+    the flags took. The flags are put back after."""
+    import torch
+    from sagnn_tpu_torch import device as device_mod
+
+    flags = {"spin": device_mod.SCHEDULE_AUTO,
+             "block": device_mod.SCHEDULE_BLOCKING_SYNC}
+    before = device_mod.set_blocking_sync(device_mod.SCHEDULE_AUTO)
+    wake = {"spin": [], "block": []}
+    steps = {"spin": [], "block": []}
+    share = {}
+    try:
+        for how in ("spin", "block"):
+            device_mod.set_blocking_sync(flags[how])
+            share[how] = _blocked_wait_cpu_share()
+        step()   # warm
+        torch.cuda.synchronize()
+        for r in range(BLOCKING_SYNC_ROUNDS):
+            for how in (("spin", "block") if r % 2 == 0
+                        else ("block", "spin")):
+                device_mod.set_blocking_sync(flags[how])
+                torch.cuda.synchronize()
+                for _ in range(BLOCKING_SYNC_WAITS):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    e0.record()
+                    torch.cuda._sleep(BLOCKING_SYNC_CYCLES)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    host = (time.perf_counter() - t0) * 1e3
+                    wake[how].append(host - e0.elapsed_time(e1))
+                for _ in range(BLOCKING_SYNC_STEPS):
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    steps[how].append((time.perf_counter() - t0) * 1e3)
+        device_mod.set_blocking_sync(flags["block"])
+        waits = _host_waits(step)
+    finally:
+        device_mod.set_blocking_sync(before & device_mod.SCHEDULE_MASK)
+    check(share["spin"] > 0.5 > share["block"],
+          f"scheduling flags: CPU share of a device wait {share}")
+    out = {"wake_ms": {k: _quartiles(v) for k, v in wake.items()},
+           "step_ms": {k: _quartiles(v) for k, v in steps.items()},
+           "step_ms_all": steps, "wait_cpu_share": share,
+           "host_waits_per_step": waits}
+    out["wake_cost_ms"] = (out["wake_ms"]["block"]["median"]
+                           - out["wake_ms"]["spin"]["median"])
+    out["step_cost_ms"] = (out["step_ms"]["block"]["median"]
+                           - out["step_ms"]["spin"]["median"])
+
+    def fmt(q):
+        return f"{q['median']:.4f} [{q['q1']:.4f}, {q['q3']:.4f}]"
+
+    log(f"blocking sync ({BLOCKING_SYNC_ROUNDS} rounds in alternating "
+        f"order): a device wait's wake-up {fmt(out['wake_ms']['block'])} "
+        f"ms against {fmt(out['wake_ms']['spin'])} spinning, median and "
+        f"quartiles of {out['wake_ms']['spin']['n']} each "
+        f"({out['wake_cost_ms']:+.4f} ms a wait); a step "
+        f"{fmt(out['step_ms']['block'])} ms against "
+        f"{fmt(out['step_ms']['spin'])} of {out['step_ms']['spin']['n']} "
+        f"each ({out['step_cost_ms']:+.4f} ms); {waits} host waits per "
+        f"step seen by torch; CPU share of a device wait "
+        f"{share['block']:.2f} against {share['spin']:.2f}")
+    return out
+
+
+def mesh_phase(cfg, bundle, params, batch, rec, vrecs, device) -> dict:
+    """22. Mesh training at the preset's width on a one-card mesh (every
+    rank on the card; NCCL refuses two ranks on one card, so one process
+    drives the grid): one keepRate-1 step on each MESH_SHAPES mesh
+    ("pallas", the tables split over the model ranks) against the
+    single-device "pallas" step on phase 6's batch and phase 5's weights
+    (`check_mesh_step`; each hop's leaky-relu on the mesh path's side of
+    the kink), its K1 launches (hops per data rank per model rank, forward
+    and backward) and device time; one keepRate-0.5 step on 2 x 2 against
+    the single-device step on the same generator state; the ring on 2 x 2
+    (one ring per data rank) for one step against "pallas";
+    `Trainer(mesh=2x2).run()` for a MESH_TRN_NUM epoch, a full-sort
+    evaluation, its checkpoint restored into a "pallas" Trainer without a
+    mesh (params bit for bit, metrics within one user's rank); the K2
+    (sym_sqrt, phase 8's weights) and K4 (spmm_fold_gather) steps on 2 x 2
+    and the edge-attention step (K5 with K2) on 2 x 1 against their
+    single-device steps; the cost of blocking sync on one
+    single-device step. Returns its results."""
+    import torch
+    from sagnn_tpu_torch.models.selfgnn import SelfGNN
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.sharding import gather
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    tc = cfg.train
+    mc1 = dataclasses.replace(cfg.model, keep_rate=1.0)
+    cfg1 = cfg.replace(model=mc1)
+    hops = mc1.graph_num * mc1.gnn_layer * 2
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    pallas1 = SelfGNN(mc1, NUM_USERS, NUM_ITEMS)
+    out = {"launches": {}, "steps": {}}
+
+    def single(model, gen=None, kinks=None, graphs=None):
+        def replay(x, leaky):
+            return torch.where(kinks.pop(0)[:x.shape[0]], x, leaky * x)
+        with (_hop_relu(replay) if kinks is not None
+              else contextlib.nullcontext()):
+            pre, ssl, g = loss_and_grads(model, leaves, graphs or rec.graphs,
+                                         batch, tc, gen)
+        if kinks is not None:
+            check(not kinks, "every mesh hop replayed on the single step")
+        return pre, ssl, g, leaves
+
+    def whole(state, grads):
+        return {k: gather(v, state.specs[k], device) for k, v in
+                grads.items()}
+
+    def run_step(name, cfg_, shape, gen=None, ring_bundle=None,
+                 want_launches=None, graphs=None):
+        mesh = make_mesh(*shape, devices=[device] * (shape[0] * shape[1]))
+        state, step = _mesh_step(cfg_, mesh, params, graphs or rec.graphs,
+                                 ring_bundle)
+        kinks = []
+        sc.reset_launches()
+        with kernel_kinks(kinks):
+            totals, grads = step.loss_and_grads(state, batch, gen)
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        out["launches"][name] = {k: v for k, v in launches.items() if v}
+        log(f"mesh {name} step launches: {out['launches'][name]}")
+        expect_launches(launches, f"mesh {name} step", **want_launches)
+        return state, step, (totals, whole(state, grads)), _per_hop(
+            kinks, hops, shape[1])
+
+    for shape in MESH_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        per = hops * shape[0] * shape[1]
+        state, step, got, kinks = run_step(
+            name, cfg1, shape,
+            want_launches={"segsum_f32": per, "segsum_f32_bwd": per})
+        share, worst = check_mesh_step(got, single(pallas1, kinks=kinks),
+                                       tc, f"mesh {name}")
+        out["steps"][name] = {
+            "grad_check_share": share, "grad_check_worst": worst,
+            "device_ms": step_device_ms(
+                lambda: step.loss_and_grads(state, batch))}
+        del got, state, step
+    out["single_step_device_ms"] = step_device_ms(
+        lambda: loss_and_grads(pallas1, leaves, rec.graphs, batch, tc))
+    log(f"mesh steps' device time (forward + backward) "
+        f"{ {k: v['device_ms'] for k, v in out['steps'].items()} } ms "
+        f"against the single-device step's "
+        f"{out['single_step_device_ms']} ms")
+
+    # keepRate 0.5: the masks drawn once from one generator state
+    gen = torch.Generator(device=device).manual_seed(PARAM_SEED + 22)
+    gen_state = gen.get_state()
+    n22 = hops * 4
+    _, _, got, kinks = run_step(
+        "2x2_keep0.5", cfg, (2, 2), gen,
+        want_launches={"segsum_f32": n22, "segsum_f32_bwd": n22})
+    gen.set_state(gen_state)
+    out["steps"]["2x2_keep0.5"] = {"grad_check_share": check_mesh_step(
+        got, single(SelfGNN(cfg.model, NUM_USERS, NUM_ITEMS), gen, kinks),
+        tc, "mesh 2x2 keepRate 0.5")[0]}
+    del got
+
+    # K2 (sym_sqrt weights) and K4 (row-folded gathers) on 2 x 2
+    for name, kw, graphs, kernel in (
+            ("2x2_sym_sqrt", {"edge_norm": "sym_sqrt"},
+             vrecs["sym_sqrt"].graphs, "wsegsum_f32"),
+            ("2x2_fold", {"spmm_fold_gather": True}, rec.graphs,
+             "segsum_fold_f32")):
+        vcfg = cfg1.replace(model=dataclasses.replace(mc1, **kw))
+        _, _, got, kinks = run_step(
+            name, vcfg, (2, 2), graphs=graphs,
+            want_launches={kernel: n22, kernel + "_bwd": n22})
+        out["steps"][name] = {"grad_check_share": check_mesh_step(
+            got, single(SelfGNN(vcfg.model, NUM_USERS, NUM_ITEMS),
+                        kinks=kinks, graphs=graphs), tc, f"mesh {name}")[0]}
+        del got
+
+    # edge attention (K5 with K2) on a data-parallel 2 x 1 mesh: each data
+    # rank runs the single-device encode, which takes it
+    acfg = cfg1.replace(model=dataclasses.replace(mc1, edge_attention=True))
+    agraphs = vrecs["attention"].graphs
+    _, _, got, kinks = run_step(
+        "2x1_attention", acfg, (2, 1), graphs=agraphs,
+        want_launches={"sddmm_f32": hops * 2, "sddmm_f32_bwd": hops * 2,
+                       "wsegsum_f32": hops * 2,
+                       "wsegsum_f32_bwd": 3 * hops * 2})
+    out["steps"]["2x1_attention"] = {"grad_check_share": check_mesh_step(
+        got, single(SelfGNN(acfg.model, NUM_USERS, NUM_ITEMS), kinks=kinks,
+                    graphs=agraphs), tc, "mesh 2x1 attention")[0]}
+    del got
+
+    # the ring with data = 2: one ring per data rank
+    ring_cfg = cfg1.replace(model=dataclasses.replace(mc1,
+                                                      spmm_backend="ring"))
+    rper = hops * 2 * 2 * 2           # P x P buckets per hop, per data rank
+    _, _, got, kinks = run_step(
+        "ring_2x2", ring_cfg, (2, 2), ring_bundle=bundle,
+        want_launches={"ring_segsum_f32": rper,
+                       "ring_segsum_f32_bwd": rper})
+    out["steps"]["ring_2x2"] = {"grad_check_share": check_mesh_step(
+        got, single(pallas1, kinks=kinks), tc, "ring 2x2")[0]}
+    del got
+
+    # Trainer(mesh=2x2).run(), a full-sort evaluation, the checkpoint into
+    # a "pallas" Trainer without a mesh
+    steps = -(-MESH_TRN_NUM // tc.batch)
+    run_cfg = cfg.replace(train=dataclasses.replace(
+        tc, trn_num=MESH_TRN_NUM, epoch=1, tst_epoch=1, save_path="mesh"))
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        trainer = Trainer(run_cfg, bundle, ckpt_root=root,
+                          mesh=make_mesh(2, 2, devices=[device] * 4))
+        out["trainer_init_s"] = time.perf_counter() - t0
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        best = trainer.run()
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        launches = dict(sc.LAUNCHES)
+        out["launches"]["trainer_run"] = {k: v for k, v in launches.items()
+                                          if v}
+        log(f"mesh 2x2 training run launches: "
+            f"{out['launches']['trainer_run']}")
+        check(trainer.state["step"] == steps, f"one epoch of {steps} steps")
+        # per step 12 per (data, model) rank both ways; per evaluation (the
+        # epoch's and the final) 12 per model rank of data rank 0
+        expect_launches(launches, "mesh 2x2 training run",
+                        segsum_f32=hops * 4 * steps + hops * 2 * 2,
+                        segsum_f32_bwd=hops * 4 * steps)
+        stats = trainer.step_stats
+        check(all(math.isfinite(st[k]) for st in stats for k in st),
+              "every mesh training loss finite")
+        fs = trainer.test_epoch(full_sort=True)
+        trainer.ckpt.save(trainer.state, trainer.history, trainer.cfg,
+                          rng_state=trainer.capture_rng_state(1))
+        back = Trainer(run_cfg.replace(train=dataclasses.replace(
+            run_cfg.train, epoch=2, load_model="mesh")), bundle,
+            ckpt_root=root, device=device)
+        check(back.restore_checkpoint() == 1 and back.state["step"] == steps,
+              "mesh checkpoint restored into a pallas Trainer at epoch 1")
+        want = trainer.state["params"]
+        for k, v in back.state["params"].items():
+            check(torch.equal(v, want[k]), f"restored param {k} bit for bit")
+        got_c, got_f = back.test_epoch(), back.test_epoch(full_sort=True)
+        users = len(bundle.tst_usrs)
+        diffs = {f"{what}{k}": abs(a[k] - b[k])
+                 for what, a, b in (("", got_c, best), ("fs_", got_f, fs))
+                 for k in ("HR", "NDCG")}
+        # one user's rank moves a mean metric by at most 1 / users; the
+        # slack covers the f32 sums the means are taken from
+        check(max(diffs.values()) <= (1.0 + 1e-4) / users,
+              f"restored metrics within one user's rank: {diffs}")
+        times = trainer.step_timer.times[1:]
+        out.update(steps_run=steps,
+                   step_ms_mean=sum(times) / max(1, len(times)) * 1e3,
+                   metrics={k: best[k] for k in ("HR", "NDCG")},
+                   full_sort={k: fs[k] for k in ("HR", "NDCG")},
+                   restored_metric_diffs=diffs)
+    log(f"mesh 2x2 training: run {out['run_s']:.2f} s ({steps} steps, two "
+        f"evaluations), step {out['step_ms_mean']:.2f} ms mean after the "
+        f"first; restored into pallas, metric diffs {diffs}")
+
+    out["blocking_sync"] = blocking_sync_cost(
+        lambda: loss_and_grads(pallas1, leaves, rec.graphs, batch, tc))
+    return out
+
+
+def mp_args(data_dir: str) -> list:
+    """`parallel.multihost`'s train flags for phase 23 (and the config of
+    its single-process reference)."""
+    return ["--mode", "train", "--data_dir", data_dir, "--preset",
+            "gowalla", "--spmm_backend", "pallas", "--trn_num",
+            str(MESH_TRN_NUM), "--eval_users", str(EVAL_USERS)]
+
+
+def multiprocess_phase(bundle, device) -> dict:
+    """23. Two processes over gloo sharing the card: the bundle written
+    once (`data/io.save_dataset`), the single-process 2 x 1 mesh run on
+    it (`parallel.multihost`'s config: the preset, "pallas", MESH_TRN_NUM
+    users, EVAL_USERS evaluated), then `python -m
+    sagnn_tpu_torch.parallel.multihost --mode train --procs 2 --device
+    cuda` held to it: the losses at MP_RTOL, HR/NDCG with candidates and
+    full sort within one user's rank; then `--mode ring --procs 2` (the ring with a 'model' axis of
+    processes, K6) and its checksum. Returns its results."""
+    import torch
+    from sagnn_tpu_torch.data.io import load_dataset, save_dataset
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.multihost import parse_args, train_config
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        data_dir = os.path.join(root, "gowalla_bundle")
+        t0 = time.perf_counter()
+        save_dataset(data_dir, bundle)
+        out["save_s"] = time.perf_counter() - t0
+        cfg = train_config(parse_args(mp_args(data_dir)))
+        t0 = time.perf_counter()
+        ref = Trainer(cfg, load_dataset(data_dir),
+                      ckpt_root=os.path.join(root, "ref"),
+                      mesh=make_mesh(MP_PROCS, 1,
+                                     devices=[device] * MP_PROCS))
+        sc.reset_launches()
+        ref_out = ref.train_epoch(verbose=False)
+        torch.cuda.synchronize()
+        ref_launches = {k: v for k, v in sc.LAUNCHES.items() if v}
+        mets = ref.test_epoch(max_users=EVAL_USERS)
+        fs = ref.test_epoch(max_users=EVAL_USERS, full_sort=True)
+        out["reference_s"] = time.perf_counter() - t0
+        del ref
+
+        def run(*args):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "sagnn_tpu_torch.parallel.multihost",
+                 "--procs", str(MP_PROCS), "--device", device.type,
+                 "--timeout",
+                 str(MP_TIMEOUT_S), *args], capture_output=True, text=True,
+                cwd=ROOT, timeout=MP_TIMEOUT_S + 30)
+            check(proc.returncode == 0,
+                  f"multihost {args[:2]}: {proc.stderr[-3000:]}")
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("{")][-1]
+            return json.loads(line), time.perf_counter() - t0
+
+        res, out["train_s"] = run(*mp_args(data_dir))
+    steps = -(-MESH_TRN_NUM // cfg.train.batch)
+    check(res["processes"] == MP_PROCS and res["steps"] == steps,
+          f"multihost train: {res}")
+    # one user's rank moves a mean metric by at most 1 / users; the slack
+    # covers the f32 sums the means are taken from
+    one_user = (1.0 + 1e-4) / EVAL_USERS
+    for key, want, rtol, atol in (
+            ("Loss", ref_out["Loss"], MP_RTOL, 0.0),
+            ("preLoss", ref_out["preLoss"], MP_RTOL, 0.0),
+            ("HR", mets["HR"], 0.0, one_user),
+            ("NDCG", mets["NDCG"], 0.0, one_user),
+            ("fs_HR", fs["HR"], 0.0, one_user),
+            ("fs_NDCG", fs["NDCG"], 0.0, one_user)):
+        check_close(torch.tensor([res[key]]), torch.tensor([want]), rtol,
+                    atol, f"2 processes {key} vs the 2 x 1 mesh")
+    # process 0 is one data rank of one model rank: 12 + 12 per step
+    hops = cfg.model.graph_num * cfg.model.gnn_layer * 2
+    expect_launches({k: res["launches"].get(k, 0) for k in sc.LAUNCHES},
+                    "process 0's epoch", segsum_f32=hops * steps,
+                    segsum_f32_bwd=hops * steps)
+    expect_launches({k: ref_launches.get(k, 0) for k in sc.LAUNCHES},
+                    "the 2 x 1 mesh's epoch",
+                    segsum_f32=hops * steps * MP_PROCS,
+                    segsum_f32_bwd=hops * steps * MP_PROCS)
+    out["train"] = res
+    out["reference_launches"] = ref_launches
+    ring, out["ring_s"] = run("--mode", "ring")
+    check(ring["checksum_ok"] is True, f"multihost ring checksum: {ring}")
+    # 5 timed hops, P buckets each (the warm-up hop is not counted)
+    expect_launches({k: ring["launches"].get(k, 0) for k in sc.LAUNCHES},
+                    "process 0's ring", ring_segsum_f32=5 * MP_PROCS)
+    out["ring"] = ring
+    log(f"2 processes: train {out['train_s']:.1f} s (epoch "
+        f"{res['epoch_seconds']:.2f} s, gloo all-reduce "
+        f"{res['allreduce_ms_per_step']:.2f} ms per step), Loss "
+        f"{res['Loss']:.6f}; ring {out['ring_s']:.1f} s, "
+        f"{ring['edges_per_sec'] / 1e9:.4f} Gedges/s, checksum ok")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4545,6 +5085,18 @@ def drive(device) -> None:
     phase_s["ring"] = time.perf_counter() - t0
     log(f"phase ring: {phase_s['ring']:.1f} s")
 
+    # 22. training over data x model meshes of the card's ranks
+    t0 = time.perf_counter()
+    mesh = mesh_phase(cfg, bundle, rec.params, batch, rec, vrecs, device)
+    phase_s["mesh"] = time.perf_counter() - t0
+    log(f"phase mesh: {phase_s['mesh']:.1f} s")
+
+    # 23. two processes over gloo sharing the card
+    t0 = time.perf_counter()
+    multiprocess = multiprocess_phase(bundle, device)
+    phase_s["multi-process"] = time.perf_counter() - t0
+    log(f"phase multi-process: {phase_s['multi-process']:.1f} s")
+
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
     t0 = time.perf_counter()
@@ -4706,6 +5258,30 @@ def drive(device) -> None:
     records["segsum_f32_bwd"].update(
         launches_profiled_epoch=profiler_trace["launches"].get(
             "segsum_f32_bwd", 0))
+    # phases 22 and 23, each path counted from 0 just before it: the mesh
+    # steps (per step, every data and model rank), the 2 x 2 Trainer run,
+    # process 0 of the two-process epoch and ring
+    ml = mesh["launches"]
+    mp_train = multiprocess["train"]["launches"]
+    for name in ("segsum_f32", "segsum_f32_bwd"):
+        records[name].update(
+            launches_mesh_step={k: ml[k][name] for k in
+                                ("2x2", "4x1", "2x2_keep0.5")},
+            launches_mesh_trainer_run=ml["trainer_run"][name],
+            launches_two_process_epoch_process0=mp_train[name])
+    for name in ("wsegsum_f32", "wsegsum_f32_bwd"):
+        records[name]["launches_mesh_step_2x2_sym_sqrt"] = \
+            ml["2x2_sym_sqrt"][name]
+    for name in ("segsum_fold_f32", "segsum_fold_f32_bwd"):
+        records[name]["launches_mesh_step_2x2_fold"] = ml["2x2_fold"][name]
+    for name in ("sddmm_f32", "sddmm_f32_bwd", "wsegsum_f32",
+                 "wsegsum_f32_bwd"):
+        records[name]["launches_mesh_step_2x1_attention"] = \
+            ml["2x1_attention"][name]
+    for name in ("ring_segsum_f32", "ring_segsum_f32_bwd"):
+        records[name]["launches_mesh_ring_step_2x2"] = ml["ring_2x2"][name]
+    records["ring_segsum_f32"]["launches_two_process_ring_process0"] = \
+        multiprocess["ring"]["launches"]["ring_segsum_f32"]
     schedule_report(records)
     kernels = []
     for r in records.values():
@@ -4757,7 +5333,8 @@ def drive(device) -> None:
         "bf16_b4096": {k: v for k, v in bf16_b4096.items()
                        if k != "trainer_losses"},
         "tf1_import": tf1, "user_path": user_path,
-        "sharded_serving": sharded, "profiler_trace": profiler_trace}
+        "sharded_serving": sharded, "profiler_trace": profiler_trace,
+        "mesh": mesh, "multiprocess": multiprocess}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

@@ -184,17 +184,28 @@ class Sampler:
         """np.random.permutation(num_users)[:trnNum] (model.py:343)."""
         return self.rng.permutation(self.bundle.num_users)[:trn_num]
 
-    def train_batch(self, bat_ids: np.ndarray) -> TrainBatch:
+    def train_batch(self, bat_ids: np.ndarray,
+                    batch_cap: Optional[int] = None,
+                    ssl_ids: Optional[np.ndarray] = None,
+                    ssl_cols: Optional[Tuple[int, int]] = None
+                    ) -> TrainBatch:
         """One train batch (numpy arrays) for `bat_ids`, sized for
-        `self.batch` users; rows past len(bat_ids) are padding with mask 0.
-        Per-user draws are seeded by (batch_seed, user), the JAX sampler's
-        determinism contract."""
+        `batch_cap` users (default `self.batch`); rows past len(bat_ids)
+        are padding with mask 0. Per-user draws are seeded by (batch_seed,
+        user) and land in fixed per-user slots, the JAX sampler's
+        determinism contract: a slice of a batch draws exactly the rows the
+        whole batch would. ssl_ids: the id set of the SSL half (default
+        bat_ids), whose pairing is global across the batch; ssl_cols:
+        (start, size), only that window of the SSL pair columns
+        (`ssl_batch`)."""
         batch_seed = int(self.rng.integers(0, 2 ** 63))
-        ssl = self.ssl_batch(bat_ids)
+        ssl = self.ssl_batch(bat_ids if ssl_ids is None else ssl_ids,
+                             ssl_cols=ssl_cols)
+        B = batch_cap or self.batch
         if self._native is not None:
             lib, state = self._native
             uids, pos_iids, neg_iids, useq_row, pair_mask, seq, mask = \
-                ns.native_train_batch(lib, state, bat_ids, self.batch,
+                ns.native_train_batch(lib, state, bat_ids, B,
                                       self.samp_num, self.pred_num,
                                       self.pos_length, self.bundle.num_items,
                                       batch_seed)
@@ -203,7 +214,7 @@ class Sampler:
                               pair_mask=pair_mask, seq=seq, seq_mask=mask,
                               **ssl)
         b = self.bundle
-        B, P = self.batch, self.batch * self.samp_num
+        P = B * self.samp_num
         uids = np.zeros(P, dtype=np.int32)
         pos_iids = np.zeros(P, dtype=np.int32)
         neg_iids = np.zeros(P, dtype=np.int32)
@@ -243,67 +254,98 @@ class Sampler:
                           useq_row=useq_row, pair_mask=pair_mask, seq=seq,
                           seq_mask=seq_mask, **ssl)
 
+    def train_batch_slice(self, bat_ids: np.ndarray, start: int,
+                          size: int) -> TrainBatch:
+        """Rows [start, start + size) of the batch `bat_ids` (JAX
+        `Sampler.train_batch_slice`, sampler.py:165-180): the train arrays
+        of those users and the SSL pair columns [start·ssl_num,
+        (start + size)·ssl_num), equal byte for byte to the same rows and
+        columns of `train_batch(bat_ids)` by the determinism contracts of
+        `train_batch` and `ssl_batch`, and drawing the same numbers from
+        self.rng. useq_row stays local to the slice's seq rows."""
+        return self.train_batch(
+            bat_ids[start:start + size], batch_cap=size, ssl_ids=bat_ids,
+            ssl_cols=(start * self.ssl_num, size * self.ssl_num))
+
     # -- ssl ---------------------------------------------------------------
 
-    def ssl_batch(self, bat_ids: np.ndarray) -> dict:
-        """SSL pair arrays [g, batch * ssl_num].
+    def ssl_batch(self, bat_ids: np.ndarray,
+                  ssl_cols: Optional[Tuple[int, int]] = None) -> dict:
+        """SSL pair arrays [g, batch * ssl_num], or the [g, size] column
+        window ssl_cols = (start, size) of them.
 
         Reference layout (model.py:186-196 + 328-338): interleaved
         (u, pos_j)(u, neg_j) draws flattened across the batch, split at the
         global half, so pair column j pairs flat entry j with entry
-        half + j. One seed per interval from self.rng; per-user draws
-        seeded by (interval_seed, user)."""
+        half + j. One seed per interval from self.rng, drawn whatever the
+        window; per-user draws seeded by (interval_seed, user) land at flat
+        positions fixed by the per-user pair counts (min(ssl_num,
+        |row|//2), prefix-summed over the batch), so any window equals
+        those columns of the whole batch's arrays (JAX's contract,
+        sampler.py:234-258)."""
         g = self.bundle.graph_num
-        size = self.batch * self.ssl_num
+        col_start, col_size = ssl_cols or (0, self.batch * self.ssl_num)
         seeds = [int(self.rng.integers(0, 2 ** 63)) for _ in range(g)]
-        out = {k: np.zeros((g, size),
+        out = {k: np.zeros((g, col_size),
                            np.float32 if k == "ssl_mask" else np.int32)
                for k in ("ssl_u_a", "ssl_i_a", "ssl_u_b", "ssl_i_b",
                          "ssl_mask")}
         for k in range(g):
             if self._native is None:
-                self._ssl_interval(k, bat_ids, seeds[k], size, out)
+                self._ssl_interval(k, bat_ids, seeds[k], col_start,
+                                   col_size, out)
                 continue
             lib, state = self._native
             for key, a in zip(("ssl_u_a", "ssl_i_a", "ssl_u_b", "ssl_i_b",
                                "ssl_mask"),
                               ns.native_ssl_batch(lib, state, k, bat_ids,
-                                                  self.ssl_num, seeds[k], 0,
-                                                  size)):
+                                                  self.ssl_num, seeds[k],
+                                                  col_start, col_size)):
                 out[key][k] = a
         return out
 
     def _ssl_interval(self, k: int, bat_ids: np.ndarray, seed: int,
-                      size: int, out: dict) -> None:
-        """Interval k's pairs into row k of `out` (JAX
-        `_ssl_interval_numpy` over the whole column range)."""
+                      col_start: int, col_size: int, out: dict) -> None:
+        """Interval k's pairs in columns [col_start, col_start + col_size)
+        into row k of `out` (JAX `_ssl_interval_numpy`): only the users
+        whose draws reach the window draw."""
         csr = self._sub_csrs[k]
         ids = np.asarray(bat_ids, dtype=np.int64)
         deg = csr.indptr[ids + 1] - csr.indptr[ids]
         counts = 2 * np.minimum(self.ssl_num, deg // 2).astype(np.int64)
-        total = int(counts.sum())
+        prefix = np.zeros(len(ids) + 1, np.int64)
+        np.cumsum(counts, out=prefix[1:])
+        total = int(prefix[-1])
         half = total // 2
-        flat_u = np.empty(total, np.int32)
-        flat_i = np.empty(total, np.int32)
-        p0 = 0
-        for u, c in zip(ids, counts):
-            if c == 0:
-                continue
-            rng_u = np.random.default_rng((seed, int(u)))
-            row = csr.indices[csr.indptr[u]:csr.indptr[u + 1]]
-            n = int(c) // 2
-            draws = rng_u.choice(row, int(c))      # with replacement
-            flat_u[p0:p0 + c] = u
-            flat_i[p0:p0 + c:2] = draws[:n]
-            flat_i[p0 + 1:p0 + c:2] = draws[n:]
-            p0 += int(c)
-        a = min(half, size)
-        out["ssl_u_a"][k, :a] = flat_u[:a]
-        out["ssl_i_a"][k, :a] = flat_i[:a]
-        b = min(total - half, size)
-        out["ssl_u_b"][k, :b] = flat_u[half:half + b]
-        out["ssl_i_b"][k, :b] = flat_i[half:half + b]
-        out["ssl_mask"][k, :a] = 1.0
+        col_end = col_start + col_size
+
+        def emit(lo, hi, base, du, di):
+            """Flat entries [lo, hi) into du/di from index lo - base."""
+            if hi <= lo:
+                return
+            i = max(0, int(np.searchsorted(prefix, lo, "right")) - 1)
+            while i < len(ids) and prefix[i] < hi:
+                p0, c = int(prefix[i]), int(counts[i])
+                u = int(ids[i])
+                i += 1
+                s, e = max(lo, p0), min(hi, p0 + c)
+                if c == 0 or s >= e:
+                    continue
+                rng_u = np.random.default_rng((seed, u))
+                row = csr.indices[csr.indptr[u]:csr.indptr[u + 1]]
+                n = c // 2
+                draws = rng_u.choice(row, c)      # with replacement
+                inter = np.empty(c, np.int32)
+                inter[0::2] = draws[:n]
+                inter[1::2] = draws[n:]
+                du[s - base:e - base] = u
+                di[s - base:e - base] = inter[s - p0:e - p0]
+
+        emit(col_start, min(col_end, half), col_start,
+             out["ssl_u_a"][k], out["ssl_i_a"][k])
+        emit(half + col_start, min(half + col_end, total),
+             half + col_start, out["ssl_u_b"][k], out["ssl_i_b"][k])
+        out["ssl_mask"][k, :max(0, min(col_end, half) - col_start)] = 1.0
 
     # -- test ---------------------------------------------------------------
 

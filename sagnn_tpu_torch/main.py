@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 from sagnn_tpu_torch.config import (Config, DataConfig, ModelConfig, PRESETS,
@@ -215,6 +216,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         from sagnn_tpu_torch.train.supervisor import supervise_main
         ns.save_path = cfg.train.save_path  # preset-aware
         raise SystemExit(supervise_main(ns, raw))
+    from sagnn_tpu_torch.train.supervisor import BLOCKING_SYNC_ENV
+    if os.environ.get(BLOCKING_SYNC_ENV) == "1":
+        # a supervised child on the card: its host waits sleep, so a hung
+        # device op shows as an idle child (before any CUDA call here)
+        from sagnn_tpu_torch.device import set_blocking_sync
+        set_blocking_sync()
     log("Start")
     if ns.data == "synthetic" and ns.synth_edges > 0:
         from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset

@@ -1,5 +1,7 @@
 """SelfGNN: training losses, encode, score and top-k; the port of
-`sagnn_tpu/models/selfgnn.py` (its single-device paths).
+`sagnn_tpu/models/selfgnn.py` (its single-device paths, the "ring"
+backend over a mesh's model row, and the encode of one data rank whose
+node tables are split over its model ranks, `SelfGNN.encode_sharded`).
 
 Parameters are one flat dict of tensors keyed by the JAX param pytree's
 paths ("reg/u_embed", "free/seq_mhsa/0/wq", ...), so a JAX pytree, an
@@ -57,6 +59,8 @@ from sagnn_tpu_torch.ops.spmm_cuda import (build_stacked_plans,
 from sagnn_tpu_torch.parallel.edge_partition import (ring_spmm,
                                                      ring_spmm_apply_plain,
                                                      shard, unshard)
+from sagnn_tpu_torch.parallel.sharding import (TPGraphs, TPHop, TPRank,
+                                               all_gather, tp_spmm)
 
 Params = Dict[str, torch.Tensor]
 
@@ -86,13 +90,13 @@ class TrainBatch:
     ssl_mask: Any    # [g, Pssl]
 
     def to(self, device: torch.device | str) -> "TrainBatch":
-        """The same batch as tensors on `device`. A copy to a card goes
-        through pinned memory and does not block the host."""
+        """The same batch as tensors on `device`. A copy from the host to a
+        card goes through pinned memory and does not block the host."""
         dev = torch.device(device)
 
         def move(a):
             t = torch.as_tensor(a)
-            if dev.type == "cuda":
+            if dev.type == "cuda" and t.device.type == "cpu":
                 return t.pin_memory().to(dev, non_blocking=True)
             return t.to(dev)
 
@@ -439,6 +443,73 @@ def _ring_interval(ring: Dict, cfg: ModelConfig, num_users: int,
     return interval
 
 
+def _tp_interval_propagation(params: Dict[str, list], tp: TPGraphs,
+                             cfg: ModelConfig, masks: "StepMasks"
+                             ) -> Tuple[list, list]:
+    """`_interval_propagation` of one data rank with the node tables split
+    over its model ranks ("xla" and "pallas", unweighted and weighted, K4
+    with spmm_fold_gather): every hop gives each model rank the rows it
+    owns, from the source side's shards (`parallel/sharding.py`). Returns
+    the per-rank user_vec [g, rows_m, D] and item_vec shards."""
+    pallas = cfg.spmm_backend == "pallas"
+    weights = masks.edge_weights
+    if weights is None and cfg.edge_norm is not None:
+        weights = tuple(tp.graphs[0]["edge_weights"][d] for d in range(2))
+    by_dev = {}
+    if weights is not None:
+        by_dev = {dv: tuple(w.to(dv) for w in weights)
+                  for dv in set(tp.devices)}
+
+    def hop(x, side, k):
+        other = "i" if side == "u" else "u"
+        tgt_rows, src_rows = ((tp.user_rows, tp.item_rows) if side == "u"
+                              else (tp.item_rows, tp.user_rows))
+        d = 0 if side == "u" else 1
+
+        def w_of(dv):
+            return by_dev[dv][d][k] if weights is not None else None
+
+        if pallas:
+            def ranks(direction, bounds):
+                return tuple(TPRank(
+                    dv, g[f"{direction}_src"][k],
+                    g[f"{direction}_ptr"][k][lo:hi + 1], w_of(dv))
+                    for dv, g, (lo, hi) in zip(tp.devices, tp.graphs, bounds))
+
+            to_bwd = None if weights is None else tuple(
+                g[f"{other}_from_{side}"][k] for g in tp.graphs)
+            agg = tp_spmm(x, TPHop(ranks(side, tgt_rows),
+                                   ranks(other, src_rows), to_bwd,
+                                   cfg.spmm_exact,
+                                   cfg.spmm_fold_gather and weights is None))
+            return [leaky_relu(a, cfg.leaky) for a in agg]
+        edges = tp.user_edges if side == "u" else tp.item_edges
+        out = []
+        for m, (dv, g, (lo, hi)) in enumerate(zip(tp.devices, tp.graphs,
+                                                   tgt_rows)):
+            e0, e1 = (int(e) for e in edges[k, m])
+            w = w_of(dv)
+            out.append(propagate(all_gather(x, dv),
+                                 g[f"{side}_src"][k][e0:e1],
+                                 g[f"{side}_tgt"][k][e0:e1] - lo, hi - lo,
+                                 cfg.leaky, None if w is None else w[e0:e1]))
+        return out
+
+    users, items = [], []
+    for k in range(cfg.graph_num):
+        embs0 = [[s[k] for s in params["reg/u_embed"]]]
+        embs1 = [[s[k] for s in params["reg/i_embed"]]]
+        for _ in range(cfg.gnn_layer):
+            a0 = hop(embs1[-1], "u", k)
+            a1 = hop(embs0[-1], "i", k)
+            embs0.append([a + e for a, e in zip(a0, embs0[-1])])
+            embs1.append([a + e for a, e in zip(a1, embs1[-1])])
+        users.append([sum(layers[1:], layers[0]) for layers in zip(*embs0)])
+        items.append([sum(layers[1:], layers[0]) for layers in zip(*embs1)])
+    return ([torch.stack(v) for v in zip(*users)],
+            [torch.stack(v) for v in zip(*items)])
+
+
 def _per_interval(params: Params, cfg: ModelConfig, interval
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """interval(k, u0, i0) for every interval k, stacked; with
@@ -469,18 +540,50 @@ def edge_dropout(graphs: Dict, cfg: ModelConfig, gen: torch.Generator
                  for d in range(2))
 
 
-def fusion_keep_masks(user_vec: torch.Tensor, item_vec: torch.Tensor,
-                      cfg: ModelConfig, gen: Optional[torch.Generator]
+def fusion_keep_masks(cfg: ModelConfig, num_users: int, num_items: int,
+                      gen: Optional[torch.Generator], device: torch.device
                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """The LSTM output dropout's keep masks of one training step: [U, g, D]
-    for the users, then [I, g, D] for the items, drawn from `gen` (JAX
-    splits its key into ku/ki); None without dropout (no generator, or
-    keep_rate 1)."""
+    for the users, then [I, g, D] for the items, drawn from `gen` on
+    `device` (JAX splits its key into ku/ki); None without dropout (no
+    generator, or keep_rate 1)."""
     if gen is None or cfg.keep_rate >= 1.0:
         return None
-    return tuple(dropout_keep_mask(gen, vec.transpose(0, 1).shape,
-                                   cfg.keep_rate, vec.device)
-                 for vec in (user_vec, item_vec))
+    return tuple(dropout_keep_mask(gen, (n, cfg.graph_num, cfg.latdim),
+                                   cfg.keep_rate, device)
+                 for n in (num_users, num_items))
+
+
+@dataclass
+class StepMasks:
+    """One training step's random draws, in the order the single-device
+    step draws them from the dropout generator: the edge-dropout weights
+    (w_u, w_i) [g, E] each (`edge_dropout`; None without edge dropout),
+    then the LSTM dropout's keep masks [U, g, D] and [I, g, D]
+    (`fusion_keep_masks`; None at keep_rate 1). None for both is
+    inference."""
+
+    edge_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def to(self, device: torch.device) -> "StepMasks":
+        def move(pair):
+            return None if pair is None else tuple(t.to(device)
+                                                   for t in pair)
+        return StepMasks(move(self.edge_weights), move(self.keep))
+
+
+def draw_step_masks(cfg: ModelConfig, graphs: Dict, num_users: int,
+                    num_items: int, gen: Optional[torch.Generator],
+                    device: torch.device) -> StepMasks:
+    """A training step's StepMasks from `gen` (None: no dropout), the keep
+    masks on `device`; `graphs` gives the edge arrays' shape and the
+    edge_norm weights the edge-dropout weights multiply."""
+    weights = None
+    if gen is not None and cfg.edge_dropout_keep < 1.0:
+        weights = edge_dropout(graphs, cfg, gen)
+    return StepMasks(weights, fusion_keep_masks(cfg, num_users, num_items,
+                                                gen, device))
 
 
 def _temporal_fusion(params: Params, user_vec: torch.Tensor,
@@ -771,15 +874,21 @@ class SelfGNN:
         return self._encode(params, graphs, gen)
 
     def _encode(self, params, graphs, gen):
-        weights = None
-        if gen is not None and self.cfg.edge_dropout_keep < 1.0:
-            weights = edge_dropout(graphs, self.cfg, gen)
+        masks = draw_step_masks(self.cfg, graphs, self.num_users,
+                                self.num_items, gen,
+                                params["reg/u_embed"].device)
+        return self.encode_with_masks(params, graphs, masks)
+
+    def encode_with_masks(self, params: Params, graphs: Dict,
+                          masks: StepMasks):
+        """`encode` with the step's random draws given (`draw_step_masks`;
+        an empty StepMasks is the dropout-free encode), under the caller's
+        grad mode. The masks are applied outside any checkpoint, so a
+        recompute applies the same ones."""
         user_vec, item_vec = _interval_propagation(
             params, graphs, self.cfg, self.num_users, self.num_items,
-            weights, mesh=self.mesh)
-        # drawn outside any checkpoint, so a recompute applies these masks
-        keep = fusion_keep_masks(user_vec, item_vec, self.cfg, gen)
-        args = (params, user_vec, item_vec, self.cfg, keep)
+            masks.edge_weights, mesh=self.mesh)
+        args = (params, user_vec, item_vec, self.cfg, masks.keep)
         if (self.cfg.remat_propagation and self.cfg.fusion_chunk_rows <= 0
                 and torch.is_grad_enabled()):
             # remat covers the unchunked fusion too (JAX selfgnn.py:850-859):
@@ -792,15 +901,62 @@ class SelfGNN:
             final_user, final_item = _temporal_fusion(*args)
         return final_user, final_item, user_vec, item_vec
 
+    def encode_sharded(self, params: Dict[str, list], tp: "TPGraphs",
+                       masks: Optional[StepMasks] = None):
+        """The encode of one data rank on the "xla" or "pallas" backend with
+        the node tables split over its model ranks (`parallel/sharding.py`):
+        params maps each key to its shards (the tables' row shards on the
+        model ranks' devices, every other leaf one tensor on the rank's
+        first device); tp holds the rank's graphs and row bounds; masks as
+        in `encode_with_masks` (drawn for the whole tables, each model rank
+        takes its rows). Propagation and the fusion stack run on each model
+        rank's rows; the results come back whole on the first device, where
+        the scoring and SSL gathers read them. Returns `encode`'s four
+        tensors, under the caller's grad mode."""
+        masks = masks or StepMasks()
+        cfg = self.cfg
+        dev0 = tp.devices[0]
+        user_vec, item_vec = _tp_interval_propagation(params, tp, cfg,
+                                                      masks)
+        free = {k: v[0] for k, v in params.items() if k.startswith("free/")}
+        fu, fi = [], []
+        for m, dev in enumerate(tp.devices):
+            keep = None
+            if masks.keep is not None:
+                (ulo, uhi), (ilo, ihi) = tp.user_rows[m], tp.item_rows[m]
+                keep = (masks.keep[0][ulo:uhi].to(dev),
+                        masks.keep[1][ilo:ihi].to(dev))
+            mu, mi = _temporal_fusion({k: v.to(dev) for k, v in
+                                       free.items()}, user_vec[m],
+                                      item_vec[m], cfg, keep)
+            fu.append(mu)
+            fi.append(mi)
+        return (all_gather(fu, dev0), all_gather(fi, dev0),
+                torch.cat([v.to(dev0) for v in user_vec], dim=1),
+                torch.cat([v.to(dev0) for v in item_vec], dim=1))
+
     def train_losses(self, params: Params, graphs: Dict, batch: TrainBatch,
                      gen: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
         """(preLoss, sslloss, aux{pos_pred, neg_pred}) for one step
         (model.py:241-246), with autograd. `batch` holds tensors on the
         params' device; `gen` as in `encode`."""
+        encodings = self.encode(params, graphs, train=True, gen=gen)
+        hinge, ssl, aux = self.batch_losses(params, batch, *encodings)
+        # the reference's reduce_mean over the real pairs (model.py:244)
+        pre_loss = hinge / torch.clamp_min(torch.sum(batch.pair_mask), 1.0)
+        return pre_loss, ssl, aux
+
+    def batch_losses(self, params: Params, batch: TrainBatch,
+                     final_user: torch.Tensor, final_item: torch.Tensor,
+                     user_vec: torch.Tensor, item_vec: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        """(Σ hinge over the batch's real pairs, sslloss, aux) from one
+        encode's outputs. preLoss is the hinge sum over the real pairs of
+        the whole batch: a data rank's share of it divides by the whole
+        batch's count (`parallel/distributed.py`); the SSL loss is a sum
+        and splits as it is."""
         cfg = self.cfg
-        final_user, final_item, user_vec, item_vec = self.encode(
-            params, graphs, train=True, gen=gen)
         att_user = _sequence_branch(params, final_item, batch.seq,
                                     batch.seq_mask, cfg)
         pu = rows(final_user, batch.uids)
@@ -813,12 +969,9 @@ class SelfGNN:
         pos = preds(batch.pos_iids)
         neg = preds(batch.neg_iids)
         hinge = _hinge(1.0 - (pos - neg)) * batch.pair_mask
-        # the reference's reduce_mean over the real pairs (model.py:244)
-        pre_loss = torch.sum(hinge) / torch.clamp_min(
-            torch.sum(batch.pair_mask), 1.0)
         ssl = _ssl_loss(params, batch, final_user, final_item, user_vec,
                         item_vec, cfg)
-        return pre_loss, ssl, {"pos_pred": pos, "neg_pred": neg}
+        return torch.sum(hinge), ssl, {"pos_pred": pos, "neg_pred": neg}
 
     @torch.no_grad()
     def serving_queries(self, params: Params, final_user: torch.Tensor,

@@ -396,7 +396,7 @@ def _launch(name: str, device: torch.device, backward: bool,
 
 def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
                exact: bool = True, num_slices: int = 1,
-               folded: bool = False) -> torch.Tensor:
+               folded: bool = False, backward: bool = False) -> torch.Tensor:
     """out [num_tgt, D] f32 = Σ over each CSR row of x[src] (K1; see module
     docstring). CUDA: launches the kernel on the current stream without
     synchronising; CPU: the plain version. No gradient flows through it:
@@ -406,15 +406,16 @@ def spmm_apply(x: torch.Tensor, src: torch.Tensor, ptr: torch.Tensor,
     (spmm_pallas.py:411-437), one K3 launch per contiguous edge range in
     order. folded: gather through the [N/2, 2D] row-folded view (K4), as
     JAX does only for an even row count (spmm_pallas.py:392); an odd count
-    runs the unfolded mode and counts it under that mode's name.
+    runs the unfolded mode and counts it under that mode's name. backward:
+    count the launch under the "_bwd" name (a hand-written backward, as
+    the tensor-parallel hop's, `parallel/sharding.py`).
 
     `ptr`/`src` must be a plan as `build_stacked_plans` makes and checks
     it: ptr non-decreasing from 0, ptr[-1] <= len(src), every id in
     src[:ptr[-1]] a row of x. The CPU path checks the length; the kernel
     checks none of it (that would cost a read of ptr back to the host on
     every launch) and reads out of bounds on a malformed plan."""
-    return _spmm_apply(x, src, ptr, exact, num_slices, folded,
-                       backward=False)
+    return _spmm_apply(x, src, ptr, exact, num_slices, folded, backward)
 
 
 def _spmm_apply(x, src, ptr, exact, num_slices, folded, backward):
@@ -433,13 +434,13 @@ def _spmm_apply(x, src, ptr, exact, num_slices, folded, backward):
 
 
 def spmm_weighted_apply(x: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
-                        ptr: torch.Tensor, exact: bool = True
-                        ) -> torch.Tensor:
+                        ptr: torch.Tensor, exact: bool = True,
+                        backward: bool = False) -> torch.Tensor:
     """out [num_tgt, D] f32 = Σ over each CSR row of w[e]·x[src[e]] (K2).
     w: [len(src)] in the plan's edge order, used in f32 in both table
-    modes. The plan's contract is `spmm_apply`'s; `spmm_weighted` is the
-    differentiable form."""
-    return _segsum(x, src, ptr, exact, backward=False, w=w)
+    modes. The plan's contract and `backward` are `spmm_apply`'s;
+    `spmm_weighted` is the differentiable form."""
+    return _segsum(x, src, ptr, exact, backward=backward, w=w)
 
 
 def spmm_apply_src_sharded(x: torch.Tensor, src: torch.Tensor,

@@ -27,8 +27,12 @@ references); `ring_spmm` / `RingSpmmFunction` is JAX's custom VJP
 direction's plan. Blocks are lists of P tensors, block p on
 `mesh.model_devices[p]`; `shard` pads a node table to P·rows rows and
 splits it (JAX's `pad_node_table_rows` and P('model') layout), `unshard`
-lays the blocks end to end. `exchange` is the ring's one transfer, so a
-multi-process ring replaces that function alone.
+lays the blocks end to end. `exchange` is the ring's one transfer within
+a process. With a 'model' axis made of processes
+(`scripts/bench_multihost.py`'s ring), `exchange_next` sends the block to
+the next process instead and `ring_spmm_apply_procs` runs the same
+schedule from one process's rank, its bucket sums K6 launches: the
+forward only, as JAX's multi-process ring is.
 """
 
 from __future__ import annotations
@@ -239,16 +243,29 @@ def ring_plan(src_local: np.ndarray, tgt_local: np.ndarray, rows: int,
 
 def ring_graphs(gb, mesh: Mesh, weights: np.ndarray | None = None) -> dict:
     """{"u": RingPlan, "i": RingPlan} of every interval graph in both
-    directions (the JAX Trainer's graphs["ring"], trainer.py:234-257): the
-    u-direction's targets are the users, its sources the items. weights:
-    [2, g, E] per-edge values (`data.graph.edge_weights`), bucketed."""
+    directions (the JAX Trainer's graphs["ring"], trainer.py:234-257), on
+    the mesh's first model row: the u-direction's targets are the users,
+    its sources the items. weights: [2, g, E] per-edge values
+    (`data.graph.edge_weights`), bucketed."""
+    return ring_graphs_per_row(gb, mesh.row(0), weights)[0]["ring"]
+
+
+def ring_graphs_per_row(gb, mesh: Mesh, weights: np.ndarray | None = None
+                        ) -> List[dict]:
+    """`ring_graphs` of each of the mesh's local data ranks ({"ring": ...}
+    graphs dicts, one per row), the partitions built once on the host and
+    placed on each row's model devices."""
     P = mesh.shape["model"]
     ring = build_interval_ring_partitions(gb, P, weights=weights)
-    out = {}
-    for d, rows, src_rows in (("u", ring["rows_u"], ring["rows_i"]),
-                              ("i", ring["rows_i"], ring["rows_u"])):
-        out[d] = ring_plan(ring[f"{d}_src_local"], ring[f"{d}_tgt_local"],
-                           rows, src_rows, mesh, ring.get(f"{d}_weights"))
+    out = []
+    for d in range(len(mesh.devices)):
+        row = {}
+        for side, rows, src_rows in (("u", ring["rows_u"], ring["rows_i"]),
+                                     ("i", ring["rows_i"], ring["rows_u"])):
+            row[side] = ring_plan(ring[f"{side}_src_local"],
+                                  ring[f"{side}_tgt_local"], rows, src_rows,
+                                  mesh.row(d), ring.get(f"{side}_weights"))
+        out.append({"ring": row})
     return out
 
 
@@ -283,6 +300,43 @@ def exchange(block: torch.Tensor, device: torch.device,
     block.record_stream(side)
     out.record_stream(torch.cuda.current_stream(device))
     return out, ready
+
+
+def exchange_next(block: torch.Tensor, rank: int, size: int
+                  ) -> torch.Tensor:
+    """The multi-process form of `exchange`: send this process's block to
+    process rank + 1 and receive process rank - 1's (mod size), staged
+    through host buffers (`parallel/launch.send_recv`); the received block
+    lands on `block`'s device."""
+    from sagnn_tpu_torch.parallel.launch import send_recv
+    return send_recv(block, (rank + 1) % size, (rank - 1) % size)
+
+
+def ring_spmm_apply_procs(block: torch.Tensor, src: torch.Tensor,
+                          ptr: torch.Tensor, k: int, rank: int, size: int,
+                          w: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """One ring hop of interval k over a 'model' axis of `size` processes,
+    from process `rank`: out [rows, D] f32, the sum into this rank's
+    target shard over every bucket (rank, q). block [src_rows, D]: this
+    rank's source block; src [g, P, B], ptr [g, P, rows + 1] (and w [g, P,
+    B]): this rank's bucket plans (`plan_ring_buckets` row `rank`), on
+    block's device. Per step s the bucket (rank, (rank - s) mod P) is
+    summed by one K6 launch (the plain version on the CPU), then the held
+    block moves on to the next process; P - 1 exchanges in all."""
+    if src.shape[1] != size or ptr.shape[1] != size:
+        raise ValueError(f"plans for {src.shape[1]} ranks, {size} "
+                         "processes")
+    acc = torch.zeros((ptr.shape[-1] - 1, block.shape[1]),
+                      dtype=torch.float32, device=block.device)
+    held = block
+    for s in range(size):
+        q = (rank - s) % size
+        acc = sc.ring_bucket_accumulate(acc, held, src[k, q], ptr[k, q],
+                                        None if w is None else w[k, q])
+        if s < size - 1:
+            held = exchange_next(held, rank, size)
+    return acc
 
 
 BucketSum = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,

@@ -10,6 +10,11 @@ more than once (every rank on `cuda:0`, or on the CPU as the tests run
 it) is a mesh too, but only through an explicit `devices=` list: then the
 ring's exchanges still copy each block into a new buffer, as a ppermute
 always moves data.
+
+A mesh can also span processes (`parallel/launch.global_mesh`): its
+'data' axis is then cut into the processes' rows in process order, and
+`devices` holds this process's rows only; the 'model' axis stays inside a
+process.
 """
 
 from __future__ import annotations
@@ -20,17 +25,35 @@ import torch
 
 
 class Mesh:
-    """devices[d][m] is the device of data rank d, model rank m."""
+    """devices[d][m] is the device of this process's data rank d (global
+    rank data_offset + d), model rank m."""
 
-    def __init__(self, devices: Sequence[Sequence[torch.device]]):
+    def __init__(self, devices: Sequence[Sequence[torch.device]],
+                 process_count: int = 1, process_index: int = 0):
         self.devices = [[torch.device(dv) for dv in row] for row in devices]
         if not self.devices or any(len(row) != len(self.devices[0])
                                    for row in self.devices):
             raise ValueError("a mesh is a non-empty rectangular grid")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process {process_index} of {process_count}")
+        self.process_count = process_count
+        self.process_index = process_index
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.devices), "model": len(self.devices[0])}
+        """The whole mesh's axes, every process's data ranks counted."""
+        return {"data": len(self.devices) * self.process_count,
+                "model": len(self.devices[0])}
+
+    @property
+    def data_offset(self) -> int:
+        """The global data rank of this process's first row."""
+        return self.process_index * len(self.devices)
+
+    def row(self, d: int) -> "Mesh":
+        """The 1 x model mesh of local data rank d: one model row, as the
+        ring runs it."""
+        return Mesh([self.devices[d]])
 
     @property
     def model_devices(self) -> List[torch.device]:
@@ -43,7 +66,9 @@ class Mesh:
         return self.devices[0][0]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {self.devices})"
+        procs = (f", process {self.process_index} of {self.process_count}"
+                 if self.process_count > 1 else "")
+        return f"Mesh({self.shape}, {self.devices}{procs})"
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,

@@ -11,13 +11,27 @@ CPU; a long device step is CPU-quiet but logs when it ends. So only the
 conjunction, held for `wedge_secs`, declares a wedge. Two more rules, as
 in the JAX package: before the child's first log line the window is at
 least `startup_grace` (a fresh interpreter can be starved before it even
-installs its SIGTERM handler), and once armed, `silent_cap_secs` of log
-silence alone declares a wedge whatever the CPU does (a permanent hang
-whose threads keep trickling CPU). `_decide` holds this criterion: one
-poll's readings in, the next watch state and a wedge reason out.
+installs its SIGTERM handler), and `silent_cap_secs` of log silence alone
+declares a wedge whatever the CPU does (a permanent hang whose threads
+keep trickling CPU). `_decide` holds this criterion: one poll's readings
+in, the next watch state and a wedge reason out.
 
-A child that waits on a hung CUDA kernel may spin-wait and burn CPU;
-then only the silent cap catches it.
+Where this differs from the JAX package's supervisor, and why:
+  * A host thread waiting on the card spin-waits by default, at about a
+    core, so a child blocked on a hung CUDA call never looks idle. The
+    child of `main --supervise` on the card therefore sets
+    `cudaDeviceScheduleBlockingSync` before its first CUDA call
+    (`device.set_blocking_sync`, asked for through `BLOCKING_SYNC_ENV`;
+    it stops with an error if the flag does not take): its waits sleep,
+    and the no-CPU conjunction sees the hang.
+  * JAX counts the silent cap only once the child has logged, so a child
+    that hangs before its first line (a relaunch stuck in device
+    initialisation, say) is never declared when it keeps burning CPU.
+    Here the cap also runs before the first line, from the spawn, at
+    max(silent_cap_secs, startup_grace).
+  * When the recovery budget is spent, the child is stopped and its
+    checkpoint's staging files are removed before giving up, as a
+    recovery would remove them.
 
 Recovery sequence:
   1. SIGCONT + SIGTERM the exact child pid. The Trainer's preemption
@@ -50,6 +64,11 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
+# set to "1" in the environment of a supervised child that trains on the
+# card: `main` then calls `device.set_blocking_sync` before its first CUDA
+# call (module docstring)
+BLOCKING_SYNC_ENV = "SAGNN_CUDA_BLOCKING_SYNC"
+
 
 def _now() -> str:
     return time.strftime("%Y-%m-%d %H:%M:%S")
@@ -78,7 +97,8 @@ class Watch:
     last_cpu: float                     # child CPU seconds at the last poll
     quiet_since: Optional[float] = None   # start of no-log, no-CPU window
     cpu_at_quiet: float = 0.0           # child CPU at quiet_since
-    silent_since: Optional[float] = None  # resets only on log growth
+    silent_since: Optional[float] = None  # the spawn, then the last log
+    #                                       growth
     armed: bool = False                 # the child has logged since launch
 
 
@@ -104,7 +124,9 @@ class Supervisor:
     startup_grace: the least quiet window before the child's first log
                    output after a (re)launch
     silent_cap_secs: log silence that declares a wedge whatever the CPU
-                   does, once armed; None = 6 x wedge_secs, <= 0 disables
+                   does; None = 6 x wedge_secs, <= 0 disables. Before the
+                   child's first output the cap runs from the spawn and is
+                   max(silent_cap_secs, startup_grace)
     max_recoveries: give up after this many recoveries (0 = unlimited)
     relay_probe:   argv probing the card in a fresh process (None skips it,
                    as a CPU run does); must exit 0 when healthy
@@ -268,9 +290,11 @@ class Supervisor:
         before the spawn, so that output the child makes at once counts
         as its first output."""
         size = self._log_size()
+        spawned = time.time()
         child = self._spawn(resume)
         return child, Watch(last_size=size,
-                            last_cpu=child_cpu_seconds(child.pid) or 0.0)
+                            last_cpu=child_cpu_seconds(child.pid) or 0.0,
+                            silent_since=spawned)
 
     def _decide(self, w: Watch, size: int, cpu: Optional[float],
                 now: float) -> Tuple[Watch, Optional[str]]:
@@ -297,7 +321,9 @@ class Supervisor:
                 else max(self.wedge_secs, self.startup_grace)):
             wedged = (f"WEDGE: no log output and {cpu - cpu_at_quiet:.2f}s "
                       f"CPU over {now - quiet_since:.0f}s")
-        if (wedged is None and w.armed and silent_cap > 0
+        if not w.armed and silent_cap > 0:
+            silent_cap = max(silent_cap, self.startup_grace)
+        if (wedged is None and silent_cap > 0
                 and now - silent_since >= silent_cap):
             wedged = (f"WEDGE: log silent {now - silent_since:.0f}s >= "
                       f"silent_cap {silent_cap:.0f}s despite CPU activity")
@@ -341,6 +367,7 @@ class Supervisor:
             # handler one last chance to save, then make sure it dies
             if child.poll() is None:
                 self._terminate(child)
+            self._clean_tmp()
             return False
         self._say(f"recovery {self.recoveries} begins "
                   f"({'crash' if crashed else 'wedge'})")
@@ -366,8 +393,9 @@ def build_supervisor(ns, raw_argv: Sequence[str]) -> Supervisor:
     as the child `python -m sagnn_tpu_torch.main`, with `--load_model
     <save_path>` as the resume args and its log in the checkpoint
     directory. The child finds this package whatever its working
-    directory (PYTHONPATH). With `--device cpu` there is no card to
-    probe."""
+    directory (PYTHONPATH). On the card the child's host waits block
+    (BLOCKING_SYNC_ENV, module docstring); with `--device cpu` there is no
+    card to probe and no wait to set."""
     drop = {"--supervise"}
     takes_value = {"--supervise_wedge_secs", "--supervise_max_recoveries"}
     child_argv: List[str] = [sys.executable, "-m", "sagnn_tpu_torch.main"]
@@ -390,6 +418,8 @@ def build_supervisor(ns, raw_argv: Sequence[str]) -> Supervisor:
     kw = {}
     if getattr(ns, "device", "cuda").startswith("cpu"):
         kw["relay_probe"] = None
+    else:
+        env[BLOCKING_SYNC_ENV] = "1"
     return Supervisor(
         argv=child_argv,
         log_path=os.path.join(ckpt_dir, "train.log"),

@@ -18,17 +18,28 @@ masks are drawn each step from the dropout generator, so checkpoints
 cover them. `remat_propagation` and `fusion_chunk_rows` bound the step's
 memory at the 1M-user scale.
 
-With `mesh=` (a `parallel.mesh.Mesh`) and spmm_backend="ring" the
-propagation runs edge-partitioned over the mesh's 'model' axis, in
-training and in the evaluation's encode (JAX trainer.py:124-151,
-234-265): unweighted and sym_sqrt hops through K6 (its backward on the
-transpose direction's plans), 'mean' through the plain ring. The ring's
-bucket plans replace the COO blocks and CSR plans in `self.graphs`. The
-params, the optimizer state and the fusion stack live on the mesh's first
-device, so checkpoints keep the single-device format: a ring-trained
-checkpoint restores into a "pallas" Trainer. Not here yet (ROADMAP Queue
-A6): a mesh with data > 1, the TP shardings of the other backends
-(`parallel/sharding.py`) and multi-process runs.
+With `mesh=` (a `parallel.mesh.Mesh`, any data × model shape) the step
+runs over the mesh (`parallel/distributed.py`): each data rank holds a
+replica of the model row and takes its slice of the batch, the gradients
+are summed over 'data' and every replica applies the one Adam update. On
+"xla" and "pallas" with one model rank every data rank runs the
+single-device encode, with more the node tables are split over the model
+ranks (`parallel/sharding.py`); with spmm_backend="ring" each data rank runs
+the ring over its model row (JAX trainer.py:124-151, 234-265): unweighted
+and sym_sqrt hops through K6 (its backward on the transpose direction's
+plans), 'mean' through the plain ring, the tables whole on the row's
+first device. On a mesh that spans processes (`parallel/launch.py`) each
+process samples only its rows of every batch (`Sampler.train_batch_slice`,
+JAX `_assemble_global_batch`, trainer.py:515-540), and the gradients, the
+losses and the evaluation's metric sums are summed over the processes.
+The evaluation encodes on data rank 0's row and each data rank scores its
+rows of every batch. `self.state` is the single-device state on a mesh
+too, gathered from data rank 0's replica when read and laid out over the
+mesh when assigned, so checkpoints keep the single-device format and
+restore across mesh shapes. Options a mesh of more than one model rank
+does not take yet on "xla"/"pallas" raise NotImplementedError (ROADMAP
+A6(e)): edge attention, source sharding, remat_propagation,
+fusion_chunk_rows and the bf16 fusion stack.
 
 `fusion_dtype="bf16"` (the CLI's `--bf16` with a bf16 table) trains the
 fusion stack and the sequence branch in bf16 from f32 master weights.
@@ -47,6 +58,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import signal
 import time
 from typing import Dict, Optional
@@ -59,9 +71,15 @@ from sagnn_tpu_torch.data.graph import compile_interval_graphs, edge_weights
 from sagnn_tpu_torch.data.io import DatasetBundle
 from sagnn_tpu_torch.data.sampler import Sampler
 from sagnn_tpu_torch.device import resolve_device
-from sagnn_tpu_torch.models.selfgnn import (SelfGNN, TrainBatch, check_ported,
+from sagnn_tpu_torch.models.selfgnn import (SelfGNN, check_ported,
                                             graphs_to_device, reg_loss)
-from sagnn_tpu_torch.parallel.edge_partition import ring_graphs
+from sagnn_tpu_torch.parallel.distributed import (MeshState,
+                                                  init_sharded_state,
+                                                  make_sharded_train_step,
+                                                  place_state, shard_inputs)
+from sagnn_tpu_torch.parallel.edge_partition import ring_graphs_per_row
+from sagnn_tpu_torch.parallel.launch import all_reduce_sum, host_batch_slice
+from sagnn_tpu_torch.parallel.sharding import ShardingRules, graphs_per_row
 from sagnn_tpu_torch.train.checkpoint import CheckpointManager
 from sagnn_tpu_torch.ops.chunking import auto_chunk_rows
 from sagnn_tpu_torch.train.metrics import (MetricsHistory,
@@ -72,6 +90,34 @@ from sagnn_tpu_torch.train.metrics import (MetricsHistory,
 from sagnn_tpu_torch.train.optim import AdamState, TF1Adam
 from sagnn_tpu_torch.utils.logger import log
 from sagnn_tpu_torch.utils.profiling import StepTimer
+
+class _GatheredState(dict):
+    """A mesh Trainer's `state`: the gathered single-device state, whose
+    key assignments (`trainer.state["params"] = ...`) lay the changed state
+    out over the mesh again. Changes inside its values stay local."""
+
+    def __init__(self, trainer: "Trainer", state: Dict):
+        super().__init__(state)
+        self._trainer = trainer
+
+    def __setitem__(self, key, value) -> None:
+        super().__setitem__(key, value)
+        self._trainer.state = dict(self)
+
+    def __deepcopy__(self, memo) -> Dict:
+        return copy.deepcopy(dict(self), memo)
+
+
+# options a mesh of more than one model rank does not take on "xla"/"pallas"
+# yet (with one model rank each data rank runs the single-device encode)
+_MESH_REFUSED = (
+    ("edge_attention", lambda m: m.edge_attention),
+    ("spmm_src_shard_rows", lambda m: m.spmm_src_shard_rows > 0),
+    ("remat_propagation", lambda m: m.remat_propagation),
+    ("fusion_chunk_rows", lambda m: m.fusion_chunk_rows > 0),
+    ("fusion_dtype", lambda m: m.fusion_dtype == "bf16"),
+)
+
 
 class Trainer:
     """End-to-end trainer over one DatasetBundle on one device, or with the
@@ -86,20 +132,14 @@ class Trainer:
         sampler_backend: the `Sampler`'s ("auto", "native" or "numpy")."""
         ring = cfg.model.spmm_backend == "ring"
         if mesh is not None:
-            if mesh.shape["data"] > 1:
-                raise NotImplementedError(
-                    f"mesh data={mesh.shape['data']}: the data-parallel "
-                    "step is not ported yet: ROADMAP Queue A6")
-            if not ring:
-                raise NotImplementedError(
-                    f"a mesh with spmm_backend={cfg.model.spmm_backend!r}:"
-                    " the TP shardings (parallel/sharding.py) are not "
-                    "ported yet: ROADMAP Queue A6")
             if device is not None and \
                     torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not on the mesh "
                                  f"{mesh}")
             device = mesh.device
+            if cfg.train.batch % mesh.shape["data"]:
+                raise ValueError(f"batch {cfg.train.batch} does not split "
+                                 f"over {mesh.shape['data']} data ranks")
         elif ring:
             raise ValueError("spmm_backend='ring' requires a mesh")
         self.device = resolve_device("cuda" if device is None else device)
@@ -109,19 +149,28 @@ class Trainer:
                              f"graphs, config says {cfg.model.graph_num}")
         cfg = resolve_src_sharding(cfg, bundle.num_users, bundle.num_items)
         check_ported(cfg.model, train=True)
+        if mesh is not None and not ring and mesh.shape["model"] > 1:
+            for name, bad in _MESH_REFUSED:
+                if bad(cfg.model):
+                    raise NotImplementedError(
+                        f"{name}={getattr(cfg.model, name)!r} on a "
+                        f"{mesh.shape['data']}x{mesh.shape['model']} mesh: "
+                        "not ported yet: ROADMAP Queue A6(e)")
         self.cfg = cfg
         self.bundle = bundle
         self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items,
-                             mesh=mesh)
+                             mesh=None if mesh is None else mesh.row(0))
         self.graph_blocks = compile_interval_graphs(bundle.sub_mats)
         if ring:
             # the ring reads its bucket plans alone; no COO blocks or CSR
-            # plans ride along (JAX trainer.py:234-265)
+            # plans ride along (JAX trainer.py:234-265); one set per data
+            # rank, on its model row
             norm = cfg.model.edge_norm
-            self.graphs = {"ring": ring_graphs(
+            rows = ring_graphs_per_row(
                 self.graph_blocks, mesh,
                 None if norm is None else edge_weights(
-                    self.graph_blocks, bundle.sub_mats, norm))}
+                    self.graph_blocks, bundle.sub_mats, norm))
+            self.graphs = rows[0]
         else:
             self.graphs = graphs_to_device(self.graph_blocks, self.device,
                                            cfg.model, bundle.sub_mats)
@@ -145,17 +194,57 @@ class Trainer:
         # weights from a CPU generator (the same on every device); the
         # dropout generator lives on the device and is seeded from it
         init_gen = torch.Generator().manual_seed(tc.seed)
-        params = self.model.init(init_gen, device=self.device)
-        for v in params.values():
-            v.requires_grad_(True)
+        self._mesh_state: Optional[MeshState] = None
+        if mesh is None:
+            params = self.model.init(init_gen, device=self.device)
+            for v in params.values():
+                v.requires_grad_(True)
+            self._state = {"params": params,
+                           "opt_state": self.optimizer.init(params),
+                           "step": 0}
+        else:
+            rules = ShardingRules(mesh)
+            self._mesh_state = init_sharded_state(
+                rules, self.model, self.optimizer, init_gen,
+                split_tables=not ring)
+            if ring:
+                step_graphs, mask_graphs = rows, {}
+            else:
+                step_graphs = graphs_per_row(self.graphs, mesh,
+                                             bundle.num_users,
+                                             bundle.num_items)
+                mask_graphs = self.graphs
+            self._mesh_step = make_sharded_train_step(
+                rules, self.model, self.optimizer, cfg, step_graphs,
+                mask_graphs)
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(
             int(torch.randint(0, 2 ** 62, (1,), generator=init_gen)))
-        self.state = {"params": params,
-                      "opt_state": self.optimizer.init(params), "step": 0}
         self._steps_last_epoch = 0
         self._deferring = False
         self._deferred_signal: Optional[int] = None
+
+    @property
+    def state(self) -> Dict:
+        """{"params", "opt_state", "step"} on the Trainer's device. On a mesh
+        a gathered copy of data rank 0's replica (module docstring):
+        assigning a state, or one of its keys, lays it out over the mesh."""
+        if self._mesh_state is None:
+            return self._state
+        return _GatheredState(self, self._mesh_state.gather(self.device))
+
+    @state.setter
+    def state(self, value: Dict) -> None:
+        if self.mesh is None:
+            self._state = value
+        else:
+            self._mesh_state = place_state(value, self._mesh_state.specs,
+                                           self.mesh)
+
+    @property
+    def mesh_state(self) -> Optional[MeshState]:
+        """The state as the mesh holds it (None without a mesh)."""
+        return self._mesh_state
 
     def load_imported_params(self, params: Dict[str, torch.Tensor],
                              mu: Optional[Dict[str, torch.Tensor]] = None,
@@ -204,12 +293,22 @@ class Trainer:
 
     # -- one step ------------------------------------------------------------
 
-    def train_step(self, batch: TrainBatch) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """loss = preLoss + reg·reg_loss + ssl_reg·sslloss, its gradient,
         and one TF1 Adam update of the params in place (JAX
-        `make_train_step`). `batch` holds tensors on the device. Returns
+        `make_train_step`). `batch` holds tensors on the device; on a mesh
+        any TrainBatch (this process's rows of the global batch) or one
+        already split (`parallel.distributed.shard_inputs`). Returns
         {"loss", "preLoss", "regLoss"} as 0-d device tensors, not yet
         synchronised."""
+        if self._mesh_state is not None:
+            totals, grads = self._mesh_step.loss_and_grads(
+                self._mesh_state, batch, self.dropout_gen)
+            # the update changes every replica's params and moments; a
+            # preemption signal that lands meanwhile is saved after it
+            with self._signals_deferred():
+                self._mesh_step.apply(self._mesh_state, grads)
+            return totals
         tc = self.cfg.train
         params = self.state["params"]
         pre, ssl, _ = self.model.train_losses(params, self.graphs, batch,
@@ -230,23 +329,38 @@ class Trainer:
         return {"loss": loss.detach(), "preLoss": pre.detach(),
                 "regLoss": reg.detach()}
 
+    def _batch_rows(self) -> tuple:
+        """(start, size): this process's rows of every batch (all of them
+        but on a mesh that spans processes)."""
+        if self.mesh is None or self.mesh.process_count == 1:
+            return 0, self.cfg.train.batch
+        return host_batch_slice(self.cfg.train.batch)
+
     # -- epochs --------------------------------------------------------------
 
     def train_epoch(self, verbose: bool = True) -> Dict[str, float]:
-        """One epoch. Batch i+1 is sampled (and copied to the device) on a
-        worker thread while step i runs. Each step's losses are fetched one
-        step late, so the host queues step i+1 before it waits for step i.
-        Each StepTimer sample spans the queueing of step i and the fetch
-        of step i-1's losses."""
+        """One epoch. Batch i+1 is sampled (and copied to the device, or
+        split over the mesh's data ranks) on a worker thread while step i
+        runs; on a mesh that spans processes only this process's rows are
+        sampled. Each step's losses are fetched one step late, so the host
+        queues step i+1 before it waits for step i. Each StepTimer sample
+        spans the queueing of step i and the fetch of step i-1's
+        losses."""
         tc = self.cfg.train
         ids = self.sampler.epoch_user_ids(tc.trn_num)
         steps = -(-len(ids) // tc.batch)
         epoch_loss = epoch_pre = 0.0
+        start, size = self._batch_rows()
 
         def sample(i):
             self.sample_timer.tic()
-            batch = self.sampler.train_batch(
-                ids[i * tc.batch:(i + 1) * tc.batch]).to(self.device)
+            bat = ids[i * tc.batch:(i + 1) * tc.batch]
+            if self.mesh is None:
+                batch = self.sampler.train_batch(bat).to(self.device)
+            else:
+                batch = shard_inputs(
+                    self._mesh_step.rules,
+                    self.sampler.train_batch_slice(bat, start, size))
             self.sample_timer.toc()
             return batch
 
@@ -322,7 +436,10 @@ class Trainer:
         protocol or, with full_sort (default cfg.train.full_sort), against
         the full catalog (`_full_sort_eval`). The graph is encoded once;
         batch i+1 is sampled on a thread while batch i scores, and the sums
-        are fetched once at the end. debug_uid >= 0 prints that batch row's
+        are fetched once at the end. On a mesh data rank 0's row encodes
+        and each data rank scores its rows of every batch (this process's
+        rows of it, the sums then added over the processes; JAX
+        trainer.py:585-625). debug_uid >= 0 prints that batch row's
         candidate scores (the reference's --uid debug mode,
         model.py:460-461; candidate protocol only)."""
         tc = self.cfg.train
@@ -333,45 +450,73 @@ class Trainer:
             ids = ids[:max_users]
         num = len(ids)
         steps = -(-num // tc.batch)
-        params = self.state["params"]
-        final_user, final_item, _, _ = self.model.encode(params, self.graphs)
+        start, size = self._batch_rows()
+        ranks = self._eval_ranks()
+        per_rank = size // len(ranks)
 
         def sample(i):
-            bat = ids[i * tc.batch:(i + 1) * tc.batch]
+            bat = ids[i * tc.batch:(i + 1) * tc.batch][start:start + size]
             if full_sort:
-                arrs = self.sampler.full_sort_batch(bat,
-                                                    test_mode=tc.test_mode)
+                arrs = self.sampler.full_sort_batch(
+                    bat, test_mode=tc.test_mode, batch_cap=size)
             else:
                 user_ids, cand, _pos, seq, seq_mask, valid = \
-                    self.sampler.test_batch(bat, test_mode=tc.test_mode)
+                    self.sampler.test_batch(bat, test_mode=tc.test_mode,
+                                            batch_cap=size)
                 arrs = (user_ids, cand, seq, seq_mask, valid)
-            return tuple(torch.from_numpy(a).to(self.device) for a in arrs)
+            return [tuple(torch.from_numpy(a[d * per_rank:
+                                             (d + 1) * per_rank]).to(dev)
+                          for a in arrs)
+                    for d, (dev, _, _, _) in enumerate(ranks)]
 
         totals: Dict[str, torch.Tensor] = {}
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             nxt = pool.submit(sample, 0)
             for i in range(steps):
-                arrs = nxt.result()
+                parts = nxt.result()
                 if i + 1 < steps:
                     nxt = pool.submit(sample, i + 1)
-                if full_sort:
-                    mets = self._full_sort_eval(params, final_user,
-                                                final_item, *arrs)
-                else:
-                    user_ids, cand, seq, seq_mask, valid = arrs
-                    scores = self.model.score_with_encodings(
-                        params, final_user, final_item, user_ids, cand, seq,
-                        seq_mask)
-                    if self.debug_uid >= 0:
-                        print(scores[self.debug_uid].cpu().numpy())
-                    mets = topk_metrics(scores, ks=(1, 5, 10, 15, 20),
-                                        valid=valid)
-                for k, v in mets.items():
-                    totals[k] = totals[k] + v if k in totals else v
-        out = {k: float(v) / max(1, num) for k, v in totals.items()}
+                for d, ((_, params, final_user, final_item), arrs) in \
+                        enumerate(zip(ranks, parts)):
+                    if full_sort:
+                        mets = self._full_sort_eval(params, final_user,
+                                                    final_item, *arrs)
+                    else:
+                        user_ids, cand, seq, seq_mask, valid = arrs
+                        scores = self.model.score_with_encodings(
+                            params, final_user, final_item, user_ids, cand,
+                            seq, seq_mask)
+                        if 0 <= self.debug_uid - d * per_rank < per_rank:
+                            print(scores[self.debug_uid - d * per_rank]
+                                  .cpu().numpy())
+                        mets = topk_metrics(scores, ks=(1, 5, 10, 15, 20),
+                                            valid=valid)
+                    for k, v in mets.items():
+                        v = v.to(self.device)
+                        totals[k] = totals[k] + v if k in totals else v
+        keys = sorted(totals)
+        sums = all_reduce_sum([totals[k] for k in keys]) \
+            if self.mesh is not None else [totals[k] for k in keys]
+        out = {k: float(v) / max(1, num) for k, v in zip(keys, sums)}
         out["HR"] = out[f"HR@{tc.shoot}"]
         out["NDCG"] = out[f"NDCG@{tc.shoot}"]
         return out
+
+    def _eval_ranks(self) -> list:
+        """(device, params, final_user, final_item) of each data rank that
+        scores: the Trainer's device alone without a mesh; on a mesh every
+        local data rank, its first device, its replica's params and data
+        rank 0's encodings copied there."""
+        if self.mesh is None:
+            params = self.state["params"]
+            fu, fi, _, _ = self.model.encode(params, self.graphs)
+            return [(self.device, params, fu, fi)]
+        st, step = self._mesh_state, self._mesh_step
+        with torch.no_grad():
+            fu, fi, _, _ = step.encode(st, 0)
+        return [(row[0], step.head_params(st, d), fu.to(row[0]),
+                 fi.to(row[0]))
+                for d, row in enumerate(self.mesh.devices)]
 
     def _full_sort_eval(self, params, final_user, final_item, user_ids,
                         pos_items, seq, seq_mask, excl_idx, valid):

@@ -12,7 +12,10 @@ mode on the plans that stress it (one row with every edge, rows ending on
 piece boundaries, mostly empty rows, a shard's and a slice's plan), with
 its determinism, its clean scratch and its independence of the grid; the
 serving encode (parity, each edge variant and the ring) and a training step on
-the card against the CPU.
+the card against the CPU; the supervisor declaring a hung CUDA call
+(blocking sync) before and after the child's first log line; a 2 x 2
+one-card mesh step against the single-device step, and two processes
+sharing the card over gloo against one process on a 2 x 1 mesh.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. They import
 neither JAX nor the JAX package, so they run on a machine with PyTorch
@@ -1289,3 +1292,180 @@ def test_chunked_topk_bf16_on_card(dev):
     assert int(determined.sum()) >= 16
     for b in torch.nonzero(determined).flatten().tolist():
         assert set(got_i[b].tolist()) == set(cpu_i[b].tolist()), b
+
+
+# -- the supervisor sees a hung CUDA call (C1) ------------------------------------
+
+HUNG_CHILD = """
+import sys, time, torch
+from sagnn_tpu_torch.device import set_blocking_sync
+mode, secs, mark = sys.argv[1], float(sys.argv[2]), sys.argv[3]
+set_blocking_sync()
+torch.ones(1, device="cuda").sum().item()
+if mode == "after":
+    print("Start", flush=True)
+with open(mark, "w") as f:          # the hang starts; not a log line
+    f.write(repr(time.time()))
+torch.cuda._sleep(int(secs * 2e9))  # at least secs at <= 2 GHz
+torch.cuda.synchronize()
+print("done", flush=True)
+"""
+
+
+@pytest.mark.parametrize("mode", ["before", "after"])
+def test_supervisor_declares_a_hung_cuda_call(dev, tmp_path, mode):
+    """A supervised child with blocking sync (what `main --supervise` sets
+    on the card) that waits on a device op past wedge_secs is declared a
+    WEDGE by the no-log, no-CPU criterion within wedge_secs + 2 polls of
+    the hang, before and after its first log line."""
+    import os
+    import sys
+    import threading
+    import time
+
+    from sagnn_tpu_torch.train.supervisor import Supervisor
+
+    wedge, poll = 6.0, 1.0
+    script, mark = tmp_path / "child.py", tmp_path / "hang_started"
+    script.write_text(HUNG_CHILD)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    sup = Supervisor(argv=[sys.executable, str(script), mode,
+                           str(4 * wedge), str(mark)],
+                     log_path=str(tmp_path / "train.log"), check_every=poll,
+                     wedge_secs=wedge, cpu_eps=0.5, startup_grace=wedge,
+                     relay_probe=None, env=env)
+    declared = []
+
+    def recover(child, crashed):
+        declared.append(time.time())
+        child.kill()
+        child.wait()
+        return False
+
+    sup._recover = recover
+    th = threading.Thread(target=lambda: sup.run(), daemon=True)
+    th.start()
+    th.join(60.0)
+    assert not th.is_alive(), "no wedge declared within 60 s"
+    assert declared and not crashed_events(sup)
+    hang = float(mark.read_text())
+    reason = [e for e in sup.events if "WEDGE" in e][0]
+    assert "no log output" in reason, reason
+    assert declared[0] - hang <= wedge + 2 * poll, (declared[0] - hang,
+                                                    sup.events)
+
+
+def crashed_events(sup):
+    return [e for e in sup.events if "crashed" in e or "exited" in e]
+
+
+# -- training on a one-card mesh (A6(a), A6(b)) --------------------------------
+
+def _mesh_cfg(keep_rate=1.0):
+    from sagnn_tpu_torch import config as tcfg
+    return tcfg.Config(
+        model=tcfg.ModelConfig(graph_num=2, gnn_layer=1, att_layer=1,
+                               latdim=16, num_heads=4, ssldim=8,
+                               pos_length=16, keep_rate=keep_rate,
+                               spmm_backend="pallas"),
+        train=tcfg.TrainConfig(batch=16, samp_num=4, ssl_num=2, trn_num=32,
+                               test_size=10, lr=5e-3))
+
+
+@pytest.mark.parametrize("keep_rate", [1.0, 0.5])
+def test_mesh_step_on_card_matches_single_device(dev, tmp_path, keep_rate):
+    """A 2 x 2 mesh with every rank on the card: one step's losses (rtol
+    1e-5) and every gradient (atol 1e-5 x max|g|) against the
+    single-device "pallas" step on the same batch and generator state;
+    K1 runs once per hop on each (data, model) rank, forward and
+    backward."""
+    from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+    from sagnn_tpu_torch.models.selfgnn import reg_loss
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.sharding import gather
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    cfg = _mesh_cfg(keep_rate)
+    bundle = synthetic_dataset(num_users=48, num_items=64, graph_num=2,
+                               test_size=10, seed=2)
+    one = Trainer(cfg, bundle, ckpt_root=str(tmp_path / "a"), device=dev)
+    tr = Trainer(cfg, bundle, ckpt_root=str(tmp_path / "b"),
+                 mesh=make_mesh(data=2, model=2, devices=[dev] * 4))
+    batch = one.sampler.train_batch(one.sampler.epoch_user_ids(32)[:16])
+    gen_state = one.dropout_gen.get_state()
+    sc.reset_launches()
+    totals, grads = tr._mesh_step.loss_and_grads(tr.mesh_state, batch,
+                                                 tr.dropout_gen)
+    torch.cuda.synchronize()
+    hops = 2 * 1 * 2
+    assert sc.LAUNCHES["segsum_f32"] == hops * 4
+    assert sc.LAUNCHES["segsum_f32_bwd"] == hops * 4
+    one.dropout_gen.set_state(gen_state)
+    params = one.state["params"]
+    pre, ssl, _ = one.model.train_losses(params, one.graphs, batch.to(dev),
+                                         one.dropout_gen)
+    loss = pre + cfg.train.reg * reg_loss(params) + cfg.train.ssl_reg * ssl
+    keys = list(params)
+    want = dict(zip(keys, torch.autograd.grad(loss,
+                                              [params[k] for k in keys])))
+    torch.testing.assert_close(totals["loss"], loss.detach(), rtol=1e-5,
+                               atol=0.0)
+    torch.testing.assert_close(totals["preLoss"], pre.detach(), rtol=1e-5,
+                               atol=0.0)
+    scale = max(float(g.abs().max()) for g in want.values())
+    specs = tr.mesh_state.specs
+    for k, g in want.items():
+        got = gather(grads[k], specs[k], dev)
+        torch.testing.assert_close(got, g, rtol=0.0, atol=1e-5 * scale,
+                                   msg=k)
+
+
+def test_two_processes_share_the_card_over_gloo(dev, tmp_path):
+    """`parallel.multihost --mode train --procs 2 --device cuda`: two
+    processes on cuda:0, gloo carrying the card's tensors through host
+    buffers, against one process on a 2 x 1 mesh: the losses at rtol 1e-5,
+    the metrics within one user's rank (the card's backward of the row
+    gathers sums with atomics, so two runs' weights agree to rounding
+    only and a near-tie can move one rank); then the ring over two
+    processes passes its checksum."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.multihost import (load_bundle, parse_args,
+                                                    train_config)
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(*args):
+        out = subprocess.run(
+            [sys.executable, "-m", "sagnn_tpu_torch.parallel.multihost",
+             "--device", "cuda", "--timeout", "150", *map(str, args)],
+            capture_output=True, timeout=180, cwd=root)
+        assert out.returncode == 0, out.stderr.decode()[-3000:]
+        return json.loads([ln for ln in out.stdout.decode().splitlines()
+                           if ln.startswith("{")][-1])
+
+    res = run("--mode", "train", "--procs", 2, "--spmm_backend", "pallas")
+    assert res["launches"]["segsum_f32"] > 0
+    args = parse_args(["--mode", "train", "--spmm_backend", "pallas"])
+    bundle = load_bundle(args)
+    tr = Trainer(train_config(args), bundle, ckpt_root=str(tmp_path),
+                 mesh=make_mesh(data=2, model=1, devices=[dev] * 2))
+    ref = tr.train_epoch(verbose=False)
+    mets = tr.test_epoch()
+    fs = tr.test_epoch(full_sort=True)
+    for key, want in (("Loss", ref["Loss"]), ("preLoss", ref["preLoss"])):
+        np.testing.assert_allclose(res[key], want, rtol=1e-5, err_msg=key)
+    one_user = (1.0 + 1e-4) / len(bundle.tst_usrs)
+    for key, want in (("NDCG", mets["NDCG"]), ("fs_NDCG", fs["NDCG"])):
+        np.testing.assert_allclose(res[key], want, rtol=0, atol=one_user,
+                                   err_msg=key)
+    ring = run("--mode", "ring", "--procs", 2, "--edges", 60000, "--users",
+               4000, "--items", 3000, "--iters", 1)
+    assert ring["checksum_ok"] is True
+    assert ring["launches"]["ring_segsum_f32"] == 2

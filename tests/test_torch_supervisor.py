@@ -163,6 +163,33 @@ def test_startup_grace_defers_detection_until_first_output():
     assert "silent_cap" not in _feed(_sup(silent_cap_secs=1.0), idle)[0]
 
 
+def test_unarmed_busy_silent_child_is_capped_from_the_spawn():
+    """A child that never logs and keeps burning CPU (a relaunch stuck in
+    device initialisation, spinning) is declared at max(silent_cap,
+    startup_grace) after its spawn, where the JAX package never declares
+    it."""
+    def busy(sup, spawn=0.0, polls=40):
+        """Polls every 5 s from t=5, 3 CPU-s each; (reason, t) of the
+        wedge."""
+        w = Watch(last_size=0, last_cpu=0.0, silent_since=spawn)
+        for n in range(1, polls):
+            w, reason = sup._decide(w, 0, 3.0 * n, 5.0 * n)
+            if reason is not None:
+                return reason, 5.0 * n
+        return None, None
+
+    # silent cap 60 (6 x wedge_secs) and startup_grace 60: at 60 s
+    reason, at = busy(_sup())
+    assert at == 60.0 and "silent_cap 60s" in reason
+    # the larger of the two
+    assert busy(_sup(silent_cap_secs=90.0))[1] == 90.0
+    assert busy(_sup(silent_cap_secs=5.0, startup_grace=100.0))[1] == 100.0
+    # counted from the spawn, not from the first poll
+    assert busy(_sup(), spawn=-20.0)[1] == 40.0
+    # a disabled cap stays disabled
+    assert busy(_sup(silent_cap_secs=0.0)) == (None, None)
+
+
 def test_decide_has_no_side_effects():
     sup = _sup()
     w = Watch(last_size=3, last_cpu=1.0, armed=True)
@@ -209,6 +236,17 @@ def test_recovery_budget_runs_out(tmp_path):
     assert str(tmp_path / "child.py") not in out
 
 
+def test_giving_up_cleans_staging_files(tmp_path):
+    """When the recovery budget runs out the last child's staging files go
+    too, as after a recovery."""
+    sup, ckpt = make_sup(tmp_path, "sigstop", resume_args=[],
+                         max_recoveries=1)
+    assert run_bounded(sup) == 1
+    assert any("budget exhausted" in e for e in sup.events)
+    assert not (ckpt / "state.tmp").exists()
+    assert sum("removing partial checkpoint" in e for e in sup.events) == 2
+
+
 def test_clean_tmp_removes_staging_files_only(tmp_path):
     for name in ("state", "state.tmp", "history.json", "history.json.tmp",
                  "rng.json.tmp", "config.json"):
@@ -246,6 +284,23 @@ def test_supervise_builds_the_child_command(tmp_path, device, probe):
     assert sup.log_path == os.path.join(str(tmp_path), "m1", "train.log")
     assert (sup.relay_probe is not None) == probe
     assert sup.env["PYTHONPATH"].split(os.pathsep)[0] == ROOT
+    # on the card the child's host waits block (C1), on the CPU nothing
+    assert (sup.env.get(sup_mod.BLOCKING_SYNC_ENV) == "1") == probe
+
+
+def test_supervised_child_sets_blocking_sync_first(tmp_path, monkeypatch):
+    """A child started with BLOCKING_SYNC_ENV calls set_blocking_sync
+    before anything else touches a device, and stops if it fails."""
+    from sagnn_tpu_torch import device as dev_mod
+
+    def refuse():
+        raise RuntimeError("scheduling flags not set")
+
+    monkeypatch.setattr(dev_mod, "set_blocking_sync", refuse)
+    monkeypatch.setenv(sup_mod.BLOCKING_SYNC_ENV, "1")
+    with pytest.raises(RuntimeError, match="scheduling flags"):
+        tmain.main(["--data", "synthetic", "--ckpt_root", str(tmp_path)])
+    assert not (tmp_path / "tem").exists()
 
 
 def test_main_supervise_passes_the_raw_arguments(tmp_path, monkeypatch):

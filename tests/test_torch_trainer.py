@@ -260,16 +260,17 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    """The ring trains (tests/test_torch_ring.py); a mesh with a data axis
-    (the data-parallel step) is not ported yet."""
+    """A mesh with a data axis trains (tests/test_torch_trainer_mesh.py);
+    an option a mesh does not take yet (remat on a 2 x 2 "pallas" mesh)
+    raises, naming its ROADMAP item."""
     from sagnn_tpu_torch import main as cli
     mesh = ["--mesh_data", "2", "--mesh_model", "2"]
-    ns = cli.parse_args(["--data", "synthetic", "--spmm_backend", "ring"]
-                        + mesh)
-    assert cli.build_config(ns).model.spmm_backend == "ring"
+    ns = cli.parse_args(["--data", "synthetic", "--spmm_backend", "pallas",
+                         "--remat"] + mesh)
+    assert cli.build_config(ns).model.remat_propagation
     assert (ns.mesh_data, ns.mesh_model) == (2, 2)
-    with pytest.raises(NotImplementedError, match="Queue A6"):
-        cli.main(["--data", "synthetic", "--spmm_backend", "ring",
-                  "--device", "cpu", "--synth_users", "48", "--synth_items",
-                  "64", "--graphNum", "2", "--ckpt_root", str(tmp_path)]
-                 + mesh)
+    with pytest.raises(NotImplementedError, match="Queue A6\\(e\\)"):
+        cli.main(["--data", "synthetic", "--spmm_backend", "pallas",
+                  "--remat", "--device", "cpu", "--synth_users", "48",
+                  "--synth_items", "64", "--graphNum", "2", "--ckpt_root",
+                  str(tmp_path)] + mesh)
