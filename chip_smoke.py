@@ -5,7 +5,7 @@ and check them.
     python3 chip_smoke.py
 
 Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 19, 21, 13,
-22, 23, 12, 17, 20, 14
+22, 23, 24, 25 (gowalla), 12, 17, 25 (flagship), 20, 14
 (any failure raises and the script exits non-zero; it prints no result
 line then):
   1. device  — require CUDA; print the card's name and power limit.
@@ -226,6 +226,29 @@ line then):
                1e-5: losses, HR/NDCG with candidates and full sort), its
                K1 launches; `--mode ring --procs 2` (a 'model' axis of
                processes, K6) and its checksum.
+ 24. seq_parallel — per-token attention as ring attention over one-card
+               model rows, at gowalla width: the ring of 2 and of 4 ranks
+               (100 and 50 tokens each) against the dense masked MHSA,
+               values and gradients (JAX's 2e-5 and 5e-5, as rtol and as
+               shares of the largest |value| and |gradient|), both timed
+               per layer; one
+               keepRate-1 step on 2 x 2 and on 1 x 4 against the
+               single-device per-token step (phase 22's tolerances, the
+               kinks replayed), 12 + 12 K1 launches per data rank per model
+               rank, each step's device time; `Trainer(mesh=2x2).run()`
+               for 4 steps and two evaluations of 4,096 test users.
+ 25. mesh options — on 2 x 2, the tables split over two model ranks, at
+               gowalla width: edge attention (K5 and K2 on each rank's own
+               edges), remat with the fusion in 16,384-row blocks, the
+               CLI's `--bf16` (K1 bf16), 16,384-row source shards with the
+               fold (K3 with K4), each step against its single-device step;
+               the TP K3 hop (with and without the fold) and the TP K5 and
+               K2 Functions, forward and backward, against their plain
+               versions in f64; after phase 17, the flagship's exact_b512
+               on 1 x 2 (its Trainer's weights, graphs and sampler): two
+               steps at keepRate 0.5 against the single-device step on the
+               same masks (2 x 168 + 168 folded K3 launches each), then
+               both with the update, timed, the peak device memory.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -2824,7 +2847,7 @@ def full_sort_tie_check(trainer, n_items, device) -> dict:
     return out
 
 
-def flagship_phase(device) -> tuple[dict, dict, dict, object]:
+def flagship_phase(device) -> tuple[dict, dict, dict, object, object]:
     """The 1M-user flagship through the entry points: the bundle of
     scripts/bench_1m.py, a `Trainer` with the exact_b512 recipe (auto
     shard rows resolved to FLAGSHIP_SHARD_ROWS, sharded plans attached),
@@ -2841,7 +2864,7 @@ def flagship_phase(device) -> tuple[dict, dict, dict, object]:
     more; the Trainer's full-sort evaluation of every test user (streamed
     over the catalog) and `full_sort_tie_check` on a cut catalog. Returns
     (results, records, interval 0's CSR plans for phase 14, the bundle for
-    phase 17)."""
+    phase 17, the Trainer for phase 25)."""
     import torch
     from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
     from sagnn_tpu_torch.models import selfgnn
@@ -3127,7 +3150,7 @@ def flagship_phase(device) -> tuple[dict, dict, dict, object]:
     hops0 = {k: trainer.graphs[k][:1].clone()
              for k in ("u_src", "u_ptr", "i_src", "i_ptr")}
     shutil.rmtree(root, ignore_errors=True)
-    return out, records, hops0, bundle
+    return out, records, hops0, bundle, trainer
 
 
 def p1_kernels_per_call(device) -> dict:
@@ -4315,11 +4338,13 @@ MP_RTOL = 1e-5
 MP_TIMEOUT_S = 300
 
 
-def _mesh_step(cfg, mesh, params, graphs, bundle=None):
+def _mesh_step(cfg, mesh, params, graphs, bundle=None, num_users=None,
+               num_items=None):
     """(MeshState, ShardedTrainStep) of `cfg` over `mesh` from the
-    single-device `params`: "pallas" on `graphs` (phase 5's), the tables
-    split over the model ranks (whole with one), or, with `bundle`, the
-    ring per data rank."""
+    single-device `params`: "pallas" on `graphs` (phase 5's; the node
+    counts default to the gowalla bundle's), the tables split over the
+    model ranks (whole with one), or, with `bundle`, the ring per data
+    rank."""
     from sagnn_tpu_torch.data.graph import compile_interval_graphs
     from sagnn_tpu_torch.models.selfgnn import SelfGNN
     from sagnn_tpu_torch.parallel import distributed as dist_
@@ -4331,7 +4356,9 @@ def _mesh_step(cfg, mesh, params, graphs, bundle=None):
 
     ring = cfg.model.spmm_backend == "ring"
     rules = ShardingRules(mesh)
-    model = SelfGNN(cfg.model, NUM_USERS, NUM_ITEMS, mesh=mesh.row(0))
+    num_users = num_users or NUM_USERS
+    num_items = num_items or NUM_ITEMS
+    model = SelfGNN(cfg.model, num_users, num_items, mesh=mesh.row(0))
     opt = TF1Adam(cfg.train.lr, cfg.train.decay, cfg.train.decay_step)
     state = dist_.place_state(
         {"params": params, "opt_state": opt.init(params), "step": 0},
@@ -4340,7 +4367,7 @@ def _mesh_step(cfg, mesh, params, graphs, bundle=None):
         rows, masks = ring_graphs_per_row(
             compile_interval_graphs(bundle.sub_mats), mesh), {}
     else:
-        rows = graphs_per_row(graphs, mesh, NUM_USERS, NUM_ITEMS)
+        rows = graphs_per_row(graphs, mesh, num_users, num_items)
         masks = graphs
     return state, dist_.make_sharded_train_step(rules, model, opt, cfg, rows,
                                                 masks)
@@ -4353,10 +4380,32 @@ def _per_hop(kinks: list, hops: int, model_ranks: int) -> list:
     return _ring_hop_kinks(kinks[:hops * model_ranks], model_ranks)
 
 
-def check_mesh_step(got, want, tc, what) -> tuple[float, str]:
+def mesh_grad_worst(grads, g_r, grad_rtol, atol_share, per_leaf=False
+                    ) -> tuple[str, float, float]:
+    """(leaf, max abs error, share of the tolerance used) of the gradient
+    that uses the most of its tolerance: rtol grad_rtol and atol
+    atol_share x the largest |g| over all leaves, or with per_leaf
+    atol_share x the leaf's own largest |g| plus GRAD_ATOL_SHARE x the
+    largest over all (a leaf whose gradient is rounding alone, such as
+    the keys' bias of a softmax, then has f32's floor)."""
+    g_max = max(float(g.abs().max()) for g in g_r.values())
+
+    def atol(g):
+        return (atol_share * float(g.abs().max()) + GRAD_ATOL_SHARE * g_max
+                if per_leaf else atol_share * g_max)
+
+    used = {k: tolerance_used(grads[k], g_r[k], grad_rtol, atol(g_r[k]))
+            for k in g_r}
+    k, (err, share) = max(used.items(), key=lambda kv: kv[1][1])
+    return k, err, share
+
+
+def check_mesh_step(got, want, tc, what, loss_rtol=LOSS_RTOL,
+                    grad_rtol=GRAD_RTOL, atol_share=GRAD_ATOL_SHARE,
+                    per_leaf=False) -> tuple[float, str]:
     """A mesh step's (totals, whole gradients) against the single-device
-    step's `loss_and_grads`: preLoss and loss at LOSS_RTOL, every gradient
-    at GRAD_RTOL with atol GRAD_ATOL_SHARE x the largest |g| (`check_step`'s
+    step's (`single_step`): preLoss and loss at loss_rtol, every gradient
+    at grad_rtol with `mesh_grad_worst`'s atol (by default `check_step`'s
     tolerances)."""
     import torch
     from sagnn_tpu_torch.models.selfgnn import reg_loss
@@ -4365,21 +4414,68 @@ def check_mesh_step(got, want, tc, what) -> tuple[float, str]:
     loss = pre + tc.reg * reg_loss(leaves).detach() + tc.ssl_reg * ssl
     for name, a, b in (("preLoss", totals["preLoss"], pre),
                        ("loss", totals["loss"], loss)):
-        check_close(a.reshape(1), b.reshape(1), LOSS_RTOL, 0.0,
+        check_close(a.reshape(1), b.reshape(1), loss_rtol, 0.0,
                     f"{what} {name} vs the single-device step")
     g_max = max(float(g.abs().max()) for g in g_r.values())
-    atol = GRAD_ATOL_SHARE * g_max
-    used = {k: tolerance_used(grads[k], g_r[k], GRAD_RTOL, atol)
-            for k in g_r}
-    worst = max(used.items(), key=lambda kv: kv[1][1])
-    log(f"  {what} gradients vs the single-device step (rtol {GRAD_RTOL}, "
-        f"atol {atol:.3e} = {GRAD_ATOL_SHARE} x max|g| {g_max:.3e}): "
-        f"largest share {worst[1][1]:.2f} ({worst[0]}, err "
-        f"{worst[1][0]:.2e})")
-    check(worst[1][1] <= 1.0 and all(bool(torch.isfinite(v).all())
-                                     for v in grads.values()),
-          f"{what} gradient {worst[0]}: {worst[1][1]:.2f} of the tolerance")
-    return worst[1][1], worst[0]
+    k, err, share = mesh_grad_worst(grads, g_r, grad_rtol, atol_share,
+                                    per_leaf)
+    atol = (f"{atol_share} x each leaf's max|g| + {GRAD_ATOL_SHARE} x "
+            f"max|g| {g_max:.3e}" if per_leaf else
+            f"{atol_share * g_max:.3e} = {atol_share} x max|g| {g_max:.3e}")
+    log(f"  {what} gradients vs the single-device step (rtol {grad_rtol}, "
+        f"atol {atol}): largest share {share:.2f} ({k}, err {err:.2e})")
+    check(share <= 1.0 and all(bool(torch.isfinite(v).all())
+                               for v in grads.values()),
+          f"{what} gradient {k}: {share:.2f} of the tolerance")
+    return share, k
+
+
+def single_step(model, leaves, graphs, batch, tc, gen=None, kinks=None):
+    """The single-device step a mesh step is held to (`check_mesh_step`'s
+    `want`): (preLoss, sslloss, gradients, leaves); with `kinks` (a mesh
+    step's, `_per_hop`) each hop's leaky-relu takes the side the mesh
+    took."""
+    import torch
+
+    def replay(x, leaky):
+        return torch.where(kinks.pop(0)[:x.shape[0]], x, leaky * x)
+
+    with (_hop_relu(replay) if kinks is not None
+          else contextlib.nullcontext()):
+        pre, ssl, g = loss_and_grads(model, leaves, graphs, batch, tc, gen)
+    if kinks is not None:
+        check(not kinks, "every mesh hop replayed on the single step")
+    return pre, ssl, g, leaves
+
+
+def run_mesh_step(name, cfg, shape, params, graphs, batch, device, out,
+                  gen=None, ring_bundle=None, want_launches=None,
+                  num_users=None, num_items=None):
+    """One mesh step of `cfg` on a `shape` mesh of the card's ranks from
+    the single-device `params`, without the update, its launches counted
+    from 0 just before it (into out["launches"][name]) and held to
+    `want_launches`: (state, step, (totals, whole gradients), data rank
+    0's kinks per hop)."""
+    import torch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.sharding import gather
+
+    mesh = make_mesh(*shape, devices=[device] * (shape[0] * shape[1]))
+    state, step = _mesh_step(cfg, mesh, params, graphs, ring_bundle,
+                             num_users, num_items)
+    kinks = []
+    sc.reset_launches()
+    with kernel_kinks(kinks):
+        totals, grads = step.loss_and_grads(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    out["launches"][name] = {k: v for k, v in launches.items() if v}
+    log(f"mesh {name} step launches: {out['launches'][name]}")
+    expect_launches(launches, f"mesh {name} step", **want_launches)
+    whole = {k: gather(v, state.specs[k], device) for k, v in grads.items()}
+    hops = cfg.model.graph_num * cfg.model.gnn_layer * 2
+    return state, step, (totals, whole), _per_hop(kinks, hops, shape[1])
 
 
 def _blocked_wait_cpu_share() -> float:
@@ -4516,7 +4612,6 @@ def mesh_phase(cfg, bundle, params, batch, rec, vrecs, device) -> dict:
     from sagnn_tpu_torch.models.selfgnn import SelfGNN
     from sagnn_tpu_torch.ops import spmm_cuda as sc
     from sagnn_tpu_torch.parallel.mesh import make_mesh
-    from sagnn_tpu_torch.parallel.sharding import gather
     from sagnn_tpu_torch.train.trainer import Trainer
 
     tc = cfg.train
@@ -4529,36 +4624,14 @@ def mesh_phase(cfg, bundle, params, batch, rec, vrecs, device) -> dict:
     out = {"launches": {}, "steps": {}}
 
     def single(model, gen=None, kinks=None, graphs=None):
-        def replay(x, leaky):
-            return torch.where(kinks.pop(0)[:x.shape[0]], x, leaky * x)
-        with (_hop_relu(replay) if kinks is not None
-              else contextlib.nullcontext()):
-            pre, ssl, g = loss_and_grads(model, leaves, graphs or rec.graphs,
-                                         batch, tc, gen)
-        if kinks is not None:
-            check(not kinks, "every mesh hop replayed on the single step")
-        return pre, ssl, g, leaves
-
-    def whole(state, grads):
-        return {k: gather(v, state.specs[k], device) for k, v in
-                grads.items()}
+        return single_step(model, leaves, graphs or rec.graphs, batch, tc,
+                           gen, kinks)
 
     def run_step(name, cfg_, shape, gen=None, ring_bundle=None,
                  want_launches=None, graphs=None):
-        mesh = make_mesh(*shape, devices=[device] * (shape[0] * shape[1]))
-        state, step = _mesh_step(cfg_, mesh, params, graphs or rec.graphs,
-                                 ring_bundle)
-        kinks = []
-        sc.reset_launches()
-        with kernel_kinks(kinks):
-            totals, grads = step.loss_and_grads(state, batch, gen)
-        torch.cuda.synchronize()
-        launches = dict(sc.LAUNCHES)
-        out["launches"][name] = {k: v for k, v in launches.items() if v}
-        log(f"mesh {name} step launches: {out['launches'][name]}")
-        expect_launches(launches, f"mesh {name} step", **want_launches)
-        return state, step, (totals, whole(state, grads)), _per_hop(
-            kinks, hops, shape[1])
+        return run_mesh_step(name, cfg_, shape, params, graphs or rec.graphs,
+                             batch, device, out, gen, ring_bundle,
+                             want_launches)
 
     for shape in MESH_SHAPES:
         name = f"{shape[0]}x{shape[1]}"
@@ -4795,6 +4868,528 @@ def multiprocess_phase(bundle, device) -> dict:
         f"{res['allreduce_ms_per_step']:.2f} ms per step), Loss "
         f"{res['Loss']:.6f}; ring {out['ring_s']:.1f} s, "
         f"{ring['edges_per_sec'] / 1e9:.4f} Gedges/s, checksum ok")
+    return out
+
+
+# phases 24-25: seq_parallel (ring attention) and the options a
+# tensor-parallel mesh once refused, every rank on the card. Ring attention
+# against the dense masked MHSA: JAX's tolerances (tests/test_parallel.py:
+# 122-156, values 2e-5, gradients 5e-5) as rtol and as shares of the
+# largest |value| (of the output; of the gradients, over x and every
+# parameter: the keys' bias has none but rounding, softmax being
+# invariant to it)
+SEQ_SHAPES = ((2, 2), (1, 4))
+SEQ_TRN_NUM = 2_048              # the seq_parallel Trainer's 4 steps of 512
+RING_ATT_TOL, RING_ATT_GRAD_TOL = 2e-5, 5e-5
+# phase 25's explicit source shards (3 + 3 per hop at gowalla) and fusion
+# blocks (2 per model rank of 24,576 users)
+OPTION_SHARD_ROWS = 16_384
+OPTION_CHUNK_ROWS = 16_384
+# the bf16 stack on a 2 x 2 mesh against one device: each gradient at rtol
+# 0.05 (tests/test_torch_bf16.py's) and atol 2^-4 of its own leaf's
+# largest |g| (`mesh_grad_worst`). On an H100 80GB HBM3 at 700 W the sound
+# step lands 3.8e-2 of reg/u_embed's own largest |g| from the single-device
+# bf16 step: 0.54 of this bound, 1.60 of 2^-6. The phase logs how far
+# each lies from the f32 step, which is the bf16 table mode's own
+# rounding. One atol of 5e-2 x the largest |g| over all leaves (the
+# earlier bound; lstm/bias's largest |g| is 70, reg/u_embed's 0.93) let
+# steps through whose backward dropped one model rank's rows: the phase
+# plants that fault in each of BF16_FAULT_CALLS (the n-th TP backward
+# hop of the step, model rank 1's dx zeroed), fails unless the bound
+# rejects every one, and logs how many the earlier bound passes. The
+# losses at BF16_LOSS_RTOL.
+BF16_MESH_GRAD_RTOL, BF16_MESH_GRAD_ATOL_SHARE = 0.05, 2 ** -4
+BF16_OLD_GRAD_ATOL_SHARE = 5e-2
+BF16_FAULT_CALLS = tuple(range(1, 25, 2))   # of 24: 2 data ranks x 12 hops
+FLAGSHIP_MESH_STEPS = 2         # exact_b512 steps on 1 x 2, each checked
+
+
+def seq_parallel_phase(cfg, bundle, params, batch, rec, device) -> dict:
+    """24. seq_parallel at gowalla width (pos_length 200, 16 heads,
+    att_layer 1) on phase 3's bundle and phase 5's weights: ring attention
+    over one-card model rows of 2 and 4 ranks (100 and 50 tokens each)
+    against the dense masked MHSA on the card, on phase 6's batch's
+    sequences of item encodings, values and the gradients in x and every
+    parameter, and both timed per layer; one keepRate-1 step on 2 x 2 and
+    on 1 x 4 against the single-device per-token step from the same params
+    (phase 22's tolerances, the kinks replayed), 12 + 12 K1 launches per
+    data rank per model rank, each step's device time (torch.profiler)
+    against the single-device one's; `Trainer(mesh=2x2).run()` for one
+    epoch of SEQ_TRN_NUM users (4 steps) and its two evaluations, of the
+    first EVAL_USERS test users."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.ops.attention import multi_head_self_attention
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.ring_attention import \
+        ring_multi_head_self_attention
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    tc = cfg.train
+    mc_pt = dataclasses.replace(cfg.model, keep_rate=1.0,
+                                per_token_seq_attention=True)
+    mc_sp = dataclasses.replace(mc_pt, seq_parallel=True)
+    check((mc_sp.pos_length, mc_sp.num_heads, mc_sp.latdim) == (200, 16, 64),
+          "seq_parallel widths")
+    hops = mc_sp.graph_num * mc_sp.gnn_layer * 2
+    out = {"card": gpu_name_and_power(), "launches": {}, "steps": {},
+           "attention": {}}
+
+    # ring attention against the dense one, at the branch's shapes
+    _fu, fi = rec.encodings
+    mask = batch.seq_mask.float()
+    x0 = (fi[batch.seq.long()] * mask[..., None]).detach()
+    gen = torch.Generator(device=device).manual_seed(PARAM_SEED + 24)
+    cot = torch.randn(x0.shape, generator=gen, device=device)
+    att = {k: v.detach().clone().requires_grad_() for k, v in
+           selfgnn.sub(params, "free/seq_mhsa/0").items()}
+    x = x0.clone().requires_grad_()
+    leaves = [x] + [att[k] for k in sorted(att)]
+    names = ["x"] + sorted(att)
+    H = mc_sp.num_heads
+    want = multi_head_self_attention(att, x, H, stable=True, mask=mask)
+    want_g = torch.autograd.grad(want, leaves, cot)
+    g_max = max(amax(g) for g in want_g)
+    with torch.no_grad():
+        out["attention"]["dense_ms"] = cuda_ms(
+            lambda: multi_head_self_attention(att, x, H, stable=True,
+                                              mask=mask), iters=5, warmup=1)
+    for M in (2, 4):
+        row = make_mesh(1, M, devices=[device] * M)
+        got = ring_multi_head_self_attention(row, att, x, H, mask)
+        got_g = torch.autograd.grad(got, leaves, cot)
+        torch.cuda.synchronize()
+        rec_m = {"max_abs_err": check_close(
+            got.detach(), want.detach(), RING_ATT_TOL,
+            RING_ATT_TOL * amax(want.detach()),
+            f"ring attention over {M} ranks vs dense")}
+        rec_m["grad_max_abs_err"] = {n: check_close(
+            a, b, RING_ATT_GRAD_TOL, RING_ATT_GRAD_TOL * g_max,
+            f"ring attention over {M} ranks, d{n} vs dense")
+            for n, a, b in zip(names, got_g, want_g)}
+        with torch.no_grad():
+            rec_m["ms"] = cuda_ms(lambda: ring_multi_head_self_attention(
+                row, att, x, H, mask), iters=5, warmup=1)
+        out["attention"][f"ring_{M}"] = rec_m
+        del got, got_g
+    log(f"ring attention ({out['card']}): one layer over {x.shape[0]} x "
+        f"{x.shape[1]} tokens, dense {out['attention']['dense_ms']:.3f} ms, "
+        + ", ".join(f"ring of {M} {out['attention'][f'ring_{M}']['ms']:.3f}"
+                    " ms" for M in (2, 4)))
+    del want, want_g, x, leaves
+
+    # the seq_parallel steps against the single-device per-token step
+    pleaves = {k: v.detach().clone().requires_grad_()
+               for k, v in params.items()}
+    per_token = selfgnn.SelfGNN(mc_pt, NUM_USERS, NUM_ITEMS)
+    cfg_sp = cfg.replace(model=mc_sp)
+    for shape in SEQ_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        per = hops * shape[0] * shape[1]
+        state, step, got, kinks = run_mesh_step(
+            name, cfg_sp, shape, params, rec.graphs, batch, device, out,
+            want_launches={"segsum_f32": per, "segsum_f32_bwd": per})
+        share, worst = check_mesh_step(
+            got, single_step(per_token, pleaves, rec.graphs, batch, tc,
+                             kinks=kinks), tc, f"seq_parallel {name}")
+        out["steps"][name] = {
+            "grad_check_share": share, "grad_check_worst": worst,
+            "device_ms": step_device_ms(
+                lambda: step.loss_and_grads(state, batch))}
+        del got, state, step
+    out["single_step_device_ms"] = step_device_ms(
+        lambda: loss_and_grads(per_token, pleaves, rec.graphs, batch, tc))
+    log(f"seq_parallel steps' device time (forward + backward, "
+        f"{out['card']}): "
+        f"{ {k: v['device_ms'] for k, v in out['steps'].items()} } ms "
+        f"against the single-device per-token step's "
+        f"{out['single_step_device_ms']} ms")
+    del pleaves
+
+    # `Trainer(mesh=2x2).run()`: one epoch of 4 steps, its evaluation and
+    # the final one, over the first EVAL_USERS test users (the others'
+    # test items dropped from a copy of the bundle)
+    steps = -(-SEQ_TRN_NUM // tc.batch)
+    run_cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, per_token_seq_attention=True,
+                                  seq_parallel=True),
+        train=dataclasses.replace(tc, trn_num=SEQ_TRN_NUM, epoch=1,
+                                  tst_epoch=1, save_path="seq_parallel"))
+    tst_int = bundle.tst_int.copy()
+    tst_int[bundle.tst_usrs[EVAL_USERS:]] = None
+    eval_bundle = dataclasses.replace(bundle, tst_int=tst_int)
+    with tempfile.TemporaryDirectory() as root:
+        trainer = Trainer(run_cfg, eval_bundle, ckpt_root=root,
+                          mesh=make_mesh(2, 2, devices=[device] * 4))
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        best = trainer.run()
+        torch.cuda.synchronize()
+        out["trainer_run_s"] = time.perf_counter() - t0
+    launches = dict(sc.LAUNCHES)
+    out["launches"]["trainer"] = {k: v for k, v in launches.items() if v}
+    # per step 12 per (data, model) rank both ways; each of the two
+    # evaluations encodes on data rank 0's row, 12 per model rank
+    expect_launches(launches, "seq_parallel 2x2 Trainer run",
+                    segsum_f32=hops * 4 * steps + 2 * hops * 2,
+                    segsum_f32_bwd=hops * 4 * steps)
+    check(trainer.state["step"] == steps
+          and all(math.isfinite(st[k]) for st in trainer.step_stats
+                  for k in st), "seq_parallel Trainer: finite losses")
+    for k in ("HR", "NDCG"):
+        check(math.isfinite(best[k]) and 0.0 <= best[k] <= 1.0,
+              f"seq_parallel metric {k}={best[k]}")
+    times = trainer.step_timer.times[1:]
+    out.update(trainer_steps=steps, eval_users=len(eval_bundle.tst_usrs),
+               trainer_losses=trainer.step_stats,
+               trainer_step_ms_mean=float(np.mean(times)) * 1e3,
+               metrics={k: best[k] for k in ("HR", "NDCG")})
+    log(f"seq_parallel 2x2 Trainer.run(): {steps} steps and two evaluations "
+        f"of {out['eval_users']} users in {out['trainer_run_s']:.2f} s, "
+        f"{out['trainer_step_ms_mean']:.2f} ms a step after the first; "
+        f"HR {best['HR']:.4f} NDCG {best['NDCG']:.4f}")
+    return out
+
+
+def tp_hop_checks(graphs, device) -> dict:
+    """The tensor-parallel K3 and K5 hops on interval 0 of phase 25's
+    graphs (OPTION_SHARD_ROWS source shards), two model ranks on the card,
+    forward and backward, against their plain versions summed in f64: K3
+    (with and without the fold) at the segment-sum tolerance
+    (`seg_tol`); `TPSddmmFunction` and `TPSpmmWeightedFunction` (the u
+    direction, each rank on its own edges) at K5's tolerance for the
+    scores and dw and the segment-sum's for the rest. Returns their
+    launches."""
+    import torch
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel import sharding as shd
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    D = 64
+    dv = [device, device]
+    tp = shd.tp_graphs({device: graphs}, dv, NUM_USERS, NUM_ITEMS)
+    out = {}
+    ss = graphs["plans_ss"]
+    x = torch.randn((NUM_ITEMS, D), generator=gen, device=device)
+    cot = torch.randn((NUM_USERS, D), generator=gen, device=device)
+    x64, c64 = x.double(), cot.double()
+    for folded in (False, True):
+        hop = tp.hop("u", 0, True, folded, shard_rows=OPTION_SHARD_ROWS)
+        xs = [x[lo:hi].clone().requires_grad_() for lo, hi in tp.item_rows]
+        sc.reset_launches()
+        got = shd.tp_spmm(xs, hop)
+        dx = torch.autograd.grad(got, xs, [cot[lo:hi] for lo, hi in
+                                           tp.user_rows])
+        torch.cuda.synchronize()
+        name = "segsum_fold_acc_f32" if folded else "segsum_acc_f32"
+        out[name] = {k: v for k, v in sc.LAUNCHES.items() if v}
+        # one launch per source shard per rank, each way
+        expect_launches(dict(sc.LAUNCHES), f"TP {name} hop", **{
+            name: 2 * sc.num_shards(NUM_ITEMS, OPTION_SHARD_ROWS),
+            name + "_bwd": 2 * sc.num_shards(NUM_USERS, OPTION_SHARD_ROWS)})
+        want = sc.spmm_apply_src_sharded_plain(x64, ss["u_src"][0],
+                                               ss["u_ptr"][0],
+                                               OPTION_SHARD_ROWS)
+        dwant = sc.spmm_apply_src_sharded_plain(c64, ss["i_src"][0],
+                                                ss["i_ptr"][0],
+                                                OPTION_SHARD_ROWS)
+        rtol, atol = seg_tol(sharded_row_ptr(ss["u_ptr"][0]), amax(x))
+        check_close(torch.cat(got).detach(), want, rtol, atol,
+                    f"TP {name} hop")
+        rtol, atol = seg_tol(sharded_row_ptr(ss["i_ptr"][0]), amax(cot))
+        check_close(torch.cat(dx), dwant, rtol, atol, f"TP {name} dx")
+    # K5 and K2 on each rank's own edges of the u direction
+    src, tgt, ptr = graphs["u_src"][0], graphs["u_tgt"][0], graphs["u_ptr"][0]
+    bsrc, bptr = graphs["i_src"][0], graphs["i_ptr"][0]
+    perm = graphs["i_from_u"][0]
+    n = int(ptr[-1])
+    hop = tp.weighted_hop("u", 0, True)
+    y = torch.randn((NUM_USERS, D), generator=gen, device=device)
+    g_e = torch.randn(n, generator=gen, device=device)
+    w_e = torch.rand(n, generator=gen, device=device)
+    pad = src.numel() - n
+    g_full = torch.cat([g_e, g_e.new_zeros(pad)]).double()
+    w_full = torch.cat([w_e, w_e.new_zeros(pad)]).double()
+    cuts = [e1 - e0 for e0, e1 in hop.cuts]
+    xs = [x[lo:hi].clone().requires_grad_() for lo, hi in tp.item_rows]
+    ys = [y[lo:hi].clone().requires_grad_() for lo, hi in tp.user_rows]
+    sc.reset_launches()
+    s = shd.TPSddmmFunction.apply(hop, *xs, *ys)
+    ds = torch.autograd.grad(s, xs + ys, list(g_e.split(cuts)))
+    torch.cuda.synchronize()
+    out["tp_sddmm"] = {k: v for k, v in sc.LAUNCHES.items() if v}
+    expect_launches(dict(sc.LAUNCHES), "TP K5 hop", sddmm_f32=2,
+                    wsegsum_f32_bwd=4)
+    y64 = y.double()
+    k5_atol = 1e-5 * math.sqrt(D) * amax(x) * amax(y)
+    check_close(torch.cat(s).detach(), sc.sddmm_apply_plain(
+                    x64, y64, src, tgt, ptr)[:n],
+                1e-5, k5_atol, "TP sddmm_f32 scores")
+    rtol, atol = seg_tol(bptr, amax(y) * amax(g_e))
+    check_close(torch.cat(ds[:2]), sc.spmm_weighted_apply_plain(
+        y64, g_full.index_select(0, perm), bsrc, bptr), rtol, atol,
+        "TP sddmm dx (K2 on the transpose plan)")
+    rtol, atol = seg_tol(ptr, amax(x) * amax(g_e))
+    check_close(torch.cat(ds[2:]), sc.spmm_weighted_apply_plain(
+        x64, g_full, src, ptr), rtol, atol, "TP sddmm dy (K2)")
+    ws = [w.clone().requires_grad_() for w in w_e.split(cuts)]
+    sc.reset_launches()
+    o = shd.TPSpmmWeightedFunction.apply(hop, *xs, *ws)
+    dxw = torch.autograd.grad(o, xs + ws, [cot[lo:hi] for lo, hi in
+                                           tp.user_rows])
+    torch.cuda.synchronize()
+    out["tp_wsegsum"] = {k: v for k, v in sc.LAUNCHES.items() if v}
+    expect_launches(dict(sc.LAUNCHES), "TP K2 hop", wsegsum_f32=2,
+                    wsegsum_f32_bwd=2, sddmm_f32_bwd=2)
+    rtol, atol = seg_tol(ptr, amax(x) * amax(w_e))
+    check_close(torch.cat(o).detach(), sc.spmm_weighted_apply_plain(
+        x64, w_full, src, ptr), rtol, atol, "TP wsegsum_f32 hop")
+    rtol, atol = seg_tol(bptr, amax(cot) * amax(w_e))
+    check_close(torch.cat(dxw[:2]), sc.spmm_weighted_apply_plain(
+        c64, w_full.index_select(0, perm), bsrc, bptr), rtol, atol,
+        "TP wsegsum dx (K2 on the transpose plan)")
+    check_close(torch.cat(dxw[2:]), sc.sddmm_apply_plain(
+        x64, c64, src, tgt, ptr)[:n], 1e-5,
+        1e-5 * math.sqrt(D) * amax(x) * amax(cot), "TP wsegsum dw (K5)")
+    log(f"TP hops' launches: {out}")
+    return out
+
+
+def mesh_options_phase(cfg, bundle, params, batch, rec, vrecs,
+                       device) -> dict:
+    """25 (gowalla). The options a tensor-parallel mesh once refused, at
+    the preset's width on 2 x 2 (the tables split over two model ranks),
+    each keepRate-1 step against its single-device step from phase 5's
+    weights on phase 6's batch (phase 22's tolerances, the kinks
+    replayed): edge attention (K5 and K2 on each rank's own edges),
+    remat_propagation with fusion_chunk_rows OPTION_CHUNK_ROWS (the
+    forward's K1 twice: forward and recompute; held against the step
+    without them), the CLI's `--bf16` (K1 bf16; BF16_MESH_GRAD_* and
+    BF16_LOSS_RTOL), spmm_src_shard_rows OPTION_SHARD_ROWS with the fold
+    (K3 with K4, 3 + 3 shards per hop); then the TP K3 and K5 hops
+    against their plain versions (`tp_hop_checks`)."""
+    import torch
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+    from sagnn_tpu_torch.models import selfgnn
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+
+    tc = cfg.train
+    mc1 = dataclasses.replace(cfg.model, keep_rate=1.0)
+    hops = mc1.graph_num * mc1.gnn_layer * 2
+    per = hops * 4
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    out = {"card": gpu_name_and_power(), "launches": {}, "steps": {}}
+    ss_mc = dataclasses.replace(mc1, spmm_src_shard_rows=OPTION_SHARD_ROWS,
+                                spmm_fold_gather=True)
+    t0 = time.perf_counter()
+    ss_graphs = selfgnn.graphs_to_device(
+        compile_interval_graphs(bundle.sub_mats), device, ss_mc)
+    out["src_shard_graphs_s"] = time.perf_counter() - t0
+    s_u = sc.num_shards(NUM_ITEMS, OPTION_SHARD_ROWS)
+    s_i = sc.num_shards(NUM_USERS, OPTION_SHARD_ROWS)
+    k3 = mc1.graph_num * mc1.gnn_layer * (s_u + s_i) * 2 * 2
+    bf16 = dict(spmm_exact=False, fusion_dtype="bf16", stable_softmax=True)
+    for name, model_kw, ref_kw, graphs, launches, tol in (
+            ("2x2_attention", {"edge_attention": True}, None,
+             vrecs["attention"].graphs,
+             {"sddmm_f32": per, "sddmm_f32_bwd": per, "wsegsum_f32": per,
+              "wsegsum_f32_bwd": 3 * per}, {}),
+            ("2x2_remat_chunked", {"remat_propagation": True,
+                                   "fusion_chunk_rows": OPTION_CHUNK_ROWS},
+             {}, rec.graphs,
+             {"segsum_f32": 2 * per, "segsum_f32_bwd": per}, {}),
+            ("2x2_bf16", bf16, None, rec.graphs,
+             {"segsum_bf16": per, "segsum_bf16_bwd": per},
+             {"loss_rtol": BF16_LOSS_RTOL, "grad_rtol": BF16_MESH_GRAD_RTOL,
+              "atol_share": BF16_MESH_GRAD_ATOL_SHARE, "per_leaf": True}),
+            ("2x2_src_shard_fold", {"spmm_src_shard_rows": OPTION_SHARD_ROWS,
+                                    "spmm_fold_gather": True}, None,
+             ss_graphs,
+             {"segsum_fold_acc_f32": k3, "segsum_fold_acc_f32_bwd": k3},
+             {})):
+        vcfg = cfg.replace(model=dataclasses.replace(mc1, **model_kw))
+        # the reference: the same config on one device, or (ref_kw) the
+        # step without the options, whose values they do not change (a
+        # checkpoint's recompute would not replay the kinks)
+        ref_mc = vcfg.model if ref_kw is None else \
+            dataclasses.replace(mc1, **ref_kw)
+        state, step, got, kinks = run_mesh_step(
+            name, vcfg, (2, 2), params, graphs, batch, device, out,
+            want_launches=launches)
+        want = single_step(selfgnn.SelfGNN(ref_mc, NUM_USERS, NUM_ITEMS),
+                           leaves, graphs, batch, tc, kinks=list(kinks))
+        share, worst = check_mesh_step(got, want, tc, f"TP mesh {name}",
+                                       **tol)
+        out["steps"][name] = {
+            "grad_check_share": share, "grad_check_worst": worst,
+            "device_ms": step_device_ms(
+                lambda: step.loss_and_grads(state, batch))}
+        if tol.get("per_leaf"):
+            f32 = single_step(selfgnn.SelfGNN(mc1, NUM_USERS, NUM_ITEMS),
+                              leaves, graphs, batch, tc, kinks=kinks)[2]
+            out["steps"][name].update(bf16_bound_readings(
+                name, state, step, batch, device, got[1], want[2], f32,
+                worst))
+        del got, state, step, want
+    log(f"TP option steps' device time ({out['card']}): "
+        f"{ {k: v['device_ms'] for k, v in out['steps'].items()} } ms")
+    t0 = time.perf_counter()
+    out["tp_hops"] = tp_hop_checks(dict(vrecs["attention"].graphs,
+                                        plans_ss=ss_graphs["plans_ss"]),
+                                   device)
+    out["tp_hops_s"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def dropped_tp_dx(call: int):
+    """While active, the call-th backward of a tensor-parallel hop
+    (`sharding.TPHop.run`, counted from 1) returns zeros for model rank
+    1's rows: a planted fault for a gradient bound to reject."""
+    import torch
+    from sagnn_tpu_torch.parallel import sharding
+    real = sharding.TPHop.run
+    calls = [0]
+
+    def run(self, shards, backward):
+        out = real(self, shards, backward)
+        if backward:
+            calls[0] += 1
+            if calls[0] == call:
+                out[1] = torch.zeros_like(out[1])
+        return out
+
+    sharding.TPHop.run = run
+    try:
+        yield calls
+    finally:
+        sharding.TPHop.run = real
+
+
+def bf16_bound_readings(name, state, step, batch, device, got, want,
+                        f32, k) -> dict:
+    """The bf16 2 x 2 step's gradient of leaf k (the one that used the
+    most of its bound) `got` and the single-device bf16 step's `want`
+    against the f32 step's `f32`, as shares of the leaf's own largest |g|
+    (logged: the bf16 mode's own rounding); then the
+    step again with `dropped_tp_dx(call)` for each of BF16_FAULT_CALLS:
+    fails unless the per-leaf bound rejects every fault, and logs the
+    share the earlier bound (one atol from the largest |g| of all leaves)
+    uses."""
+    from sagnn_tpu_torch.parallel.sharding import gather
+
+    def own_share(a):
+        return max_err(a[k], f32[k]) / max(float(f32[k].abs().max()), 1e-30)
+
+    res = {"from_f32": {"leaf": k, "mesh": own_share(got),
+                        "single": own_share(want)}, "faults": {}}
+    log(f"  TP mesh {name} from the f32 step (share of the leaf's own "
+        f"max|g|): {k} mesh {res['from_f32']['mesh']:.3e}, single-device "
+        f"bf16 {res['from_f32']['single']:.3e}")
+    for call in BF16_FAULT_CALLS:
+        with dropped_tp_dx(call) as calls:
+            _, grads = step.loss_and_grads(state, batch)
+        check(calls[0] >= call,
+              f"TP mesh {name}: {calls[0]} TP backward hops, no fault "
+              "planted")
+        grads = {k: gather(v, state.specs[k], device)
+                 for k, v in grads.items()}
+        res["faults"][call] = {
+            key: dict(zip(("leaf", "max_abs_err", "share"), mesh_grad_worst(
+                grads, want, BF16_MESH_GRAD_RTOL, share, per_leaf)))
+            for key, share, per_leaf in (
+                ("bound", BF16_MESH_GRAD_ATOL_SHARE, True),
+                ("earlier_bound", BF16_OLD_GRAD_ATOL_SHARE, False))}
+    shares = {key: [f[key]["share"] for f in res["faults"].values()]
+              for key in ("bound", "earlier_bound")}
+    res["earlier_bound_passed"] = sum(x <= 1.0 for x in
+                                      shares["earlier_bound"])
+    log(f"  TP mesh {name} with model rank 1's dx dropped in one TP "
+        f"backward hop ({len(BF16_FAULT_CALLS)} faults): the bound's "
+        f"shares {min(shares['bound']):.2f}-{max(shares['bound']):.2f}; "
+        f"the earlier bound's {min(shares['earlier_bound']):.2f}-"
+        f"{max(shares['earlier_bound']):.2f}, {res['earlier_bound_passed']}"
+        " passed")
+    check(min(shares["bound"]) > 1.0,
+          f"TP mesh {name}: the bound passed a step with model rank 1's dx "
+          f"dropped ({min(shares['bound']):.2f} of it)")
+    return res
+
+
+def flagship_mesh_phase(trainer, device) -> dict:
+    """25 (flagship). The exact_b512 recipe on a 1 x 2 mesh of the card
+    (the 1M-user tables split over two model ranks; remat, the chunked
+    fusion, the fold and the 131,072-row source shards resolved from the
+    whole tables): FLAGSHIP_MESH_STEPS steps at keepRate 0.5 on phase
+    12's Trainer's weights, graphs and sampler, each without the update
+    against the single-device step on the same batch and dropout masks
+    (phase 22's tolerances, the kinks replayed; the reference without
+    remat, which changes no value), their K3-with-K4 launches (one per
+    source shard per hop per model rank: 2 x 168 forward, with the
+    recompute, and 168 backward); then the same steps with the update,
+    timed (host clock, synchronised), each step's device time without
+    the update (torch.profiler) and the peak device memory."""
+    import torch
+    from sagnn_tpu_torch.models import selfgnn
+
+    cfg = trainer.cfg
+    tc = cfg.train
+    mc = cfg.model
+    nu, ni = trainer.model.num_users, trainer.model.num_items
+    ss = trainer.graphs["plans_ss"]
+    per_encode = mc.graph_num * mc.gnn_layer * (ss["u_ptr"].shape[1]
+                                                + ss["i_ptr"].shape[1]) * 2
+    params = trainer.state["params"]
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    ref = selfgnn.SelfGNN(dataclasses.replace(mc, remat_propagation=False),
+                          nu, ni)
+    ids = trainer.sampler.epoch_user_ids(tc.trn_num)
+    out = {"card": gpu_name_and_power(), "launches": {}, "steps": {}}
+    batches = [trainer.sampler.train_batch(
+        ids[i * tc.batch:(i + 1) * tc.batch]).to(device)
+        for i in range(FLAGSHIP_MESH_STEPS)]
+    gen = torch.Generator(device=device)
+    state = step = None
+    for i, b in enumerate(batches):
+        gen.manual_seed(PARAM_SEED + 250 + i)
+        gen_state = gen.get_state()
+        name = f"flagship_1x2_step{i}"
+        state, step, got, kinks = run_mesh_step(
+            name, cfg, (1, 2), params, trainer.graphs, b, device, out, gen,
+            want_launches={"segsum_fold_acc_f32": 2 * per_encode,
+                           "segsum_fold_acc_f32_bwd": per_encode},
+            num_users=nu, num_items=ni)
+        gen.set_state(gen_state)
+        share, worst = check_mesh_step(
+            got, single_step(ref, leaves, trainer.graphs, b, tc, gen, kinks),
+            tc, f"flagship 1x2 step {i}")
+        out["steps"][name] = {"grad_check_share": share,
+                              "grad_check_worst": worst}
+        del got
+    # the steps with the update, timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+    for b in batches:
+        t0 = time.perf_counter()
+        totals = step(state, b, gen)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        check(all(math.isfinite(float(v)) for v in totals.values()),
+              "flagship 1x2 losses finite")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["step_wall_ms"] = wall
+    out["step_device_ms"] = [step_device_ms(
+        lambda: step.loss_and_grads(state, b, gen), n=1) for b in batches]
+    out["per_encode_k3_launches"] = per_encode
+    log(f"flagship exact_b512 on 1 x 2 ({out['card']}): steps "
+        + ", ".join(f"{t:.1f}" for t in wall) + " ms (host clock, with the "
+        f"update), device {out['step_device_ms']} ms each without it; "
+        f"peak memory {out['peak_memory_gb']:.2f} GB")
     return out
 
 
@@ -5097,11 +5692,25 @@ def drive(device) -> None:
     phase_s["multi-process"] = time.perf_counter() - t0
     log(f"phase multi-process: {phase_s['multi-process']:.1f} s")
 
+    # 24. seq_parallel: ring attention over the card's model rows
+    t0 = time.perf_counter()
+    seq_parallel = seq_parallel_phase(cfg, bundle, rec.params, batch, rec,
+                                      device)
+    phase_s["seq_parallel"] = time.perf_counter() - t0
+    log(f"phase seq_parallel: {phase_s['seq_parallel']:.1f} s")
+
+    # 25. the options on a tensor-parallel mesh at gowalla width
+    t0 = time.perf_counter()
+    mesh_options = mesh_options_phase(cfg, bundle, rec.params, batch, rec,
+                                      vrecs, device)
+    phase_s["mesh options"] = time.perf_counter() - t0
+    log(f"phase mesh options: {phase_s['mesh options']:.1f} s")
+
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
     t0 = time.perf_counter()
-    flagship, frecords, flagship_hops, flagship_bundle = flagship_phase(
-        device)
+    (flagship, frecords, flagship_hops, flagship_bundle,
+     flagship_trainer) = flagship_phase(device)
     records.update(frecords)
     phase_s["flagship"] = time.perf_counter() - t0
     log(f"phase flagship: {phase_s['flagship']:.1f} s")
@@ -5113,6 +5722,14 @@ def drive(device) -> None:
     del flagship_bundle
     phase_s["flagship bf16_b4096"] = time.perf_counter() - t0
     log(f"phase flagship bf16_b4096: {phase_s['flagship bf16_b4096']:.1f} s")
+
+    # 25. the flagship's exact_b512 recipe on a 1 x 2 mesh
+    t0 = time.perf_counter()
+    flagship_mesh = flagship_mesh_phase(flagship_trainer, device)
+    del flagship_trainer
+    torch.cuda.empty_cache()
+    phase_s["flagship mesh"] = time.perf_counter() - t0
+    log(f"phase flagship mesh: {phase_s['flagship mesh']:.1f} s")
 
     # 20. catalog-sharded top-k on the gowalla and the flagship catalogs
     t0 = time.perf_counter()
@@ -5282,6 +5899,29 @@ def drive(device) -> None:
         records[name]["launches_mesh_ring_step_2x2"] = ml["ring_2x2"][name]
     records["ring_segsum_f32"]["launches_two_process_ring_process0"] = \
         multiprocess["ring"]["launches"]["ring_segsum_f32"]
+    # phases 24 and 25, each path counted from 0 just before it: the
+    # seq_parallel steps and Trainer, the options' 2 x 2 steps (every data
+    # and model rank), the flagship's 1 x 2 step
+    sl, ol = seq_parallel["launches"], mesh_options["launches"]
+    for name in ("segsum_f32", "segsum_f32_bwd"):
+        records[name].update(
+            launches_seq_parallel_step={k: sl[k][name]
+                                        for k in ("2x2", "1x4")},
+            launches_seq_parallel_trainer=sl["trainer"][name],
+            launches_tp_mesh_step_2x2_remat_chunked=ol[
+                "2x2_remat_chunked"][name])
+    for name in ("segsum_bf16", "segsum_bf16_bwd"):
+        records[name]["launches_tp_mesh_step_2x2_bf16"] = ol["2x2_bf16"][name]
+    for name in ("sddmm_f32", "sddmm_f32_bwd", "wsegsum_f32",
+                 "wsegsum_f32_bwd"):
+        records[name]["launches_tp_mesh_step_2x2_attention"] = \
+            ol["2x2_attention"][name]
+    for name in ("segsum_fold_acc_f32", "segsum_fold_acc_f32_bwd"):
+        records[name].update(
+            launches_tp_mesh_step_2x2_src_shard_fold=ol[
+                "2x2_src_shard_fold"][name],
+            launches_tp_flagship_1x2_step=flagship_mesh["launches"][
+                "flagship_1x2_step0"][name])
     schedule_report(records)
     kernels = []
     for r in records.values():
@@ -5334,7 +5974,9 @@ def drive(device) -> None:
                        if k != "trainer_losses"},
         "tf1_import": tf1, "user_path": user_path,
         "sharded_serving": sharded, "profiler_trace": profiler_trace,
-        "mesh": mesh, "multiprocess": multiprocess}
+        "mesh": mesh, "multiprocess": multiprocess,
+        "seq_parallel": seq_parallel, "mesh_options": mesh_options,
+        "flagship_mesh": flagship_mesh}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

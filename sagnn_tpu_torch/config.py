@@ -68,7 +68,9 @@ class ModelConfig:
     # Q1 variant: functional edge dropout (model.py:93-102). 1.0 = parity
     # (off). Training only; weights every hop through K2.
     edge_dropout_keep: float = 1.0
-    # sequence-parallel per-token attention (multi-device). Not ported yet.
+    # sequence-parallel per-token attention: ring attention over a mesh's
+    # 'model' axis (needs per_token_seq_attention, a mesh whose 'model'
+    # axis divides pos_length; parallel/ring_attention.py)
     seq_parallel: bool = False
     # GAT-style edge-attention propagation (SDDMM K5 + weighted SpMM K2;
     # "pallas" backend only).

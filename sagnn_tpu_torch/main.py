@@ -21,8 +21,11 @@ throwaway epoch under DIR before the run (the state and RNG are restored
 after it, so the run is unchanged). `--supervise` runs the training under
 the wedge watchdog (`train/supervisor.py`): the same command without the
 supervisor's flags as a child, recovered with `--load_model` when it
-wedges or crashes. Config options the port does not carry raise
-NotImplementedError naming the ROADMAP item that will.
+wedges or crashes. `--per_token_seq_attention --seq_parallel` with
+`--mesh_model M` (M dividing `--pos_length`) runs the sequence attention
+as ring attention over each data rank's model row; what JAX refuses
+about it raises ValueError. An unknown `--spmm_backend` raises
+NotImplementedError.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """SelfGNN: training losses, encode, score and top-k; the port of
 `sagnn_tpu/models/selfgnn.py` (its single-device paths, the "ring"
-backend over a mesh's model row, and the encode of one data rank whose
-node tables are split over its model ranks, `SelfGNN.encode_sharded`).
+backend and seq_parallel over a mesh's model row, and the encode of one
+data rank whose node tables are split over its model ranks, with every
+option, `SelfGNN.encode_sharded`).
 
 Parameters are one flat dict of tensors keyed by the JAX param pytree's
 paths ("reg/u_embed", "free/seq_mhsa/0/wq", ...), so a JAX pytree, an
@@ -22,7 +23,9 @@ source-sharded propagation (`spmm_src_shard_rows`), row-folded gathers
 (`spmm_fold_gather`), recomputing propagation and fusion in the backward
 (`remat_propagation`) and the node-blocked fusion with one checkpoint per
 block (`fusion_chunk_rows`). So is the "ring" backend: propagation edge-
-partitioned over a mesh's 'model' axis (`parallel/edge_partition.py`).
+partitioned over a mesh's 'model' axis (`parallel/edge_partition.py`),
+and `seq_parallel`: the per-token sequence attention as ring attention
+over the model mesh's 'model' axis (`parallel/ring_attention.py`).
 
 Precision: the encode runs in f32 throughout unless asked otherwise; the
 entry points turn TF32 off on the card (`device.resolve_device`). The
@@ -59,8 +62,11 @@ from sagnn_tpu_torch.ops.spmm_cuda import (build_stacked_plans,
 from sagnn_tpu_torch.parallel.edge_partition import (ring_spmm,
                                                      ring_spmm_apply_plain,
                                                      shard, unshard)
-from sagnn_tpu_torch.parallel.sharding import (TPGraphs, TPHop, TPRank,
-                                               all_gather, tp_spmm)
+from sagnn_tpu_torch.parallel.ring_attention import (
+    ring_multi_head_self_attention)
+from sagnn_tpu_torch.parallel.sharding import (TPGraphs, all_gather,
+                                               tp_attention_spmm, tp_spmm,
+                                               tp_weighted_spmm)
 
 Params = Dict[str, torch.Tensor]
 
@@ -447,11 +453,17 @@ def _tp_interval_propagation(params: Dict[str, list], tp: TPGraphs,
                              cfg: ModelConfig, masks: "StepMasks"
                              ) -> Tuple[list, list]:
     """`_interval_propagation` of one data rank with the node tables split
-    over its model ranks ("xla" and "pallas", unweighted and weighted, K4
-    with spmm_fold_gather): every hop gives each model rank the rows it
-    owns, from the source side's shards (`parallel/sharding.py`). Returns
-    the per-rank user_vec [g, rows_m, D] and item_vec shards."""
+    over its model ranks ("xla" and "pallas"; unweighted, weighted, edge
+    attention, source-sharded, K4 with spmm_fold_gather): every hop gives
+    each model rank the rows it owns, from the source side's shards
+    (`parallel/sharding.py`). Returns the per-rank user_vec [g, rows_m, D]
+    and item_vec shards.
+
+    remat_propagation, with autograd on: each interval runs under one
+    checkpoint around every rank's hops (JAX selfgnn.py:273-276); the
+    edge-dropout weights come in with `masks`, drawn outside it."""
     pallas = cfg.spmm_backend == "pallas"
+    sharded = _src_sharded(cfg)
     weights = masks.edge_weights
     if weights is None and cfg.edge_norm is not None:
         weights = tuple(tp.graphs[0]["edge_weights"][d] for d in range(2))
@@ -460,52 +472,57 @@ def _tp_interval_propagation(params: Dict[str, list], tp: TPGraphs,
         by_dev = {dv: tuple(w.to(dv) for w in weights)
                   for dv in set(tp.devices)}
 
-    def hop(x, side, k):
-        other = "i" if side == "u" else "u"
-        tgt_rows, src_rows = ((tp.user_rows, tp.item_rows) if side == "u"
-                              else (tp.item_rows, tp.user_rows))
+    def hop(x, x_tgt, side, k):
+        """Interval k's hop into the `side` targets from the other side's
+        shards x; x_tgt: the target side's shards (edge attention)."""
         d = 0 if side == "u" else 1
+        if pallas and (cfg.edge_attention or weights is not None):
+            wh = tp.weighted_hop(side, k, cfg.spmm_exact)
+            if cfg.edge_attention:
+                agg = tp_attention_spmm(x, x_tgt, wh)
+            else:
+                agg = tp_weighted_spmm(x, [by_dev[r.device][d][k][e0:e1]
+                                           for r, (e0, e1) in
+                                           zip(wh.fwd, wh.cuts)], wh)
+        elif pallas:
+            agg = tp_spmm(x, tp.hop(side, k, cfg.spmm_exact,
+                                    cfg.spmm_fold_gather,
+                                    cfg.spmm_src_shard_rows if sharded
+                                    else 0))
+        else:
+            edges = tp.user_edges if side == "u" else tp.item_edges
+            agg = []
+            for m, (dv, g, (lo, hi)) in enumerate(zip(
+                    tp.devices, tp.graphs, tp.rows(side)[0])):
+                e0, e1 = (int(e) for e in edges[k, m])
+                w = None if weights is None else by_dev[dv][d][k][e0:e1]
+                agg.append(propagate(all_gather(x, dv),
+                                     g[f"{side}_src"][k][e0:e1],
+                                     g[f"{side}_tgt"][k][e0:e1] - lo,
+                                     hi - lo, cfg.leaky, w))
+            return agg
+        return [leaky_relu(a, cfg.leaky) for a in agg]
 
-        def w_of(dv):
-            return by_dev[dv][d][k] if weights is not None else None
-
-        if pallas:
-            def ranks(direction, bounds):
-                return tuple(TPRank(
-                    dv, g[f"{direction}_src"][k],
-                    g[f"{direction}_ptr"][k][lo:hi + 1], w_of(dv))
-                    for dv, g, (lo, hi) in zip(tp.devices, tp.graphs, bounds))
-
-            to_bwd = None if weights is None else tuple(
-                g[f"{other}_from_{side}"][k] for g in tp.graphs)
-            agg = tp_spmm(x, TPHop(ranks(side, tgt_rows),
-                                   ranks(other, src_rows), to_bwd,
-                                   cfg.spmm_exact,
-                                   cfg.spmm_fold_gather and weights is None))
-            return [leaky_relu(a, cfg.leaky) for a in agg]
-        edges = tp.user_edges if side == "u" else tp.item_edges
-        out = []
-        for m, (dv, g, (lo, hi)) in enumerate(zip(tp.devices, tp.graphs,
-                                                   tgt_rows)):
-            e0, e1 = (int(e) for e in edges[k, m])
-            w = w_of(dv)
-            out.append(propagate(all_gather(x, dv),
-                                 g[f"{side}_src"][k][e0:e1],
-                                 g[f"{side}_tgt"][k][e0:e1] - lo, hi - lo,
-                                 cfg.leaky, None if w is None else w[e0:e1]))
-        return out
-
-    users, items = [], []
-    for k in range(cfg.graph_num):
-        embs0 = [[s[k] for s in params["reg/u_embed"]]]
-        embs1 = [[s[k] for s in params["reg/i_embed"]]]
+    def interval(k, u0, i0):
+        embs0, embs1 = [u0], [i0]
         for _ in range(cfg.gnn_layer):
-            a0 = hop(embs1[-1], "u", k)
-            a1 = hop(embs0[-1], "i", k)
+            a0 = hop(embs1[-1], embs0[-1], "u", k)
+            a1 = hop(embs0[-1], embs1[-1], "i", k)
             embs0.append([a + e for a, e in zip(a0, embs0[-1])])
             embs1.append([a + e for a, e in zip(a1, embs1[-1])])
-        users.append([sum(layers[1:], layers[0]) for layers in zip(*embs0)])
-        items.append([sum(layers[1:], layers[0]) for layers in zip(*embs1)])
+        return ([sum(layers[1:], layers[0]) for layers in zip(*embs0)],
+                [sum(layers[1:], layers[0]) for layers in zip(*embs1)])
+
+    remat = cfg.remat_propagation and torch.is_grad_enabled()
+    users, items = [], []
+    for k in range(cfg.graph_num):
+        args = (k, [s[k] for s in params["reg/u_embed"]],
+                [s[k] for s in params["reg/i_embed"]])
+        user, item = (checkpoint(interval, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if remat else interval(*args))
+        users.append(user)
+        items.append(item)
     return ([torch.stack(v) for v in zip(*users)],
             [torch.stack(v) for v in zip(*items)])
 
@@ -668,20 +685,27 @@ def _temporal_fusion(params: Params, user_vec: torch.Tensor,
 
 def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
                      seq: torch.Tensor, seq_mask: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Sequence branch (JAX selfgnn.py:656-714). Parity mode replicates
     quirk Q3 (model.py:158-167): the mask-matmul collapses the sequence to
     ONE token [B, 1, D] before the attention stack. With
     cfg.per_token_seq_attention, masked self-attention runs over every
     token of the [B, L, D] sequence instead (the non-parity fix of Q3;
     stable softmax whatever the config says, the masked tokens' logits at
-    -1e30) and the tokens are summed under the mask. Returns att_user
-    [B, D] (f32 from a bf16 branch).
+    -1e30) and the tokens are summed under the mask. With cfg.seq_parallel
+    on top, each attention layer is ring attention over `mesh`'s 'model'
+    axis (one data rank's model row, `parallel/ring_attention.py`), the
+    sequence axis split over its ranks; the layer norms and the masked sum
+    stay on the inputs' device. Returns att_user [B, D] (f32 from a bf16
+    branch).
 
     fusion_dtype="bf16" runs the branch in bf16: the gathered sequence
     embeddings, the mask, pos_embed and the free parameters are cast, and
-    the pooled path's attention takes the stable softmax too."""
+    the pooled path's attention takes the stable softmax too. Ring
+    attention computes in f32 from the bf16 inputs and returns bf16, as
+    JAX's does (ring_attention.py:52)."""
     bf16 = cfg.fusion_dtype == "bf16"
+    ring = cfg.per_token_seq_attention and cfg.seq_parallel
 
     def cast(t: torch.Tensor) -> torch.Tensor:
         return t.to(torch.bfloat16) if bf16 else t
@@ -703,10 +727,15 @@ def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
         x = x * seq_mask[:, :, None]
         for i in range(cfg.att_layer):
             ln = free(f"free/seq_ln/{i}")
-            h = multi_head_self_attention(
-                free(f"free/seq_mhsa/{i}"),
-                layer_norm(x, ln["scale"], ln["shift"]), cfg.num_heads,
-                stable=True, mask=seq_mask)
+            xn = layer_norm(x, ln["scale"], ln["shift"])
+            if ring:
+                h = ring_multi_head_self_attention(
+                    mesh, free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
+                    seq_mask)
+            else:
+                h = multi_head_self_attention(
+                    free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
+                    stable=True, mask=seq_mask)
             x = leaky_relu(h, cfg.leaky) + x
         att = torch.sum(x * seq_mask[:, :, None], dim=1)
     else:
@@ -789,27 +818,29 @@ def _ssl_loss(params: Params, batch: TrainBatch, final_user: torch.Tensor,
     return torch.sum(torch.sum(hinge * batch.ssl_mask, dim=1))
 
 
-_NOT_PORTED = (
-    ("spmm_backend", lambda c: c.spmm_backend not in ("xla", "pallas",
-                                                      "ring"),
-     "the port has the 'xla', 'pallas' and 'ring' backends"),
-    ("seq_parallel", lambda c: c.seq_parallel,
-     "sequence-parallel attention is not ported yet: ROADMAP Queue A6"),
-)
-
-
-def check_ported(cfg: ModelConfig, train: bool = False) -> None:
-    """Raise NotImplementedError for an option the port does not carry, and
+def check_ported(cfg: ModelConfig, train: bool = False,
+                 mesh=None) -> None:
+    """Raise NotImplementedError for a backend the port does not carry, and
     ValueError for a combination the JAX package refuses too
     (trainer.py:157-201, selfgnn.py:279-280, 436-438): edge attention off
     "pallas" or with edge weights; source sharding with edge weights or
     edge attention, and with train=True also with edge dropout (which
     weights training only); with train=True, edge dropout on the "ring"
-    backend, whose weights are bucketed on the host."""
-    for name, bad, why in _NOT_PORTED:
-        if bad(cfg):
-            raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: "
-                                      f"{why}")
+    backend, whose weights are bucketed on the host; seq_parallel without
+    per_token_seq_attention, and (given a `mesh`, the model's or a
+    Trainer's) with a 'model' axis that does not divide pos_length
+    (trainer.py:184-193)."""
+    if cfg.spmm_backend not in ("xla", "pallas", "ring"):
+        raise NotImplementedError(f"spmm_backend={cfg.spmm_backend!r}: the "
+                                  "port has the 'xla', 'pallas' and 'ring' "
+                                  "backends")
+    if cfg.seq_parallel:
+        if not cfg.per_token_seq_attention:
+            raise ValueError("seq_parallel shards the per-token sequence "
+                             "attention; enable per_token_seq_attention")
+        if mesh is not None and cfg.pos_length % mesh.shape["model"]:
+            raise ValueError(f"pos_length {cfg.pos_length} must divide the "
+                             f"'model' axis ({mesh.shape['model']})")
     if cfg.edge_attention:
         if cfg.spmm_backend != "pallas":
             raise ValueError("edge_attention requires spmm_backend='pallas' "
@@ -838,14 +869,18 @@ class SelfGNN:
     scoring run under no_grad with dropout off, as the JAX package's
     `encode(train=False)`; `train_losses` carries gradients.
 
-    mesh: a `parallel.mesh.Mesh`, needed by the "ring" backend only, whose
-    hops run over its 'model' axis."""
+    mesh: a `parallel.mesh.Mesh` of one model row, needed by the "ring"
+    backend, whose hops run over its 'model' axis, and by seq_parallel,
+    whose ring attention does (JAX asserts the same, selfgnn.py:688)."""
 
     def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
                  mesh=None):
-        check_ported(cfg)
+        check_ported(cfg, mesh=mesh)
         if cfg.spmm_backend == "ring" and mesh is None:
             raise ValueError("spmm_backend='ring' needs the model's mesh")
+        if cfg.seq_parallel and mesh is None:
+            raise ValueError("seq_parallel requires a mesh (its ring "
+                             "attention runs over the 'model' axis)")
         self.cfg = cfg
         self.num_users = num_users
         self.num_items = num_items
@@ -912,13 +947,23 @@ class SelfGNN:
         takes its rows). Propagation and the fusion stack run on each model
         rank's rows; the results come back whole on the first device, where
         the scoring and SSL gathers read them. Returns `encode`'s four
-        tensors, under the caller's grad mode."""
+        tensors, under the caller's grad mode.
+
+        The options act per rank as they act on one device: each rank's
+        fusion runs its own rows in fusion_chunk_rows blocks (its keep
+        masks cut by its rows, then by the blocks, so the values are the
+        single device's) and in bf16 with fusion_dtype="bf16" (cast per
+        block, inside the block's checkpoint); with remat_propagation and
+        an unchunked fusion each rank's fusion is one checkpoint, as
+        `encode_with_masks` checkpoints the whole one."""
         masks = masks or StepMasks()
         cfg = self.cfg
         dev0 = tp.devices[0]
         user_vec, item_vec = _tp_interval_propagation(params, tp, cfg,
                                                       masks)
         free = {k: v[0] for k, v in params.items() if k.startswith("free/")}
+        remat = (cfg.remat_propagation and cfg.fusion_chunk_rows <= 0
+                 and torch.is_grad_enabled())
         fu, fi = [], []
         for m, dev in enumerate(tp.devices):
             keep = None
@@ -926,9 +971,11 @@ class SelfGNN:
                 (ulo, uhi), (ilo, ihi) = tp.user_rows[m], tp.item_rows[m]
                 keep = (masks.keep[0][ulo:uhi].to(dev),
                         masks.keep[1][ilo:ihi].to(dev))
-            mu, mi = _temporal_fusion({k: v.to(dev) for k, v in
-                                       free.items()}, user_vec[m],
-                                      item_vec[m], cfg, keep)
+            args = ({k: v.to(dev) for k, v in free.items()}, user_vec[m],
+                    item_vec[m], cfg, keep)
+            mu, mi = (checkpoint(_temporal_fusion, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if remat else _temporal_fusion(*args))
             fu.append(mu)
             fi.append(mi)
         return (all_gather(fu, dev0), all_gather(fi, dev0),
@@ -958,7 +1005,7 @@ class SelfGNN:
         and splits as it is."""
         cfg = self.cfg
         att_user = _sequence_branch(params, final_item, batch.seq,
-                                    batch.seq_mask, cfg)
+                                    batch.seq_mask, cfg, self.mesh)
         pu = rows(final_user, batch.uids)
         au = leaky_relu(rows(att_user, batch.useq_row), cfg.leaky)
 
@@ -982,7 +1029,7 @@ class SelfGNN:
         [B, D]: both terms of the head (model.py:169-173) dot the same
         final_item row, so scores = q @ final_item^T."""
         att_user = _sequence_branch(params, final_item, seq, seq_mask,
-                                    self.cfg)
+                                    self.cfg, self.mesh)
         pu = final_user[user_ids.long()]
         return pu + leaky_relu(att_user, self.cfg.leaky)
 
@@ -1004,7 +1051,7 @@ class SelfGNN:
         """Candidate scores [B, C] from precomputed encodings (the eval
         path of model.py:169-173 with keepRate=1)."""
         att_user = _sequence_branch(params, final_item, seq, seq_mask,
-                                    self.cfg)
+                                    self.cfg, self.mesh)
         pu = final_user[user_ids.long()]                      # [B, D]
         pi = final_item[cand_iids.long()]                     # [B, C, D]
         base = torch.einsum("bd,bcd->bc", pu, pi)

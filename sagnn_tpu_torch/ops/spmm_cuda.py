@@ -445,8 +445,8 @@ def spmm_weighted_apply(x: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
 
 def spmm_apply_src_sharded(x: torch.Tensor, src: torch.Tensor,
                            ptr: torch.Tensor, shard_rows: int,
-                           exact: bool = True, folded: bool = False
-                           ) -> torch.Tensor:
+                           exact: bool = True, folded: bool = False,
+                           backward: bool = False) -> torch.Tensor:
     """out [num_tgt, D] f32 = Σ over each row of every shard's plan of
     x[shard start + src] (JAX `spmm_apply_src_sharded`,
     spmm_pallas.py:582-640). src, ptr: one interval's sharded plan
@@ -456,9 +456,11 @@ def spmm_apply_src_sharded(x: torch.Tensor, src: torch.Tensor,
     pointer moved to the shard's window; with `folded` and an even
     shard_rows (JAX's condition, :612) the launches gather through the
     folded view of the window (K3 with K4). Never K1 over the whole
-    table. CPU: the plain version."""
-    return _src_sharded(x, src, ptr, shard_rows, exact, folded,
-                        backward=False)
+    table. CPU: the plain version. ptr may be cut by target rows,
+    ptr[:, lo:hi + 1] (the tensor-parallel hop, `parallel/sharding.py`):
+    each shard's rows keep their absolute pointers into src. backward:
+    count the launches under the "_bwd" names, as `spmm_apply`."""
+    return _src_sharded(x, src, ptr, shard_rows, exact, folded, backward)
 
 
 def _src_sharded(x, src, ptr, shard_rows, exact, folded, backward):
@@ -730,13 +732,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def sddmm_apply(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
                 tgt: torch.Tensor, ptr: torch.Tensor,
-                exact: bool = True) -> torch.Tensor:
+                exact: bool = True, backward: bool = False) -> torch.Tensor:
     """s [len(src)] f32 = x[src[e]]·y[tgt[e]] for the plan's real edges,
     0 on the pad slots (K5). y has one row per target of the plan
     (ptr.numel() - 1); src/tgt are the plan's target-sorted COO. The
-    kernel reads the edge count from ptr[-1] on the device. `sddmm` is the
-    differentiable form."""
-    return _sddmm(x, y, src, tgt, ptr, exact, backward=False)
+    kernel reads the edge count from ptr[-1] on the device and scores
+    slots 0, 1, ... of src/tgt: a plan cut by target rows takes its own
+    slots (src[e0:e1], tgt[e0:e1] - lo, ptr[lo:hi + 1] - e0). `sddmm` is
+    the differentiable form. backward: count the launch under the "_bwd"
+    name, as `spmm_apply`."""
+    return _sddmm(x, y, src, tgt, ptr, exact, backward)
 
 
 def _sddmm(x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,

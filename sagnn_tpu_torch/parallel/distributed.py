@@ -8,9 +8,11 @@ collectives. Here one process drives the grid, as the ring does
 computes the losses of its slice of the batch: through the "ring" backend
 over its model row (the tables whole on the row's first device); with one
 model rank, through the single-device encode on its device
-(`SelfGNN.encode_with_masks`, which takes every option one device takes);
-else through the "xla" / "pallas" encode with the node tables split over
-its model ranks (`SelfGNN.encode_sharded`). The gradients are summed over
+(`SelfGNN.encode_with_masks`); else through the "xla" / "pallas" encode
+with the node tables split over its model ranks (`SelfGNN.encode_sharded`).
+Each takes every option one device takes. With seq_parallel the rank's
+[B/D_data, L] sequences split once more, over L, inside its sequence
+branch: ring attention over its model row. The gradients are summed over
 'data' (in rank order, then over the processes of a multi-process mesh,
 `parallel/launch.all_reduce_sum`) and every replica applies the one TF1
 Adam update to that sum, so the replicas stay bit-equal.
@@ -183,10 +185,11 @@ class ShardedTrainStep:
         self.ring = cfg.model.spmm_backend == "ring"
         # one model rank: every data rank runs the single-device encode
         self.whole = not self.ring and self.mesh.shape["model"] == 1
+        # each data rank's model over its model row: the ring's hops and
+        # seq_parallel's ring attention run over that row
         self.row_models = [SelfGNN(cfg.model, model.num_users,
                                    model.num_items, mesh=self.mesh.row(d))
-                           for d in range(len(self.mesh.devices))] \
-            if self.ring else None
+                           for d in range(len(self.mesh.devices))]
 
     def head_params(self, state: MeshState, d: int) -> Dict:
         """Data rank d's params as one dict on its first device, for the
@@ -197,13 +200,12 @@ class ShardedTrainStep:
     def encode(self, state: MeshState, d: int,
                masks: Optional[StepMasks] = None):
         masks = masks or StepMasks()
+        model = self.row_models[d]
         if self.ring or self.whole:
-            model = self.row_models[d] if self.ring else self.model
             return model.encode_with_masks(
                 self.head_params(state, d), self.graphs[d],
                 masks.to(self.mesh.devices[d][0]))
-        return self.model.encode_sharded(state.params[d], self.graphs[d],
-                                         masks)
+        return model.encode_sharded(state.params[d], self.graphs[d], masks)
 
     def _reg_loss(self, state: MeshState, d: int) -> torch.Tensor:
         """Σ ||p||² over the reg/* leaves of rank d's replica, each shard's
@@ -236,7 +238,8 @@ class ShardedTrainStep:
         for d, part in enumerate(batch.parts):
             enc = self.encode(state, d, masks)
             head = self.head_params(state, d)
-            hinge, ssl, _ = self.model.batch_losses(head, part, *enc)
+            hinge, ssl, _ = self.row_models[d].batch_losses(head, part,
+                                                            *enc)
             pre = hinge / norm
             reg = tc.ssl_reg * ssl
             if mesh.data_offset + d == 0:

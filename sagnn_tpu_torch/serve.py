@@ -112,7 +112,9 @@ class Recommender:
         through the source-sharded plans. catalog_mesh: serve the top-k
         over the item encodings sharded across its 'model' axis
         (`parallel.serving.sharded_recommend_top_k`); the encode and the
-        queries stay on `device`."""
+        queries stay on `device`. A seq_parallel config is refused
+        (ValueError): its ring attention needs a mesh, which a Recommender
+        does not have."""
         self.device = resolve_device(device)
         if bundle.graph_num != cfg.model.graph_num:
             raise ValueError(f"dataset has {bundle.graph_num} interval "

@@ -36,10 +36,15 @@ The evaluation encodes on data rank 0's row and each data rank scores its
 rows of every batch. `self.state` is the single-device state on a mesh
 too, gathered from data rank 0's replica when read and laid out over the
 mesh when assigned, so checkpoints keep the single-device format and
-restore across mesh shapes. Options a mesh of more than one model rank
-does not take yet on "xla"/"pallas" raise NotImplementedError (ROADMAP
-A6(e)): edge attention, source sharding, remat_propagation,
-fusion_chunk_rows and the bf16 fusion stack.
+restore across mesh shapes. A mesh takes every option one device takes:
+with the tables split over model ranks, edge attention (K5 and the edge
+softmax on each rank's own edges), source sharding (K3 per rank and
+shard, resolved from the whole tables' size), remat_propagation,
+fusion_chunk_rows and the bf16 stack run per rank. `seq_parallel` (with
+`per_token_seq_attention`, a mesh whose 'model' axis divides pos_length)
+runs the sequence branch's attention as ring attention over each data
+rank's model row, in training and in the evaluation
+(`parallel/ring_attention.py`).
 
 `fusion_dtype="bf16"` (the CLI's `--bf16` with a bf16 table) trains the
 fusion stack and the sequence branch in bf16 from f32 master weights.
@@ -108,17 +113,6 @@ class _GatheredState(dict):
         return copy.deepcopy(dict(self), memo)
 
 
-# options a mesh of more than one model rank does not take on "xla"/"pallas"
-# yet (with one model rank each data rank runs the single-device encode)
-_MESH_REFUSED = (
-    ("edge_attention", lambda m: m.edge_attention),
-    ("spmm_src_shard_rows", lambda m: m.spmm_src_shard_rows > 0),
-    ("remat_propagation", lambda m: m.remat_propagation),
-    ("fusion_chunk_rows", lambda m: m.fusion_chunk_rows > 0),
-    ("fusion_dtype", lambda m: m.fusion_dtype == "bf16"),
-)
-
-
 class Trainer:
     """End-to-end trainer over one DatasetBundle on one device, or with the
     ring backend over a mesh (module docstring)."""
@@ -147,15 +141,10 @@ class Trainer:
         if bundle.graph_num != cfg.model.graph_num:
             raise ValueError(f"dataset has {bundle.graph_num} interval "
                              f"graphs, config says {cfg.model.graph_num}")
+        # auto source sharding from the whole tables' size, on a mesh too
+        # (JAX trainer.py:132-143)
         cfg = resolve_src_sharding(cfg, bundle.num_users, bundle.num_items)
-        check_ported(cfg.model, train=True)
-        if mesh is not None and not ring and mesh.shape["model"] > 1:
-            for name, bad in _MESH_REFUSED:
-                if bad(cfg.model):
-                    raise NotImplementedError(
-                        f"{name}={getattr(cfg.model, name)!r} on a "
-                        f"{mesh.shape['data']}x{mesh.shape['model']} mesh: "
-                        "not ported yet: ROADMAP Queue A6(e)")
+        check_ported(cfg.model, train=True, mesh=mesh)
         self.cfg = cfg
         self.bundle = bundle
         self.model = SelfGNN(cfg.model, bundle.num_users, bundle.num_items,
@@ -467,7 +456,7 @@ class Trainer:
             return [tuple(torch.from_numpy(a[d * per_rank:
                                              (d + 1) * per_rank]).to(dev)
                           for a in arrs)
-                    for d, (dev, _, _, _) in enumerate(ranks)]
+                    for d, (dev, _, _, _, _) in enumerate(ranks)]
 
         totals: Dict[str, torch.Tensor] = {}
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -476,14 +465,15 @@ class Trainer:
                 parts = nxt.result()
                 if i + 1 < steps:
                     nxt = pool.submit(sample, i + 1)
-                for d, ((_, params, final_user, final_item), arrs) in \
-                        enumerate(zip(ranks, parts)):
+                for d, ((_, model, params, final_user, final_item), arrs) \
+                        in enumerate(zip(ranks, parts)):
                     if full_sort:
-                        mets = self._full_sort_eval(params, final_user,
-                                                    final_item, *arrs)
+                        mets = self._full_sort_eval(model, params,
+                                                    final_user, final_item,
+                                                    *arrs)
                     else:
                         user_ids, cand, seq, seq_mask, valid = arrs
-                        scores = self.model.score_with_encodings(
+                        scores = model.score_with_encodings(
                             params, final_user, final_item, user_ids, cand,
                             seq, seq_mask)
                         if 0 <= self.debug_uid - d * per_rank < per_rank:
@@ -503,23 +493,25 @@ class Trainer:
         return out
 
     def _eval_ranks(self) -> list:
-        """(device, params, final_user, final_item) of each data rank that
-        scores: the Trainer's device alone without a mesh; on a mesh every
-        local data rank, its first device, its replica's params and data
-        rank 0's encodings copied there."""
+        """(device, model, params, final_user, final_item) of each data rank
+        that scores: the Trainer's device alone without a mesh; on a mesh
+        every local data rank, its first device, its model over its model
+        row (seq_parallel's ring attention runs there), its replica's
+        params and data rank 0's encodings copied there."""
         if self.mesh is None:
             params = self.state["params"]
             fu, fi, _, _ = self.model.encode(params, self.graphs)
-            return [(self.device, params, fu, fi)]
+            return [(self.device, self.model, params, fu, fi)]
         st, step = self._mesh_state, self._mesh_step
         with torch.no_grad():
             fu, fi, _, _ = step.encode(st, 0)
-        return [(row[0], step.head_params(st, d), fu.to(row[0]),
-                 fi.to(row[0]))
+        return [(row[0], step.row_models[d], step.head_params(st, d),
+                 fu.to(row[0]), fi.to(row[0]))
                 for d, row in enumerate(self.mesh.devices)]
 
-    def _full_sort_eval(self, params, final_user, final_item, user_ids,
-                        pos_items, seq, seq_mask, excl_idx, valid):
+    def _full_sort_eval(self, model, params, final_user, final_item,
+                        user_ids, pos_items, seq, seq_mask, excl_idx,
+                        valid):
         """One full-sort batch's summed metrics (JAX
         `_full_sort_eval_impl`, trainer.py:585-612). full_sort_chunk 0
         (auto) scores densely up to DENSE_MAX_ROWS items and streams in
@@ -529,8 +521,8 @@ class Trainer:
         chunk = self.cfg.train.full_sort_chunk
         if chunk == 0:
             chunk = auto_chunk_rows(num_items)
-        queries = self.model.serving_queries(params, final_user, final_item,
-                                             user_ids, seq, seq_mask)
+        queries = model.serving_queries(params, final_user, final_item,
+                                        user_ids, seq, seq_mask)
         if chunk > 0:
             ranks = streaming_positive_ranks(queries, final_item, pos_items,
                                              excl_idx, num_items,

@@ -1469,3 +1469,136 @@ def test_two_processes_share_the_card_over_gloo(dev, tmp_path):
                4000, "--items", 3000, "--iters", 1)
     assert ring["checksum_ok"] is True
     assert ring["launches"]["ring_segsum_f32"] == 2
+
+
+# -- the tensor-parallel K3 and K5 hops, ring attention (A6(d), A6(e)) ---------
+
+def _tp_env(dev):
+    """The 48 x 64 bundle's graphs on the card with the attention
+    attachments (and 16-row source shards), cut over 3 model ranks, all
+    on the card."""
+    import dataclasses
+
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+    from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+    from sagnn_tpu_torch.models.selfgnn import graphs_to_device
+    from sagnn_tpu_torch.parallel import sharding as shd
+
+    cfg = _mesh_cfg()
+    b = synthetic_dataset(num_users=48, num_items=64, graph_num=2,
+                          test_size=10, seed=2)
+    mc = dataclasses.replace(cfg.model, edge_attention=True)
+    gb = compile_interval_graphs(b.sub_mats)
+    g = graphs_to_device(gb, dev, mc, b.sub_mats)
+    g["plans_ss"] = graphs_to_device(gb, dev, dataclasses.replace(
+        cfg.model, spmm_src_shard_rows=16))["plans_ss"]
+    return g, shd.tp_graphs({dev: g}, [dev] * 3, 48, 64)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("folded", [False, True])
+def test_tp_src_sharded_hop_on_card_matches_plain(dev, exact, folded):
+    """K3 over the source-shard plans cut by each of 3 ranks' target rows,
+    forward and backward, against the same hop's plain version on the
+    CPU (segment-sum tolerance); one K3 launch per rank and shard each
+    way."""
+    from sagnn_tpu_torch.parallel import sharding as shd
+
+    g, tp = _tp_env(dev)
+    ss = g["plans_ss"]
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((64, 16), generator=gen)
+    cot = torch.randn((48, 16), generator=gen)
+
+    def run(device, xx, cc):
+        gg = {k: {n: t.to(device) for n, t in v.items()}
+              if isinstance(v, dict) else v.to(device) for k, v in g.items()}
+        hop = shd.tp_graphs({device: gg}, [device] * 3, 48, 64).hop(
+            "u", 0, exact, folded, shard_rows=16)
+        xs = [xx[lo:hi].clone().requires_grad_() for lo, hi in tp.item_rows]
+        out = shd.tp_spmm(xs, hop)
+        dx = torch.autograd.grad(out, xs, [cc[lo:hi] for lo, hi in
+                                           tp.user_rows])
+        return torch.cat(out), torch.cat(dx)
+
+    sc.reset_launches()
+    out, dx = run(dev, x.to(dev), cot.to(dev))
+    torch.cuda.synchronize()
+    name = ("segsum_fold_acc" if folded else "segsum_acc") + (
+        "_f32" if exact else "_bf16")
+    assert sc.LAUNCHES[name] == 3 * 4 and sc.LAUNCHES[name + "_bwd"] == 3 * 3
+    want, dwant = run(torch.device("cpu"), x, cot)
+    torch.testing.assert_close(out.cpu(), want, **_tol(ss["u_ptr"][0][0],
+                                                       x))
+    torch.testing.assert_close(dx.cpu(), dwant, **_tol(ss["i_ptr"][0][0],
+                                                       cot))
+
+
+def test_tp_attention_hop_on_card_matches_plain(dev):
+    """K5 -> edge softmax -> K2 on each of 3 ranks' own edges (their cuts
+    start at e0 != 0), forward and the backward through both tables,
+    against the same hop on the CPU's plain versions: K5 once per rank
+    forward and once per rank backward (dw), K2 once per rank forward and
+    three times per rank backward (dx through the weights, dx and dy
+    through the scores)."""
+    from sagnn_tpu_torch.parallel import sharding as shd
+
+    g, _ = _tp_env(dev)
+    gen = torch.Generator().manual_seed(4)
+    x, y, cot = (torch.randn((n, 16), generator=gen) for n in (64, 48, 48))
+
+    def run(device):
+        gg = {k: v.to(device) for k, v in g.items()
+              if isinstance(v, torch.Tensor)}
+        tp = shd.tp_graphs({device: gg}, [device] * 3, 48, 64)
+        hop = tp.weighted_hop("u", 0, True)
+        assert all(e0 > 0 for e0, _ in hop.cuts[1:])
+        xs = [x[lo:hi].to(device).requires_grad_() for lo, hi in
+              tp.item_rows]
+        ys = [y[lo:hi].to(device).requires_grad_() for lo, hi in
+              tp.user_rows]
+        out = shd.tp_attention_spmm(xs, ys, hop)
+        grads = torch.autograd.grad(out, xs + ys, [
+            cot[lo:hi].to(device) for lo, hi in tp.user_rows])
+        return (torch.cat(out).cpu(), torch.cat(grads[:3]).cpu(),
+                torch.cat(grads[3:]).cpu())
+
+    sc.reset_launches()
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["sddmm_f32"] == 3 and sc.LAUNCHES["sddmm_f32_bwd"] == 3
+    assert sc.LAUNCHES["wsegsum_f32"] == 3
+    assert sc.LAUNCHES["wsegsum_f32_bwd"] == 9
+    want = run(torch.device("cpu"))
+    for a, b, what in zip(got, want, ("out", "dx", "dy")):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=what)
+
+
+@pytest.mark.parametrize("model_ranks", [1, 4])
+def test_ring_attention_on_card_matches_dense(dev, model_ranks):
+    """Ring attention over a one-card row of model ranks (every rank on
+    cuda:0, the exchanges on side streams) against the dense masked MHSA
+    on the card: values rtol/atol 2e-5, gradients 5e-5."""
+    from sagnn_tpu_torch.ops.attention import multi_head_self_attention
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.ring_attention import \
+        ring_multi_head_self_attention
+
+    gen = torch.Generator().manual_seed(model_ranks)
+    B, L, D, H = 8, 200, 64, 16
+    params = {k: (0.2 * torch.randn((D, D) if k[0] == "w" else (D,),
+                                    generator=gen)).to(dev)
+              .requires_grad_() for k in ("wq", "bq", "wk", "bk", "wv",
+                                          "bv")}
+    x = torch.randn((B, L, D), generator=gen).to(dev).requires_grad_()
+    mask = (torch.rand((B, L), generator=gen) > 0.4).float().to(dev)
+    mask[:, -1] = 1.0
+    cot = torch.randn((B, L, D), generator=gen).to(dev)
+    mesh = make_mesh(data=1, model=model_ranks, devices=[dev] * model_ranks)
+    got = ring_multi_head_self_attention(mesh, params, x, H, mask)
+    want = multi_head_self_attention(params, x, H, stable=True, mask=mask)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    leaves = [x] + list(params.values())
+    for a, b in zip(torch.autograd.grad(got, leaves, cot),
+                    torch.autograd.grad(want, leaves, cot)):
+        torch.testing.assert_close(a, b, rtol=5e-5, atol=5e-5)

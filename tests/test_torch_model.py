@@ -209,6 +209,16 @@ def test_chunked_topk_matches_jax(chunk):
 @pytest.mark.parametrize("field,value", [
     ("spmm_backend", "cusparse"), ("seq_parallel", True)])
 def test_options_not_ported_raise(field, value):
+    """An unknown backend raises NotImplementedError; seq_parallel is
+    ported (ROADMAP A6(d)) and raises JAX's ValueErrors: without
+    per-token attention, and without the model's mesh."""
     cfg = dataclasses.replace(torch_cfg(MCFG), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
+    if field == "spmm_backend":
+        with pytest.raises(NotImplementedError, match=field):
+            SelfGNN(cfg, 4, 4)
+        return
+    with pytest.raises(ValueError, match="per_token_seq_attention"):
         SelfGNN(cfg, 4, 4)
+    with pytest.raises(ValueError, match="seq_parallel requires a mesh"):
+        SelfGNN(dataclasses.replace(cfg, per_token_seq_attention=True), 4,
+                4)

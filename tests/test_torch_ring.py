@@ -393,15 +393,16 @@ def test_trainer_mesh_refusals(tmp_path):
     with pytest.raises(ValueError, match="requires a mesh"):
         Trainer(_trainer_cfg(), bundle, ckpt_root=str(tmp_path),
                 device="cpu")
-    # a mesh with a data axis and a mesh on "pallas" train now
-    # (tests/test_torch_trainer_mesh.py); what a mesh does not take yet
-    # raises, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="Queue A6\\(e\\)"):
-        Trainer(_trainer_cfg("pallas", edge_attention=True), bundle,
-                ckpt_root=str(tmp_path),
-                mesh=make_mesh(data=2, model=2, devices=["cpu"] * 4))
-    with pytest.raises(NotImplementedError, match="Queue A6\\(e\\)"):
-        Trainer(_trainer_cfg("pallas", remat_propagation=True), bundle,
+    # a mesh with a data axis and a mesh on "pallas" train now, with every
+    # option (tests/test_torch_trainer_mesh.py, ROADMAP A6(e)); edge
+    # attention off "pallas" raises as JAX asserts
+    Trainer(_trainer_cfg("pallas", edge_attention=True), bundle,
+            ckpt_root=str(tmp_path),
+            mesh=make_mesh(data=2, model=2, devices=["cpu"] * 4))
+    Trainer(_trainer_cfg("pallas", remat_propagation=True), bundle,
+            ckpt_root=str(tmp_path), mesh=_mesh())
+    with pytest.raises(ValueError, match="requires spmm_backend='pallas'"):
+        Trainer(_trainer_cfg(edge_attention=True), bundle,
                 ckpt_root=str(tmp_path), mesh=_mesh())
     with pytest.raises(ValueError, match="bucketed"):
         Trainer(_trainer_cfg(edge_dropout_keep=0.8), bundle,

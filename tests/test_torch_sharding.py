@@ -195,17 +195,13 @@ def test_tp_hop_matches_the_whole_hop(env, weighted):
     x = torch.from_numpy(rng.standard_normal((96, 16)).astype(np.float32))
     cot = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
     w = g["edge_weights"][0][0] if weighted else None
-
-    def ranks(direction, bounds):
-        return tuple(shd.TPRank(dev, g[f"{direction}_src"][0],
-                                g[f"{direction}_ptr"][0][lo:hi + 1], w)
-                     for lo, hi in bounds)
-
-    hop = shd.TPHop(ranks("u", tp.user_rows), ranks("i", tp.item_rows),
-                    (g["i_from_u"][0],) * 3 if weighted else None, True,
-                    False)
     xs = [x[lo:hi].clone().requires_grad_() for lo, hi in tp.item_rows]
-    out = torch.cat(shd.tp_spmm(xs, hop))
+    if weighted:
+        hop = tp.weighted_hop("u", 0, True)
+        out = torch.cat(shd.tp_weighted_spmm(
+            xs, [w[e0:e1] for e0, e1 in hop.cuts], hop))
+    else:
+        out = torch.cat(shd.tp_spmm(xs, tp.hop("u", 0, True)))
     dx = torch.cat(torch.autograd.grad(out, xs, cot))
     xw = x.clone().requires_grad_()
     if weighted:

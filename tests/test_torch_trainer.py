@@ -144,14 +144,24 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(bundle, tmp_path):
         Trainer(_cfg(), bundle, ckpt_root=str(tmp_path))
 
 
-@pytest.mark.parametrize("train,model,match", [
-    ({}, {"seq_parallel": True}, "seq_parallel.*ROADMAP"),
+@pytest.mark.parametrize("model,mesh,match", [
+    ({"seq_parallel": True}, None, "enable per_token_seq_attention"),
+    ({"seq_parallel": True, "per_token_seq_attention": True}, None,
+     "seq_parallel requires a mesh"),
+    ({"seq_parallel": True, "per_token_seq_attention": True,
+      "pos_length": 10}, 4, r"pos_length 10 must divide the 'model' axis"),
 ])
-def test_unported_options_raise(bundle, tmp_path, train, model, match):
-    cfg = _cfg(**train)
+def test_unported_options_raise(bundle, tmp_path, model, mesh, match):
+    """seq_parallel is ported (ROADMAP A6(d)); what JAX's Trainer asserts
+    about it (trainer.py:184-193) raises ValueError: no per-token
+    attention, no mesh, a 'model' axis that does not divide pos_length."""
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    cfg = _cfg()
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model))
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(cfg, bundle, ckpt_root=str(tmp_path), device="cpu")
+    kw = {"device": "cpu"} if mesh is None else {
+        "mesh": make_mesh(data=1, model=mesh, devices=["cpu"] * mesh)}
+    with pytest.raises(ValueError, match=match):
+        Trainer(cfg, bundle, ckpt_root=str(tmp_path), **kw)
 
 
 @pytest.mark.parametrize("model", [{"remat_propagation": True},
@@ -259,18 +269,25 @@ def test_cli_trains_on_the_cpu(tmp_path):
     assert "Epoch 2/3, Train: Loss = " in again.stdout
 
 
-def test_cli_refuses_unported_flags(tmp_path):
-    """A mesh with a data axis trains (tests/test_torch_trainer_mesh.py);
-    an option a mesh does not take yet (remat on a 2 x 2 "pallas" mesh)
-    raises, naming its ROADMAP item."""
+def test_cli_refuses_unported_flags(tmp_path, capsys):
+    """The options a mesh once refused are ported (ROADMAP A6(e)): `--remat`
+    on a 2 x 2 "pallas" mesh trains an epoch; what the CLI still refuses
+    is what JAX refuses: `--seq_parallel` without
+    `--per_token_seq_attention` raises ValueError."""
     from sagnn_tpu_torch import main as cli
     mesh = ["--mesh_data", "2", "--mesh_model", "2"]
     ns = cli.parse_args(["--data", "synthetic", "--spmm_backend", "pallas",
                          "--remat"] + mesh)
     assert cli.build_config(ns).model.remat_propagation
     assert (ns.mesh_data, ns.mesh_model) == (2, 2)
-    with pytest.raises(NotImplementedError, match="Queue A6\\(e\\)"):
-        cli.main(["--data", "synthetic", "--spmm_backend", "pallas",
-                  "--remat", "--device", "cpu", "--synth_users", "48",
-                  "--synth_items", "64", "--graphNum", "2", "--ckpt_root",
-                  str(tmp_path)] + mesh)
+    small = ["--data", "synthetic", "--spmm_backend", "pallas", "--device",
+             "cpu", "--synth_users", "48", "--synth_items", "64",
+             "--graphNum", "2", "--epoch", "1", "--trnNum", "32", "--batch",
+             "16", "--testSize", "10", "--sslNum", "2", "--sampNum", "4",
+             "--latdim", "16", "--num_attention_heads", "4", "--tstEpoch",
+             "1", "--ckpt_root", str(tmp_path)]
+    cli.main(small + ["--remat"] + mesh)
+    assert "Mesh: data=2 model=2" in capsys.readouterr().out
+    assert (tmp_path / "tem" / "state").exists()
+    with pytest.raises(ValueError, match="per_token_seq_attention"):
+        cli.main(small + ["--seq_parallel"] + mesh)

@@ -2,8 +2,9 @@
 counterparts of tests/test_trainer_mesh.py: training and evaluation on
 (4, 2) and (8, 1) on both backends, the ring on (2, 4), imported weights
 landing in the shardings, checkpoints restored across mesh shapes and
-onto a Trainer without a mesh, the options a mesh refuses, and the CLI's
-mesh flags. The configuration and the 48 x 64 bundle are JAX's test's.
+onto a Trainer without a mesh, the options a tensor-parallel mesh takes
+(ROADMAP A6(e)), and the CLI's mesh flags. The configuration and the
+48 x 64 bundle are JAX's test's.
 """
 
 import dataclasses
@@ -159,23 +160,30 @@ def test_mesh_epoch_matches_single_device(tmp_path):
     {"remat_propagation": True}, {"fusion_chunk_rows": 8},
     {"fusion_dtype": "bf16"}])
 def test_mesh_refuses_options_not_ported(tmp_path, option):
-    """What a mesh of more than one model rank does not take yet raises,
-    naming ROADMAP A6(e), whatever its data ranks; a mesh of one model
-    rank (1 x 1, 2 x 1) takes them as one device does
-    (tests/test_torch_sharding.py holds its step to one device's), and
-    seq_parallel raises everywhere (A6(d))."""
-    cfg = with_model(CFG, **option)
+    """The options a mesh of more than one model rank once refused (ROADMAP
+    A6(e)) now train on it: on 1 x 2 and 2 x 2 (the tables split over the
+    model ranks) an epoch at keepRate 0.5 gives the single-device
+    Trainer's losses from the same seeds (rtol 1e-5; the bf16 stack rtol
+    1e-2, tests/test_torch_bf16.py's, since each data rank rounds its own
+    cotangents), and the evaluation runs; with one model rank the data
+    ranks run the single-device encode."""
+    cfg = with_model(CFG, keep_rate=0.5, **option)
+    one = Trainer(cfg, bundle(), ckpt_root=str(tmp_path / "one"),
+                  device="cpu")
+    want = one.train_epoch(verbose=False)
+    rtol = 1e-2 if "fusion_dtype" in option else 1e-5
     for shape in ((1, 2), (2, 2)):
-        with pytest.raises(NotImplementedError, match=r"Queue A6\(e\)"):
-            Trainer(cfg, bundle(), ckpt_root=str(tmp_path),
-                    mesh=cpu_mesh(*shape))
+        tr = Trainer(cfg, bundle(), ckpt_root=str(tmp_path / str(shape)),
+                     mesh=cpu_mesh(*shape))
+        assert not tr._mesh_step.whole
+        got = tr.train_epoch(verbose=False)
+        for k in ("Loss", "preLoss"):
+            assert got[k] == pytest.approx(want[k], rel=rtol), (shape, k)
+        assert 0.0 <= tr.test_epoch()["HR"] <= 1.0
     for shape in ((1, 1), (2, 1)):
         tr = Trainer(cfg, bundle(), ckpt_root=str(tmp_path),
                      mesh=cpu_mesh(*shape))
         assert tr._mesh_step.whole
-    with pytest.raises(NotImplementedError, match="Queue A6"):
-        Trainer(with_model(CFG, seq_parallel=True), bundle(),
-                ckpt_root=str(tmp_path), mesh=cpu_mesh(2, 1))
 
 
 def test_mesh_batch_must_split(tmp_path):
