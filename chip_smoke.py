@@ -5,7 +5,7 @@ and check them.
     python3 chip_smoke.py
 
 Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 19, 21, 13,
-22, 23, 24, 25 (gowalla), 12, 17, 25 (flagship), 20, 14
+22, 23, 24, 25 (gowalla), 26, 12, 17, 25 (flagship), 20, 14
 (any failure raises and the script exits non-zero; it prints no result
 line then):
   1. device  — require CUDA; print the card's name and power limit.
@@ -249,6 +249,18 @@ line then):
                steps at keepRate 0.5 against the single-device step on the
                same masks (2 x 168 + 168 folded K3 launches each), then
                both with the update, timed, the peak device memory.
+ 26. all-gather and 131k — the all-gather edge partition on a one-card
+               mesh of 4 ranks at gowalla width (the tensor-parallel hop,
+               one K1 launch per rank): interval 0's hop in both table
+               modes, forward and backward, against its plain version in
+               f64 and the single-device K1 hop; the encode's 12 hops in
+               both modes (48 K1 launches forward, 48 backward), each
+               hop against its plain version; its hop pair's time beside
+               K1's and the ring's. Then two epochs of the 131k
+               full-coverage recipe (scripts/m131k_fullcov.sh's flags
+               without the supervisor) through `Trainer.run()`: preLoss
+               falls, every metric finite, the best-NDCG checkpoint
+               written; set-up, epoch, test and step times, peak memory.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -5393,6 +5405,274 @@ def flagship_mesh_phase(trainer, device) -> dict:
     return out
 
 
+# phase 26: the all-gather edge partition on a one-card mesh of AG_MODEL
+# ranks (one K1 launch per rank and hop) and M131K_EPOCHS epochs of the
+# 131k full-coverage recipe (scripts/m131k_fullcov.sh's flags) through
+# `Trainer.run()`
+AG_MODEL = 4
+M131K_EPOCHS = 2
+
+
+def ag_phase(bundle, graphs, leaky, records, device) -> dict:
+    """26(a). The all-gather edge partition (`parallel.edge_partition`:
+    `partition_edges_by_target`, `ag_hop`, the tensor-parallel hop, one K1
+    launch per rank) on a one-card mesh of AG_MODEL ranks at gowalla
+    width. Interval 0's user-target hop in both table modes, forward and
+    backward, against its plain version summed in f64 (`seg_tol` of the
+    whole CSR, and of its transpose for the dx) and against the
+    single-device K1 hop; then the encode's 12 hops (per interval, two
+    layers in both directions, leaky-relu between) in both modes, each
+    hop's output against its plain version on the inputs it was given,
+    4 K1 launches a hop (48 forward, 48 backward from a loss over the
+    last layer). Times the hop pair (the u and i hops of interval 0) as
+    called and in device time, beside the single-device K1 pair and the
+    ring's (phase 13's record)."""
+    import torch
+    from sagnn_tpu_torch.data.graph import compile_interval_graphs
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel import edge_partition as ep
+    from sagnn_tpu_torch.parallel import sharding as shd
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+
+    P, D = AG_MODEL, 64
+    out = {"card": gpu_name_and_power(), "ranks": P, "launches": {}}
+    t0 = time.perf_counter()
+    gb = compile_interval_graphs(bundle.sub_mats)
+    mesh = make_mesh(model=P, devices=[device] * P)
+    nodes = {"u": NUM_USERS, "i": NUM_ITEMS}
+    other = {"u": "i", "i": "u"}
+    blk = {d: -(-n // P) for d, n in nodes.items()}   # pad_node_table rows
+    parts, hops = {}, {}
+    for k in range(gb.graph_num):
+        for d in ("u", "i"):
+            parts[d, k] = ep.partition_edges_by_target(
+                getattr(gb, f"{d}_src")[k], getattr(gb, f"{d}_tgt")[k],
+                nodes[d], P)
+            for exact in (True, False):
+                hops[d, k, exact] = ep.ag_hop(parts[d, k], mesh,
+                                              blk[other[d]], exact)
+    out["plan_s"] = time.perf_counter() - t0
+
+    def blocks(t, d):
+        return ep.shard(t, blk[d], mesh)
+
+    def whole(bs, d):
+        return ep.unshard(bs, nodes[d], device)
+
+    gen = torch.Generator(device=device).manual_seed(26)
+    x = torch.randn((NUM_ITEMS, D), generator=gen, device=device)
+    cot = torch.randn((NUM_USERS, D), generator=gen, device=device)
+    src, ptr = graphs["u_src"][0], graphs["u_ptr"][0]
+    bsrc, bptr = graphs["i_src"][0], graphs["i_ptr"][0]
+    for exact, mode in ((True, "f32"), (False, "bf16")):
+        name = f"segsum_{mode}"
+        xs = [b.requires_grad_() for b in blocks(x, "i")]
+        sc.reset_launches()
+        got = shd.tp_spmm(xs, hops["u", 0, exact])
+        dx = torch.autograd.grad(got, xs, ep.shard(
+            cot, parts["u", 0].rows_per_shard, mesh))
+        torch.cuda.synchronize()
+        out["launches"][f"hop_{mode}"] = {k: v for k, v in
+                                          sc.LAUNCHES.items() if v}
+        expect_launches(dict(sc.LAUNCHES), f"AG {mode} hop",
+                        **{name: P, name + "_bwd": P})
+        got, dx = whole(got, "u").detach(), whole(dx, "i")
+        rtol, atol = seg_tol(ptr, amax(x))
+        check_close(got, sc.spmm_apply_plain(x.double(), src, ptr, exact),
+                    rtol, atol, f"AG {mode} hop vs plain f64")
+        # the single-device K1 and the ranks' launches carry their own f32
+        # rounding each
+        check_close(got, sc.spmm_apply(x, src, ptr, exact), rtol, 2 * atol,
+                    f"AG {mode} hop vs the single-device K1 hop")
+        rtol, atol = seg_tol(bptr, amax(cot))
+        check_close(dx, sc.spmm_apply_plain(cot.double(), bsrc, bptr, exact),
+                    rtol, atol, f"AG {mode} hop dx vs plain f64")
+
+    # the encode's 12 hops, each held against its plain version on its
+    # own inputs, then one backward through all of them
+    for exact, mode in ((True, "f32"), (False, "bf16")):
+        name = f"segsum_{mode}"
+        leaves, loss, worst = [], 0.0, 0.0
+        sc.reset_launches()
+        for k in range(gb.graph_num):
+            state = {d: [b.requires_grad_() for b in blocks(torch.randn(
+                (n, D), generator=gen, device=device), d)]
+                for d, n in nodes.items()}
+            leaves += state["u"] + state["i"]
+            for _ in range(2):
+                nxt = {}
+                for d in ("u", "i"):
+                    res = shd.tp_spmm(state[other[d]], hops[d, k, exact])
+                    inp = whole(state[other[d]], other[d]).detach()
+                    rtol, atol = seg_tol(graphs[f"{d}_ptr"][k], amax(inp))
+                    err, used = tolerance_used(
+                        whole(res, d).detach(), sc.spmm_apply_plain(
+                            inp.double(), graphs[f"{d}_src"][k],
+                            graphs[f"{d}_ptr"][k], exact), rtol, atol)
+                    check(used <= 1.0, f"AG {mode} encode hop {d}{k}: max "
+                          f"abs err {err:.3e} (atol {atol:.2e})")
+                    worst = max(worst, used)
+                    nxt[d] = blocks(torch.maximum(leaky * whole(res, d),
+                                                  whole(res, d)), d)
+                state = nxt
+            loss = loss + sum(b.sum() for b in state["u"] + state["i"])
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out["launches"][f"encode_{mode}"] = {k: v for k, v in
+                                             sc.LAUNCHES.items() if v}
+        hops_n = gb.graph_num * 2 * 2
+        expect_launches(dict(sc.LAUNCHES), f"AG {mode} encode",
+                        **{name: P * hops_n, name + "_bwd": P * hops_n})
+        check(all(bool(torch.isfinite(gr).all()) for gr in grads),
+              f"AG {mode} encode gradients finite")
+        out[f"encode_{mode}_worst_tolerance_share"] = worst
+        log(f"AG {mode} encode: {hops_n} hops, each within "
+            f"{worst:.2f} of its tolerance; launches "
+            f"{out['launches'][f'encode_{mode}']}")
+
+    # the hop pair's times: the AG hops as called and in device time, the
+    # single-device K1 pair, the ring's pair (phase 13)
+    ub = blocks(cot, "u")
+    xb = blocks(x, "i")
+    for exact, mode in ((True, "f32"), (False, "bf16")):
+        pair = (lambda: shd.tp_spmm(xb, hops["u", 0, exact]),
+                lambda: shd.tp_spmm(ub, hops["i", 0, exact]))
+        out[f"hop_pair_ms_{mode}"] = sum(cuda_ms(f) for f in pair)
+        out[f"hop_pair_device_ms_{mode}"] = sum(kernel_ms(f) for f in pair)
+    out["k1_pair_ms"] = (cuda_ms(lambda: sc.spmm_apply(x, src, ptr))
+                         + cuda_ms(lambda: sc.spmm_apply(cot, bsrc, bptr)))
+    ring = records["ring_segsum_f32"]
+    out["ring_pair_ms"], out["ring_pair_device_ms"] = ring["hop_ms"], \
+        ring["ms"]
+    log(f"AG hop pair on {P} ranks of one card ({out['card']}): f32 "
+        f"{out['hop_pair_ms_f32']:.4f} ms as called, "
+        f"{out['hop_pair_device_ms_f32']:.4f} ms device; bf16 "
+        f"{out['hop_pair_ms_bf16']:.4f} / "
+        f"{out['hop_pair_device_ms_bf16']:.4f} ms; single-device K1 "
+        f"{out['k1_pair_ms']:.4f} ms as called; ring (phase 13) "
+        f"{out['ring_pair_ms']:.4f} ms as called, "
+        f"{out['ring_pair_device_ms']:.4f} ms device; host plans "
+        f"{out['plan_s']:.1f} s")
+    return out
+
+
+def m131k_phase(device) -> dict:
+    """26(b). M131K_EPOCHS epochs of the 131k full-coverage recipe (the
+    flags of scripts/m131k_fullcov.sh, `utils.convergence.M131K_ARGV`, as
+    `main` builds its Config; without the supervisor, which phase 19
+    drives) through `Trainer.run()`: 131,072 x 98,304 x 7.5M edges, batch
+    4096, `--bf16`, full sort over 16,384 users every epoch. The auto
+    source shard resolves off (the user table is 32 MiB, not past it), so
+    every hop is K1 on bf16 tables: 12 a step and a test, 12 backward a
+    step. Checks epoch 2's preLoss below epoch 1's, every metric finite
+    and the best-NDCG checkpoint on disk, and holds interval 0's u and i
+    hops (forward and dx, the trained tables) against their plain version;
+    logs the set-up, each epoch's
+    and its test's seconds, the step's wall ms (the Trainer's timer) and
+    its device ms (torch.profiler, two more steps), the peak memory."""
+    import torch
+    from sagnn_tpu_torch import main as tmain
+    from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.train.trainer import Trainer
+    from sagnn_tpu_torch.utils.convergence import M131K_ARGV
+
+    root = tempfile.mkdtemp()
+    ns = tmain.parse_args([a for a in M131K_ARGV if a != "--supervise"]
+                          + ["--epoch", str(M131K_EPOCHS), "--ckpt_root",
+                             root])
+    cfg = tmain.build_config(ns)
+    tc, mc = cfg.train, cfg.model
+    out = {"card": gpu_name_and_power(), "epochs": M131K_EPOCHS,
+           "users": ns.synth_users, "items": ns.synth_items,
+           "edges": ns.synth_edges, "batch": tc.batch}
+    t0 = time.perf_counter()
+    bundle = synthetic_large_dataset(
+        num_users=ns.synth_users, num_items=ns.synth_items,
+        total_edges=ns.synth_edges, graph_num=mc.graph_num,
+        test_size=tc.test_size, num_test_users=ns.synth_test_users,
+        seed=tc.seed)
+    out["bundle_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, bundle, ckpt_root=root, device=device)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    check(trainer.cfg.model.spmm_src_shard_rows == -1
+          and not trainer.cfg.model.spmm_exact,
+          "131k: source sharding off, bf16 tables")
+    sc.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.run()
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in sc.LAUNCHES.items() if v}
+    steps = -(-tc.trn_num // tc.batch)
+    hops = mc.graph_num * mc.gnn_layer * 2
+    expect_launches(dict(sc.LAUNCHES), "131k run",
+                    segsum_bf16=hops * (steps + 1) * M131K_EPOCHS + hops,
+                    segsum_bf16_bwd=hops * steps * M131K_EPOCHS)
+    h = trainer.history.data
+    pre = h["TrainpreLoss"]
+    out["preLoss"], out["ndcg"], out["hr"] = pre, h["TestNDCG"], h["TestHR"]
+    check(len(pre) == M131K_EPOCHS and pre[1] < pre[0],
+          f"131k: preLoss falls, {pre}")
+    check(all(math.isfinite(v) for key in ("TrainLoss", "TrainpreLoss",
+                                            "TestHR", "TestNDCG")
+              for v in h[key]) and len(h["TestNDCG"]) == M131K_EPOCHS
+          and all(math.isfinite(v) and 0.0 <= v <= 1.0
+                  for v in best.values()), "131k: every metric finite")
+    check(os.path.exists(os.path.join(root, tc.save_path, "state")),
+          "131k: the best-NDCG checkpoint on disk")
+    out["epoch_records"] = trainer.epoch_records
+    # interval 0's u and i hops at the run's shapes, on its trained tables
+    # in its bf16 table mode, forward and dx, against their plain version
+    # summed in f64 (`seg_tol` of the hop's CSR, and of its transpose for
+    # the dx)
+    g, params = trainer.graphs, trainer.state["params"]
+    gen = torch.Generator(device=device).manual_seed(26)
+    out["hop_tolerance_share"] = {}
+    for side, other in (("u", "i"), ("i", "u")):
+        x = params[f"reg/{other}_embed"][0].detach().clone()
+        x.requires_grad_()
+        src, ptr = g[f"{side}_src"][0], g[f"{side}_ptr"][0]
+        bsrc, bptr = g[f"{other}_src"][0], g[f"{other}_ptr"][0]
+        y = sc.spmm(x, src, ptr, bsrc, bptr, mc.spmm_exact,
+                    mc.spmm_fold_gather)
+        cot = torch.randn(y.shape, generator=gen, device=device)
+        dx, = torch.autograd.grad(y, x, cot)
+        x = x.detach()
+        for what, got, tbl, s_, p_ in (("fwd", y.detach(), x, src, ptr),
+                                       ("dx", dx, cot, bsrc, bptr)):
+            rtol, atol = seg_tol(p_, amax(tbl))
+            err, used = tolerance_used(got, sc.spmm_apply_plain(
+                tbl.double(), s_, p_, mc.spmm_exact), rtol, atol)
+            check(used <= 1.0, f"131k {side} hop {what} vs plain f64: max "
+                  f"abs err {err:.3e} (atol {atol:.2e})")
+            out["hop_tolerance_share"][f"{side}_{what}"] = used
+    log("131k interval-0 hops (bf16 tables) vs plain f64, share of the "
+        "tolerance used: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["hop_tolerance_share"].items()))
+    out["step_wall_ms"] = trainer.throughput_stats()["step_ms_mean"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ids = trainer.sampler.epoch_user_ids(tc.trn_num)
+    b = trainer.sampler.train_batch(ids[:tc.batch]).to(device)
+    out["profile"] = profile_steps(lambda: trainer.train_step(b), n=2)
+    log(f"131k recipe ({out['card']}): bundle {out['bundle_s']:.1f} s, "
+        f"set-up {out['setup_s']:.1f} s; epochs "
+        + ", ".join(f"{e['epoch_s']:.2f} s (test {e['test_s']:.2f} s)"
+                    for e in out["epoch_records"])
+        + f"; step {out['step_wall_ms']:.1f} ms wall (Trainer), "
+        f"{out['profile'].get('device_ms_per_step', float('nan')):.1f} ms "
+        f"device (profiled); peak {out['peak_gb']:.2f} GB; preLoss "
+        + ", ".join(f"{v:.4f}" for v in pre) + "; NDCG@10 "
+        + ", ".join(f"{v:.4f}" for v in h["TestNDCG"]))
+    del trainer, bundle, b
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5706,6 +5986,14 @@ def drive(device) -> None:
     phase_s["mesh options"] = time.perf_counter() - t0
     log(f"phase mesh options: {phase_s['mesh options']:.1f} s")
 
+    # 26. the all-gather edge partition on a one-card mesh, then two
+    # epochs of the 131k full-coverage recipe
+    t0 = time.perf_counter()
+    ag = ag_phase(bundle, rec.graphs, mc.leaky, records, device)
+    m131k = m131k_phase(device)
+    phase_s["ag and 131k"] = time.perf_counter() - t0
+    log(f"phase ag and 131k: {phase_s['ag and 131k']:.1f} s")
+
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
     t0 = time.perf_counter()
@@ -5922,6 +6210,16 @@ def drive(device) -> None:
                 "2x2_src_shard_fold"][name],
             launches_tp_flagship_1x2_step=flagship_mesh["launches"][
                 "flagship_1x2_step0"][name])
+    # phase 26, each path counted from 0 just before it: the AG hop and
+    # encode (every rank), the 131k recipe's two epochs
+    for mode in ("f32", "bf16"):
+        for name in (f"segsum_{mode}", f"segsum_{mode}_bwd"):
+            records[name].update(
+                launches_ag_hop_4_ranks=ag["launches"][f"hop_{mode}"][name],
+                launches_ag_encode_4_ranks=ag["launches"][
+                    f"encode_{mode}"][name])
+    for name in ("segsum_bf16", "segsum_bf16_bwd"):
+        records[name]["launches_m131k_two_epochs"] = m131k["launches"][name]
     schedule_report(records)
     kernels = []
     for r in records.values():
@@ -5976,7 +6274,9 @@ def drive(device) -> None:
         "sharded_serving": sharded, "profiler_trace": profiler_trace,
         "mesh": mesh, "multiprocess": multiprocess,
         "seq_parallel": seq_parallel, "mesh_options": mesh_options,
-        "flagship_mesh": flagship_mesh}
+        "flagship_mesh": flagship_mesh, "ag": ag,
+        "m131k": {k: v for k, v in m131k.items() if k != "profile"},
+        "m131k_profile": m131k["profile"]}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

@@ -1,6 +1,7 @@
 """Synthetic temporal bipartite datasets; the port's copy of
-`synthetic_dataset` and `synthetic_large_dataset` from
-`sagnn_tpu/data/synthetic.py`.
+`sagnn_tpu/data/synthetic.py`: `synthetic_dataset`, the streaming COO
+generator `synthetic_edges` with `synthetic_interval_mats`, and
+`synthetic_large_dataset` (its own draws, not the stream's).
 
 Each generator draws from one numpy `Generator` in the same order as the
 JAX package's, so the same arguments and seed give a byte-equal bundle (a
@@ -138,6 +139,55 @@ def synthetic_dataset(
         tst_int=tst_int,
         test_dict=test_dict,
     )
+
+
+def synthetic_edges(
+    num_edges: int,
+    num_users: int,
+    num_items: int,
+    graph_num: int,
+    alpha: float = 1.05,
+    seed: int = 0,
+    chunk: int = 4_000_000,
+):
+    """Stream (user, item, interval) COO chunks for huge benchmark graphs:
+    int32 (rows, cols, ks) chunks of at most `chunk` edges, user and item
+    popularity both zipf-like (alpha 0.7·alpha and alpha), intervals
+    uniform."""
+    rng = np.random.default_rng(seed)
+    u_probs = _zipf_item_probs(num_users, alpha * 0.7, rng)
+    i_probs = _zipf_item_probs(num_items, alpha, rng)
+    remaining = num_edges
+    while remaining > 0:
+        n = min(chunk, remaining)
+        rows = rng.choice(num_users, size=n, p=u_probs).astype(np.int32)
+        cols = rng.choice(num_items, size=n, p=i_probs).astype(np.int32)
+        ks = rng.integers(0, graph_num, size=n).astype(np.int32)
+        yield rows, cols, ks
+        remaining -= n
+
+
+def synthetic_interval_mats(num_edges: int, num_users: int, num_items: int,
+                            graph_num: int, seed: int = 0) -> list:
+    """One binary [num_users, num_items] CSR per interval from
+    `synthetic_edges` (duplicates summed, then set to 1)."""
+    per_k_rows: list = [[] for _ in range(graph_num)]
+    per_k_cols: list = [[] for _ in range(graph_num)]
+    for rows, cols, ks in synthetic_edges(num_edges, num_users, num_items,
+                                          graph_num, seed=seed):
+        for k in range(graph_num):
+            m = ks == k
+            per_k_rows[k].append(rows[m])
+            per_k_cols[k].append(cols[m])
+    mats = []
+    for k in range(graph_num):
+        r = np.concatenate(per_k_rows[k])
+        c = np.concatenate(per_k_cols[k])
+        m = sp.csr_matrix((np.ones(len(r), dtype=np.int8), (r, c)),
+                          shape=(num_users, num_items))
+        m.data[:] = 1
+        mats.append(m)
+    return mats
 
 
 def synthetic_large_dataset(

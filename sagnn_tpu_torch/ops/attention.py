@@ -1,5 +1,6 @@
 """Multi-head self-attention with the reference's exp-score normalisation,
-and TF's layer norm; the port of `sagnn_tpu/ops/attention.py`.
+TF's layer norm and the additive attention pooling; the port of
+`sagnn_tpu/ops/attention.py`.
 
 Reference semantics (Utils/attention.py:31-78):
     W_Q/W_K/W_V: dense layers WITH bias (tf.layers.dense default)
@@ -27,7 +28,7 @@ from typing import Dict
 
 import torch
 
-from sagnn_tpu_torch.models.layers import scalar_as
+from sagnn_tpu_torch.models.layers import scalar_as, tf_glorot_uniform
 
 
 def multi_head_self_attention(params: Dict[str, torch.Tensor],
@@ -86,6 +87,30 @@ def multi_head_self_attention(params: Dict[str, torch.Tensor],
         attn = scores / (torch.sum(scores, dim=-1, keepdim=True) + 1e-8)
     ctx = torch.einsum("bhts,bhsd->bhtd", attn, v)
     return ctx.transpose(1, 2).reshape(B, T, D).to(x.dtype)
+
+
+def init_additive_attention_params(gen: torch.Generator, query_dim: int,
+                                   cand_dim: int) -> Dict[str, torch.Tensor]:
+    """AdditiveAttention (Utils/attention.py:4-29), dead in the reference
+    model (model.py:147-148, 168): a dense layer to query_dim (xavier
+    uniform w, zero b) and a query vector drawn uniform(-0.1, 0.1), which
+    the reference keeps non-trainable and JAX keeps as a param. Draws
+    come from `gen`."""
+    query = torch.rand((query_dim, 1), generator=gen, device=gen.device)
+    return {
+        "w": tf_glorot_uniform(gen, (cand_dim, query_dim), gen.device),
+        "b": torch.zeros((query_dim,), device=gen.device),
+        "query": query * 0.2 - 0.1,
+    }
+
+
+def additive_attention(params: Dict[str, torch.Tensor],
+                       candidates: torch.Tensor) -> torch.Tensor:
+    """candidates [B, T, D] -> [B, D]: tanh(c w + b) scored against the
+    query, softmax over T, the candidates pooled by those weights."""
+    temp = torch.tanh(candidates @ params["w"] + params["b"])   # [B, T, Q]
+    weights = torch.softmax((temp @ params["query"]).squeeze(-1), dim=1)
+    return torch.einsum("bt,btd->bd", weights, candidates)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

@@ -1,5 +1,21 @@
-"""The ring backend's explicitly edge-partitioned SpMM over a mesh's 'model'
-axis; the port of the ring half of `sagnn_tpu/parallel/edge_partition.py`.
+"""Explicitly edge-partitioned SpMM over a mesh's 'model' axis, the
+all-gather route and the ring backend's; the port of
+`sagnn_tpu/parallel/edge_partition.py`.
+
+The all-gather route (`EdgePartitions`, `partition_edges_by_target`,
+`pad_node_table`, byte-equal to JAX's): rank p owns the target rows
+[p·rows, (p + 1)·rows) and the edges into them, with global source ids;
+a hop all-gathers the source table's row blocks (the table padded to a
+multiple of P rows by `pad_node_table`, split by `shard`) and sums the
+rank's own target rows. `ag_hop` turns the partitions into the
+tensor-parallel hop of `parallel/sharding.py` (`TPHop`): each rank's CSR
+plan (pad slots dropped) for the forward, one K1 launch per rank, and the
+transpose plan cut by the source rows each rank owns for the backward,
+K1 again on the gathered cotangent. `edge_partitioned_spmm` /
+`edge_partitioned_propagate` are JAX's functions over the blocks;
+`ring_edge_partitioned_spmm` / `_propagate` are the ring's counterparts
+over one `RingEdgePartitions` (K6, its backward on that edge set's own
+transpose).
 
 Each of the P model ranks owns a row shard of the TARGET nodes and the
 edges into it, bucketed by the shard of their SOURCE. One hop is a ring
@@ -45,6 +61,7 @@ import torch
 
 from sagnn_tpu_torch.ops import spmm_cuda as sc
 from sagnn_tpu_torch.parallel.mesh import Mesh
+from sagnn_tpu_torch.parallel.sharding import TPHop, TPRank, tp_spmm
 
 
 def _round_up(x: int, m: int) -> int:
@@ -52,6 +69,63 @@ def _round_up(x: int, m: int) -> int:
 
 
 # -- host side -------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class EdgePartitions:
+    """Per-shard edge lists with shard-local target ids (JAX's).
+
+    src: [P, E_shard] int32 global source ids (pad 0)
+    tgt_local: [P, E_shard] int32 target id within the shard (pad =
+               rows_per_shard), sorted ascending per shard
+    rows_per_shard: padded target rows each shard owns
+    num_tgt: true global target count
+    """
+
+    src: np.ndarray
+    tgt_local: np.ndarray
+    rows_per_shard: int
+    num_tgt: int
+
+    @property
+    def num_shards(self) -> int:
+        return self.src.shape[0]
+
+
+def partition_edges_by_target(src: np.ndarray, tgt: np.ndarray,
+                              num_tgt: int, num_shards: int,
+                              pad_multiple: int = 128) -> EdgePartitions:
+    """Split target-sorted edges into `num_shards` row partitions; JAX
+    `partition_edges_by_target` (edge_partition.py:60-81), byte for byte.
+    Trailing pad edges (tgt == num_tgt) are dropped."""
+    src = np.asarray(src, np.int32)
+    tgt = np.asarray(tgt, np.int32)
+    n = int(np.searchsorted(tgt, num_tgt))
+    src, tgt = src[:n], tgt[:n]
+    rows = _round_up(-(-num_tgt // num_shards), 8)
+    bounds = np.searchsorted(tgt, np.arange(num_shards + 1) * rows)
+    counts = np.diff(bounds)
+    e_shard = max(pad_multiple,
+                  _round_up(int(counts.max(initial=1)), pad_multiple))
+    out_src = np.zeros((num_shards, e_shard), np.int32)
+    out_tgt = np.full((num_shards, e_shard), rows, np.int32)
+    for p in range(num_shards):
+        lo, hi = int(bounds[p]), int(bounds[p + 1])
+        out_src[p, : hi - lo] = src[lo:hi]
+        out_tgt[p, : hi - lo] = tgt[lo:hi] - p * rows
+    return EdgePartitions(src=out_src, tgt_local=out_tgt,
+                          rows_per_shard=rows, num_tgt=num_tgt)
+
+
+def pad_node_table(x: np.ndarray, num_shards: int) -> np.ndarray:
+    """Zero rows after x's so its row count divides by num_shards (JAX
+    `pad_node_table`); x itself when it already does."""
+    n = x.shape[0]
+    target = _round_up(n, num_shards)
+    if target == n:
+        return x
+    return np.concatenate(
+        [x, np.zeros((target - n,) + x.shape[1:], x.dtype)])
+
 
 @dataclass(frozen=True)
 class RingEdgePartitions:
@@ -457,3 +531,133 @@ def unshard(blocks: List[torch.Tensor], n: int,
     """The first n rows of the blocks laid end to end, on `device`."""
     return torch.cat([b.to(device) for b in blocks])[:n]
 
+
+# -- the all-gather route and the ring wrappers ----------------------------------
+
+def _check_axis(axis: str) -> None:
+    if axis != "model":
+        raise ValueError(f"the port's meshes split edges over 'model', not "
+                         f"{axis!r}")
+
+
+def ag_hop(parts: EdgePartitions, mesh: Mesh, src_rows: int,
+           exact: bool = True) -> TPHop:
+    """The all-gather hop of `parts` as a tensor-parallel hop: rank p's
+    plan is its real edges (src[p, :n], CSR pointers over its rows from
+    tgt_local) on `mesh.model_devices[p]`; the backward's is the
+    transpose of every rank's edges (ids of the gathered targets,
+    p·rows + tgt_local, sorted by source), cut by the `src_rows` source
+    rows each rank's block holds. exact=False: K1's bf16 table mode.
+    ValueError when a source id is outside the P·src_rows gathered rows."""
+    devs = mesh.model_devices
+    P, rows = parts.num_shards, parts.rows_per_shard
+    if len(devs) != P:
+        raise ValueError(f"partitions for {P} shards, mesh 'model' axis "
+                         f"{len(devs)}")
+    fwd, srcs, tgts = [], [], []
+    for p, dv in enumerate(devs):
+        n = int(np.searchsorted(parts.tgt_local[p], rows))
+        src, tl = parts.src[p, :n], parts.tgt_local[p, :n]
+        if n and (src.min() < 0 or src.max() >= P * src_rows):
+            raise ValueError(f"shard {p} has a source id outside the "
+                             f"{P} x {src_rows} gathered rows")
+        fwd.append(TPRank(dv, torch.from_numpy(src.copy()).to(dv),
+                          torch.from_numpy(sc.csr_row_ptr(tl, rows)).to(dv)))
+        srcs.append(src)
+        tgts.append(tl + p * rows)
+    src, tgt = np.concatenate(srcs), np.concatenate(tgts)
+    order = np.lexsort((tgt, src))
+    t_src = tgt[order].astype(np.int32)
+    t_ptr = sc.csr_row_ptr(src[order], P * src_rows)
+    bwd = tuple(TPRank(dv, torch.from_numpy(t_src).to(dv),
+                       torch.from_numpy(
+                           t_ptr[m * src_rows:(m + 1) * src_rows + 1]).to(dv))
+                for m, dv in enumerate(devs))
+    return TPHop(tuple(fwd), bwd, exact, folded=False)
+
+
+def edge_partitioned_spmm(blocks: List[torch.Tensor], parts: EdgePartitions,
+                          mesh: Mesh, axis: str = "model",
+                          hop: Optional[TPHop] = None) -> List[torch.Tensor]:
+    """One all-gather hop, out[t] = Σ_{e: tgt[e]=t} x[src[e]] (JAX
+    `edge_partitioned_spmm`): blocks are the P equal row blocks of the
+    padded source table (`shard(x, len // P, mesh)` of `pad_node_table`),
+    block p on model rank p's device; returns rank p's [rows, D] f32 target
+    block, differentiable in the blocks. One K1 launch per rank on the
+    card (bf16 table mode for bf16 blocks), the plain version on the CPU.
+    hop: `ag_hop(parts, mesh, len(blocks[0]), exact)` built once for
+    repeated calls; without it each call builds it on the host."""
+    _check_axis(axis)
+    if hop is None:
+        hop = ag_hop(parts, mesh, blocks[0].shape[0],
+                     exact=blocks[0].dtype != torch.bfloat16)
+    return tp_spmm(blocks, hop)
+
+
+def edge_partitioned_propagate(blocks: List[torch.Tensor],
+                               parts: EdgePartitions, mesh: Mesh,
+                               leaky: float, axis: str = "model",
+                               hop: Optional[TPHop] = None) -> torch.Tensor:
+    """The hop, sliced to the true target count on the mesh's first device,
+    then leaky-relu (JAX `edge_partitioned_propagate`)."""
+    out = unshard(edge_partitioned_spmm(blocks, parts, mesh, axis, hop),
+                  parts.num_tgt, mesh.device)
+    return torch.maximum(leaky * out, out)
+
+
+def _ring_transpose(parts: RingEdgePartitions) -> RingEdgePartitions:
+    """The same edges with source and target swapped (weights alike),
+    partitioned over the same P shards: Aᵀ's ring partitions."""
+    P = parts.num_shards
+    rows, srows = parts.rows_per_shard, parts.src_rows_per_shard
+    real = parts.tgt_local < rows
+    p_i, q_i, _ = np.nonzero(real)
+    src = parts.src_local[real] + q_i * srows
+    tgt = parts.tgt_local[real] + p_i * rows
+    order = np.lexsort((tgt, src))
+    w = None if parts.weights is None else parts.weights[real][order]
+    return partition_edges_ring(tgt[order], src[order], parts.num_tgt,
+                                parts.num_src, P, weights=w)
+
+
+def ring_edge_plans(parts: RingEdgePartitions, mesh: Mesh) -> tuple:
+    """(forward, backward) ring plans of one `RingEdgePartitions` on
+    `mesh`: its own, and those of the same edges (and weights) transposed."""
+    def plan(pt, rows, src_rows):
+        w = None if pt.weights is None else pt.weights[None]
+        return ring_plan(pt.src_local[None], pt.tgt_local[None], rows,
+                         src_rows, mesh, w)
+
+    rows, src_rows = parts.rows_per_shard, parts.src_rows_per_shard
+    return (plan(parts, rows, src_rows),
+            plan(_ring_transpose(parts), src_rows, rows))
+
+
+def ring_edge_partitioned_spmm(blocks: List[torch.Tensor],
+                               parts: RingEdgePartitions, mesh: Mesh,
+                               axis: str = "model",
+                               plans: Optional[tuple] = None
+                               ) -> List[torch.Tensor]:
+    """The ring hop of one `RingEdgePartitions` (JAX
+    `ring_edge_partitioned_spmm`): blocks [src_rows_per_shard, D], block p
+    on model rank p's device (`shard`); returns rank p's [rows, D] f32
+    target block, differentiable: K6 forward, K6 on the transpose of the
+    same edges (and weights) backward. plans: `ring_edge_plans(parts,
+    mesh)` built once for repeated calls; without it each call builds
+    them on the host."""
+    _check_axis(axis)
+    fwd, bwd = plans or ring_edge_plans(parts, mesh)
+    return ring_spmm(blocks, fwd, bwd, 0, mesh)
+
+
+def ring_edge_partitioned_propagate(blocks: List[torch.Tensor],
+                                    parts: RingEdgePartitions, mesh: Mesh,
+                                    leaky: float, axis: str = "model",
+                                    plans: Optional[tuple] = None
+                                    ) -> torch.Tensor:
+    """The ring hop, sliced to the true target count on the mesh's first
+    device, then leaky-relu (JAX `ring_edge_partitioned_propagate`)."""
+    out = unshard(ring_edge_partitioned_spmm(blocks, parts, mesh, axis,
+                                             plans),
+                  parts.num_tgt, mesh.device)
+    return torch.maximum(leaky * out, out)

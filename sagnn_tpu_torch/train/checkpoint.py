@@ -7,6 +7,9 @@ Layout under `<root>/<save_path>/`, as in the JAX package:
   history.json  — the MetricsHistory lists
   config.json   — the Config, so inference tooling can rebuild the model
   rng.json      — host RNG state for a trajectory-exact resume
+  epochs.json   — the Trainer's per-epoch records (`Trainer.epoch_records`:
+                  Train and Test values, times, per-step losses), rewritten
+                  after every epoch, and the run's final and best results
 
 Every file is written to `<name>.tmp` and renamed over the old one, so a
 crash mid-save leaves the previous checkpoint readable. The write is
@@ -55,6 +58,21 @@ class CheckpointManager:
     @property
     def _rng_path(self) -> str:
         return os.path.join(self.dir, "rng.json")
+
+    @property
+    def epochs_path(self) -> str:
+        return os.path.join(self.dir, "epochs.json")
+
+    def save_epochs(self, records: Dict) -> None:
+        """Write the per-epoch records (epochs.json), whatever was saved."""
+        _write_json(self.epochs_path, records)
+
+    def load_epochs(self) -> Dict:
+        """The last `save_epochs` record ({} when none was written)."""
+        if not os.path.exists(self.epochs_path):
+            return {}
+        with open(self.epochs_path) as f:
+            return json.load(f)
 
     def save(self, state: Dict, history: MetricsHistory, config=None,
              block: bool = True, rng_state: Optional[Dict] = None) -> None:

@@ -210,6 +210,10 @@ class Trainer:
         self.dropout_gen.manual_seed(
             int(torch.randint(0, 2 ** 62, (1,), generator=init_gen)))
         self._steps_last_epoch = 0
+        # per epoch of `run`: its Train and Test values, its seconds, its
+        # test's, the step's wall ms, the device's peak GB and the steps'
+        # losses; written to the checkpoint directory's epochs.json
+        self.epoch_records: list = []
         self._deferring = False
         self._deferred_signal: Optional[int] = None
 
@@ -288,8 +292,9 @@ class Trainer:
         `make_train_step`). `batch` holds tensors on the device; on a mesh
         any TrainBatch (this process's rows of the global batch) or one
         already split (`parallel.distributed.shard_inputs`). Returns
-        {"loss", "preLoss", "regLoss"} as 0-d device tensors, not yet
-        synchronised."""
+        {"loss", "preLoss", "regLoss"} (regLoss = reg·L2 + ssl_reg·SSL) as
+        0-d device tensors, not yet synchronised, and on one device
+        "sslLoss", the unweighted SSL hinge."""
         if self._mesh_state is not None:
             totals, grads = self._mesh_step.loss_and_grads(
                 self._mesh_state, batch, self.dropout_gen)
@@ -316,7 +321,7 @@ class Trainer:
             self.optimizer.step(params, grads, self.state["opt_state"])
             self.state["step"] += 1
         return {"loss": loss.detach(), "preLoss": pre.detach(),
-                "regLoss": reg.detach()}
+                "regLoss": reg.detach(), "sslLoss": ssl.detach()}
 
     def _batch_rows(self) -> tuple:
         """(start, size): this process's rows of every batch (all of them
@@ -631,6 +636,10 @@ class Trainer:
             max_res = {"HR": float(self.history.data["TestHR"][i]),
                        "NDCG": max_ndcg}
             max_epoch = i * cfg.train.tst_epoch
+        # a resumed run keeps the records of the epochs it does not repeat
+        self.epoch_records = [
+            r for r in self.ckpt.load_epochs().get("epochs", [])
+            if r["epoch"] < st_epoch] if st_epoch else []
         try:
             max_ndcg, max_res, max_epoch = self._epoch_loop(
                 st_epoch, max_ndcg, max_res, max_epoch)
@@ -643,6 +652,12 @@ class Trainer:
                                       "NDCG": final["NDCG"]}))
         log(self.history.format_line("max", max_epoch, cfg.train.epoch,
                                      max_res))
+        self.ckpt.save_epochs({
+            "epochs": self.epoch_records,
+            "final": {"HR": final["HR"], "NDCG": final["NDCG"],
+                      "epoch": cfg.train.epoch},
+            "max": {"HR": max_res.get("HR"), "NDCG": max_res.get("NDCG"),
+                    "epoch": max_epoch}})
         return max_res or final
 
     def _epoch_loop(self, st_epoch: int, max_ndcg: float = 0.0,
@@ -650,13 +665,14 @@ class Trainer:
         cfg = self.cfg
         max_res = max_res or {}
         t_loop = time.monotonic()
-        epoch_times: list = []
         for ep in range(st_epoch, cfg.train.epoch):
             # time_budget_h: stop at the epoch boundary once the next epoch
-            # (predicted from the measured mean) would overrun the budget
-            if cfg.train.time_budget_h > 0 and epoch_times:
+            # (predicted from this run's mean) would overrun the budget
+            ran = [r["epoch_s"] for r in self.epoch_records
+                   if r["epoch"] >= st_epoch]
+            if cfg.train.time_budget_h > 0 and ran:
                 spent = time.monotonic() - t_loop
-                predicted = spent + float(np.mean(epoch_times))
+                predicted = spent + float(np.mean(ran))
                 if predicted > cfg.train.time_budget_h * 3600.0:
                     log(f"time budget: {spent / 3600.0:.2f}h spent, next "
                         f"epoch predicted to end at "
@@ -687,11 +703,24 @@ class Trainer:
                 log(f"  step {ts['step_ms_mean']:.1f} ms avg "
                     f"(p95 {ts['step_ms_p95']:.1f}), propagation "
                     f"{ts['edges_per_sec'] / 1e9:.4f} Gedges/s")
+            t_test = time.monotonic()
             if test:
                 te = self.test_epoch()
                 res = {"HR": te["HR"], "NDCG": te["NDCG"]}
                 log(self.history.format_line("Test", ep, cfg.train.epoch,
                                              res))
+            now = time.monotonic()
+            rec = dict(tr, **(res if test else {}), epoch=ep,
+                       epoch_s=now - t_ep, test_s=now - t_test,
+                       step_ms=ts["step_ms_mean"],
+                       step_ms_p95=ts["step_ms_p95"], steps=self.step_stats)
+            line = (f"  epoch {rec['epoch_s']:.3f} s (test "
+                    f"{rec['test_s']:.3f} s)")
+            if self.device.type == "cuda":
+                rec["peak_gb"] = torch.cuda.max_memory_allocated(
+                    self.device) / 1e9
+                line += f", peak {rec['peak_gb']:.2f} GB"
+            log(line)
             # the epoch enters the history and the resume point moves past
             # it together: a preemption checkpoint then never holds an
             # epoch that its resume runs again
@@ -703,5 +732,6 @@ class Trainer:
             if test and te["NDCG"] > max_ndcg:  # best-NDCG save policy
                 self._checkpoint(self.capture_rng_state(ep + 1))
                 max_ndcg, max_res, max_epoch = te["NDCG"], te, ep
-            epoch_times.append(time.monotonic() - t_ep)
+            self.epoch_records.append(rec)
+            self.ckpt.save_epochs({"epochs": self.epoch_records})
         return max_ndcg, max_res, max_epoch

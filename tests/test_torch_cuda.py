@@ -12,7 +12,8 @@ mode on the plans that stress it (one row with every edge, rows ending on
 piece boundaries, mostly empty rows, a shard's and a slice's plan), with
 its determinism, its clean scratch and its independence of the grid; the
 serving encode (parity, each edge variant and the ring) and a training step on
-the card against the CPU; the supervisor declaring a hung CUDA call
+the card against the CPU; the all-gather edge partition's hop (K1 per
+rank) forward and backward; the supervisor declaring a hung CUDA call
 (blocking sync) before and after the child's first log line; a 2 x 2
 one-card mesh step against the single-device step, and two processes
 sharing the card over gloo against one process on a 2 x 1 mesh.
@@ -1602,3 +1603,52 @@ def test_ring_attention_on_card_matches_dense(dev, model_ranks):
     for a, b in zip(torch.autograd.grad(got, leaves, cot),
                     torch.autograd.grad(want, leaves, cot)):
         torch.testing.assert_close(a, b, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_ag_hop_on_card_matches_plain(dev, exact, shards):
+    """The all-gather edge partition's hop (`ag_hop`, a tensor-parallel
+    hop) on a one-card mesh of `shards` ranks, forward and backward, in
+    both table modes, against the same hop on the CPU's plain versions
+    (segment-sum tolerance of the whole CSR, and of its transpose): one
+    K1 launch per rank each way."""
+    from sagnn_tpu_torch.parallel import edge_partition as ep
+    from sagnn_tpu_torch.parallel import sharding as shd
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+
+    n_tgt, n_src, e = 1000, 700, 20_000
+    rng = np.random.default_rng(shards)
+    tgt = np.sort(rng.integers(0, n_tgt, e)).astype(np.int32)
+    tgt[: e // 4] = 3                               # one hot row
+    tgt = np.sort(tgt)
+    src = rng.integers(0, n_src, e).astype(np.int32)
+    parts = ep.partition_edges_by_target(src, tgt, n_tgt, shards)
+    xp = ep.pad_node_table(
+        rng.standard_normal((n_src, 64)).astype(np.float32), shards)
+    cot = torch.from_numpy(
+        rng.standard_normal((shards * parts.rows_per_shard, 64))
+        .astype(np.float32))
+    rows = xp.shape[0] // shards
+
+    def run(device):
+        mesh = make_mesh(model=shards, devices=[device] * shards)
+        hop = ep.ag_hop(parts, mesh, rows, exact)
+        xs = [b.requires_grad_() for b in ep.shard(
+            torch.from_numpy(xp).to(device), rows, mesh)]
+        out = shd.tp_spmm(xs, hop)
+        dx = torch.autograd.grad(out, xs, list(cot.to(device).split(
+            parts.rows_per_shard)))
+        return torch.cat(out).cpu(), torch.cat(dx).cpu()
+
+    sc.reset_launches()
+    out, dx = run(dev)
+    torch.cuda.synchronize()
+    name = "segsum_f32" if exact else "segsum_bf16"
+    assert sc.LAUNCHES[name] == shards
+    assert sc.LAUNCHES[name + "_bwd"] == shards
+    want, dwant = run(torch.device("cpu"))
+    ptr = torch.from_numpy(sc.csr_row_ptr(tgt, n_tgt))
+    bptr = torch.from_numpy(sc.csr_row_ptr(np.sort(src), n_src))
+    torch.testing.assert_close(out, want, **_tol(ptr, torch.from_numpy(xp)))
+    torch.testing.assert_close(dx, dwant, **_tol(bptr, cot))

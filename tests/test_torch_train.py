@@ -220,6 +220,34 @@ def test_losses_and_grads_match_jax(env, backend):
                                    atol=1e-6 * g_max, err_msg=k)
 
 
+def test_ssl_loss_grads_alone_match_jax(env):
+    """The SSL hinge alone (no preLoss, no L2) and its gradient: the meta
+    net's leaves get their gradient from it only, and in the whole loss it
+    is a small share that a tolerance scaled by the largest gradient could
+    hide."""
+    bundle, jg, jp, tg, tp, jbatch = env
+    mcfg = dataclasses.replace(MCFG, spmm_backend="xla")
+    jm = JSelfGNN(mcfg, bundle.num_users, bundle.num_items)
+    j_ssl, j_grads = jax.jit(jax.value_and_grad(
+        lambda p: jm.train_losses(p, jg, jbatch, rng=None)[1]))(jp)
+    tm = SelfGNN(torch_cfg(mcfg), bundle.num_users, bundle.num_items)
+    p = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    ssl = tm.train_losses(p, tg, _torch_batch(jbatch))[1]
+    keys = list(p)
+    grads = dict(zip(keys, torch.autograd.grad(
+        ssl, [p[k] for k in keys], allow_unused=True)))
+    np.testing.assert_allclose(ssl.item(), float(j_ssl), rtol=1e-5)
+    want = flatten_tree(numpy_tree(j_grads))
+    g_max = max(np.abs(w).max() for w in want.values())
+    assert g_max > 0
+    for k in ("reg/meta2_w", "reg/meta3_w", "free/meta2_b"):
+        assert np.abs(want[k]).max() > 1e-3 * g_max, k
+    for k, w in want.items():
+        got = np.zeros_like(w) if grads[k] is None else grads[k].numpy()
+        np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-6 * g_max,
+                                   err_msg=k)
+
+
 def test_train_losses_need_a_generator_for_dropout(env):
     """With keep_rate < 1 the dropout masks come from `gen`; the same
     generator state gives the same losses, none gives no dropout."""

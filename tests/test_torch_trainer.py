@@ -61,9 +61,16 @@ def test_run_trains_tests_and_saves(bundle, tmp_path, capsys, backend):
     assert all(np.isfinite(_losses(tr)))
     assert 0.0 <= best["HR"] <= 1.0 and 0.0 < best["NDCG"] <= 1.0
     assert tr.state["step"] == 4 and tr.state["opt_state"].count == 4
-    # the best-NDCG save: every file committed, no temporary left
+    # the best-NDCG save and the per-epoch records: every file committed,
+    # no temporary left
     files = sorted(os.listdir(tmp_path / "run"))
-    assert files == ["config.json", "history.json", "rng.json", "state"]
+    assert files == ["config.json", "epochs.json", "history.json",
+                     "rng.json", "state"]
+    records = json.loads((tmp_path / "run" / "epochs.json").read_text())
+    assert [r["epoch"] for r in records["epochs"]] == [0, 1]
+    assert [r["Loss"] for r in records["epochs"]] == _losses(tr)
+    assert records["final"]["epoch"] == 2 and records["max"]["NDCG"] == \
+        best["NDCG"]
     rng = json.loads((tmp_path / "run" / "rng.json").read_text())
     assert rng["epoch"] in (1, 2)
     saved = CheckpointManager(str(tmp_path), "run").load_config()
