@@ -5,7 +5,7 @@ and check them.
     python3 chip_smoke.py
 
 Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 19, 21, 13,
-22, 23, 24, 25 (gowalla), 26, 12, 17, 25 (flagship), 20, 14
+22, 23, 24, 25 (gowalla), 26, 27, 12, 17, 25 (flagship), 20, 14
 (any failure raises and the script exits non-zero; it prints no result
 line then):
   1. device  — require CUDA; print the card's name and power limit.
@@ -245,10 +245,10 @@ line then):
                the TP K3 hop (with and without the fold) and the TP K5 and
                K2 Functions, forward and backward, against their plain
                versions in f64; after phase 17, the flagship's exact_b512
-               on 1 x 2 (its Trainer's weights, graphs and sampler): two
-               steps at keepRate 0.5 against the single-device step on the
-               same masks (2 x 168 + 168 folded K3 launches each), then
-               both with the update, timed, the peak device memory.
+               on 1 x 2 (its Trainer's weights, graphs and sampler): one
+               step at keepRate 0.5 against the single-device step on the
+               same masks (2 x 168 + 168 folded K3 launches), then with
+               the update, timed, the peak device memory.
  26. all-gather and 131k — the all-gather edge partition on a one-card
                mesh of 4 ranks at gowalla width (the tensor-parallel hop,
                one K1 launch per rank): interval 0's hop in both table
@@ -261,6 +261,17 @@ line then):
                without the supervisor) through `Trainer.run()`: preLoss
                falls, every metric finite, the best-NDCG checkpoint
                written; set-up, epoch, test and step times, peak memory.
+ 27. JAX's draws — `utils/jax_random.py` on the card against the CPU, bit
+               for bit, and against words jax.random 0.9 gives on the CPU
+               (`JAX_KNOWN`): split(PRNGKey(0), 64), the 131k recipe's
+               step-0 LSTM dropout mask of its first user block
+               (fold_in(ku, 0), 32,768 x 3 x 64) and its u_embed draw
+               (3 x 131,072 x 64, ±glorot bound); then a `Trainer(draws=
+               "jax")` on phase 26's bundle: its initial values against
+               JAX's per leaf (digest, f64 sum, three entries); four steps
+               (12 + 12 bf16 K1 launches each, counted from 0), each
+               step's keep masks within 0.5 ± 0.001 kept, the draw's ms a
+               step (CUDA events), the steps' wall ms, finite losses.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -4335,7 +4346,7 @@ def profiler_trace_phase(cfg, bundle, device) -> dict:
 # steps, each synchronised
 MESH_SHAPES = ((2, 2), (4, 1))
 MESH_TRN_NUM = 2_048
-BLOCKING_SYNC_ROUNDS = 16
+BLOCKING_SYNC_ROUNDS = 8
 BLOCKING_SYNC_WAITS = 16
 BLOCKING_SYNC_CYCLES = 2_000_000
 BLOCKING_SYNC_STEPS = 4
@@ -4913,7 +4924,7 @@ OPTION_CHUNK_ROWS = 16_384
 BF16_MESH_GRAD_RTOL, BF16_MESH_GRAD_ATOL_SHARE = 0.05, 2 ** -4
 BF16_OLD_GRAD_ATOL_SHARE = 5e-2
 BF16_FAULT_CALLS = tuple(range(1, 25, 2))   # of 24: 2 data ranks x 12 hops
-FLAGSHIP_MESH_STEPS = 2         # exact_b512 steps on 1 x 2, each checked
+FLAGSHIP_MESH_STEPS = 1         # exact_b512 steps on 1 x 2, each checked
 
 
 def seq_parallel_phase(cfg, bundle, params, batch, rec, device) -> dict:
@@ -5569,7 +5580,8 @@ def m131k_phase(device) -> dict:
     hops (forward and dx, the trained tables) against their plain version;
     logs the set-up, each epoch's
     and its test's seconds, the step's wall ms (the Trainer's timer) and
-    its device ms (torch.profiler, two more steps), the peak memory."""
+    its device ms (torch.profiler, two more steps), the peak memory.
+    Returns the record and the bundle (phase 27 trains on it too)."""
     import torch
     from sagnn_tpu_torch import main as tmain
     from sagnn_tpu_torch.data.synthetic import synthetic_large_dataset
@@ -5667,7 +5679,215 @@ def m131k_phase(device) -> dict:
         f"device (profiled); peak {out['peak_gb']:.2f} GB; preLoss "
         + ", ".join(f"{v:.4f}" for v in pre) + "; NDCG@10 "
         + ", ".join(f"{v:.4f}" for v in h["TestNDCG"]))
-    del trainer, bundle, b
+    del trainer, b
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out, bundle
+
+
+# phase 27: JAX's own draws for the 131k recipe (seed 0), as jax.random
+# 0.9 (its default threefry, jax_threefry_partitionable on, 32-bit mode)
+# gives them on the CPU; tests/test_torch_jax_draws.py holds every value to
+# jax.random. Digests: the first 16 hex digits of the sha256 of the array's
+# bytes (little-endian uint32 words, np.packbits of a mask, f32 values).
+JAX_KNOWN = {
+    "split64": "351b3adca6e18b6f",          # split(PRNGKey(0), 64)
+    # step 0's key, its ku, bernoulli(fold_in(ku, 0), 0.5, (32768, 3, 64)):
+    # digest of the packed bits and the count kept
+    "mask_block0": ("241b536fd8148e48", 3143212),
+    # init_params from the seed's init key, each random leaf: digest, f64
+    # sum, entries at flat index 0, n // 2 and n - 1; the rest are zeros
+    # and ones (layer-norm scales)
+    "init": {
+        "free/lstm/kernel": ("52ce5409610e4017", 9.791025012731552, (
+            -0.12142437696456909, -0.0991545021533966, 0.12017551064491272)),
+        "free/mhsa_item/wk": ("faaf078e4044ad56", -4.183352196049782, (
+            0.08730819076299667, -0.11875168234109879, 0.21569040417671204)),
+        "free/mhsa_item/wq": ("8d16cb4f10f71c82", -5.2211595273111016, (
+            0.04697238281369209, -0.03980934992432594,
+            -0.052143070846796036)),
+        "free/mhsa_item/wv": ("fba2b71a6c7b67b6", 1.7723479570777272, (
+            -0.11509905755519867, 0.02995757758617401, 0.0703984871506691)),
+        "free/mhsa_user/wk": ("a27f1fbd03067a49", 1.961353475388023, (
+            0.10919589549303055, 0.16015203297138214, -0.03403177484869957)),
+        "free/mhsa_user/wq": ("a2be45faf0cec030", -5.768838722622604, (
+            -0.09132251143455505, -0.15041537582874298,
+            -0.19698719680309296)),
+        "free/mhsa_user/wv": ("03761ea7151607c3", -4.384018771997944, (
+            0.1152716726064682, -0.01725488342344761, 0.04230007529258728)),
+        "free/seq_mhsa/0/wk": ("b45311570638c01f", -13.796396703208302, (
+            -0.13093100488185883, -0.004045546520501375,
+            -0.021991919726133347)),
+        "free/seq_mhsa/0/wq": ("4b828f314049a3b0", -2.92670294061827, (
+            0.10979317873716354, 0.16310222446918488,
+            0.006859512068331242)),
+        "free/seq_mhsa/0/wv": ("fc5f8a75174f356d", -6.716642456489353, (
+            0.009976688772439957, 0.08150258660316467,
+            -0.11988549679517746)),
+        "reg/i_embed": ("4ed7cb60bbf42872", -15.087991044691703, (
+            -0.0036899084225296974, 0.0036286734975874424,
+            -0.004093177616596222)),
+        "reg/meta2_w": ("ca779364b7aa2e22", 8.330684369090704, (
+            0.08703048527240753, 0.11115455627441406, 0.1447708159685135)),
+        "reg/meta3_w": ("7c65569681c3b0cc", -2.2325416300445795, (
+            -0.3069160580635071, -0.2534838616847992, 0.10224906355142593)),
+        "reg/pos_embed": ("42730cfe89d50531", 8.955178964892184, (
+            0.07587180286645889, 0.1500847339630127, -0.08919218927621841)),
+        "reg/time_embed": ("8c1e19c9b519f2f8", -2.26534665573854, (
+            0.27234363555908203, 0.10895244032144547,
+            -0.27948665618896484)),
+        "reg/time_fc": ("2b582f79870cf6d4", 13.415699243545532, (
+            0.0322345495223999, 0.008880138397216797, 0.05852517485618591)),
+        "reg/u_embed": ("9d08954c72d4aad2", 15.960444354075559, (
+            0.0006157276802696288, 0.0013188098091632128,
+            -0.0015574523713439703)),
+    },
+}
+JAX_DRAW_STEPS = 4
+KEEP_SHARE_TOL = 1e-3
+INIT_SUM_RTOL = 1e-9    # f64 sums of the same f32 values, in another order
+
+
+def digest(a) -> str:
+    """The first 16 hex digits of the sha256 of an array's bytes (a tensor
+    goes to the host first)."""
+    import hashlib
+
+    import numpy as np
+    if not isinstance(a, np.ndarray):
+        a = a.detach().cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def jax_draws_phase(bundle, device, known=JAX_KNOWN) -> dict:
+    """27. The JAX package's own draws on the card: `utils/jax_random.py`
+    hashing on the card against the CPU (bit for bit) and against `known`
+    (what jax.random gives): split(PRNGKey(0), 64), the 131k recipe's
+    step-0 LSTM dropout mask of its first 32,768-row user block and the
+    u_embed draw. Then `Trainer(draws="jax")` with the 131k recipe on
+    phase 26's `bundle`: its initial values against JAX's per leaf, then
+    JAX_DRAW_STEPS steps through `train_step` (12 + 12 bf16 K1 launches a
+    step, counted from 0 just before each), each step's keep masks drawn
+    again from the key the step takes (the same bits) for their kept
+    share, that draw timed with CUDA events."""
+    import numpy as np
+    import torch
+    from sagnn_tpu_torch import main as tmain
+    from sagnn_tpu_torch.models.layers import glorot_limit
+    from sagnn_tpu_torch.models.selfgnn import draw_jax_step_masks
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.train.trainer import Trainer
+    from sagnn_tpu_torch.utils import jax_random as jr
+    from sagnn_tpu_torch.utils.convergence import M131K_ARGV
+
+    root = tempfile.mkdtemp()
+    ns = tmain.parse_args([a for a in M131K_ARGV if a != "--supervise"]
+                          + ["--ckpt_root", root, "--draws", "jax"])
+    cfg = tmain.build_config(ns)
+    tc, mc = cfg.train, cfg.model
+    out = {"card": gpu_name_and_power(), "seed": tc.seed}
+    cpu = torch.device("cpu")
+
+    # (a) the generator on the card, on the CPU and JAX's words
+    rng, init_key = jr.split(jr.prng_key(tc.seed))
+    ku = jr.split(jr.split(rng)[1])[0]
+    table = (mc.graph_num, bundle.num_users, mc.latdim)
+    lim = glorot_limit(table)
+    draws = {
+        "split64": lambda d: jr.split(jr.prng_key(tc.seed), 64, d),
+        "mask_block0": lambda d: jr.bernoulli(
+            jr.fold_in(ku, 0), mc.keep_rate,
+            (mc.fusion_chunk_rows, mc.graph_num, mc.latdim), d),
+        "u_embed": lambda d: jr.uniform(jr.split(init_key, 64)[0], table,
+                                        -lim, lim, d),
+    }
+    out["draw_ms"] = {}
+    for name, draw in draws.items():
+        got, host = draw(device).cpu(), draw(cpu)
+        check(torch.equal(got, host), f"jax draws {name}: the card's bits "
+              "are the CPU's")
+        if name == "split64":
+            want, have = known["split64"], digest(got.numpy().astype("<u4"))
+        elif name == "mask_block0":
+            want = known["mask_block0"]
+            have = (digest(np.packbits(got.numpy().ravel())), int(got.sum()))
+        else:
+            want, have = known["init"]["reg/u_embed"][0], digest(got)
+        check(have == want, f"jax draws {name}: {have} is jax.random's "
+              f"{want}")
+        out["draw_ms"][name] = cuda_ms(lambda: draw(device), iters=3,
+                                       warmup=1)
+    del got, host
+
+    # (b) a Trainer from JAX's initial values
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, bundle, ckpt_root=root, device=device,
+                      draws="jax")
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    params = trainer.state["params"]
+    for key, (sha, total, entries) in known["init"].items():
+        flat = params[key].detach().reshape(-1)
+        n = flat.numel()
+        got_entries = tuple(float(flat[i]) for i in (0, n // 2, n - 1))
+        check(digest(flat) == sha and got_entries == tuple(entries)
+              and math.isclose(float(flat.double().sum()), total,
+                               rel_tol=INIT_SUM_RTOL),
+              f"jax init {key}: JAX's values")
+    for key, v in params.items():
+        if key not in known["init"]:
+            fill = 1.0 if key.endswith("/scale") else 0.0
+            check(bool((v == fill).all()), f"jax init {key}: all {fill}")
+    out["init_leaves_checked"] = len(params)
+
+    # (c) steps from JAX's masks
+    ids = trainer.sampler.epoch_user_ids(tc.trn_num)
+    shares, mask_ms, wall_ms, losses = [], [], [], []
+    counts = {"segsum_bf16": 0, "segsum_bf16_bwd": 0}
+    for i in range(JAX_DRAW_STEPS):
+        b = trainer.sampler.train_batch(
+            ids[i * tc.batch:(i + 1) * tc.batch]).to(device)
+        key = jr.split(trainer.rng)[1]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        masks = draw_jax_step_masks(mc, trainer.graphs, bundle.num_users,
+                                    bundle.num_items, key, device)
+        end.record()
+        torch.cuda.synchronize()
+        mask_ms.append(start.elapsed_time(end))
+        shares.append([float(m.float().mean()) for m in masks.keep])
+        del masks
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        stats = trainer.train_step(b)
+        losses.append({k: float(v) for k, v in stats.items()})
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in counts:
+            counts[k] += sc.LAUNCHES.get(k, 0)
+    hops = mc.graph_num * mc.gnn_layer * 2
+    expect_launches(counts, "jax-draws steps",
+                    segsum_bf16=hops * JAX_DRAW_STEPS,
+                    segsum_bf16_bwd=hops * JAX_DRAW_STEPS)
+    check(all(abs(s - mc.keep_rate) <= KEEP_SHARE_TOL
+              for pair in shares for s in pair),
+          f"jax-draws keep shares {shares} within {KEEP_SHARE_TOL} of "
+          f"{mc.keep_rate}")
+    check(all(math.isfinite(v) for st in losses for v in st.values()),
+          "jax-draws steps: finite losses")
+    out.update(launches=counts, keep_shares=shares, mask_draw_ms=mask_ms,
+               step_wall_ms=wall_ms, losses=losses,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"JAX draws ({out['card']}): the card's = the CPU's = jax.random's "
+        f"for {', '.join(draws)} (card ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["draw_ms"].items())
+        + f"); Trainer(draws='jax') set-up {out['setup_s']:.1f} s, "
+        f"{len(params)} leaves JAX's; step masks drawn in "
+        + ", ".join(f"{v:.2f}" for v in mask_ms) + " ms, steps "
+        + ", ".join(f"{v:.1f}" for v in wall_ms) + " ms wall; keep shares "
+        + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in shares) + "; losses "
+        + ", ".join(f"{st['loss']:.4f}" for st in losses))
+    del trainer, params, b
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -5990,9 +6210,17 @@ def drive(device) -> None:
     # epochs of the 131k full-coverage recipe
     t0 = time.perf_counter()
     ag = ag_phase(bundle, rec.graphs, mc.leaky, records, device)
-    m131k = m131k_phase(device)
+    m131k, m131k_bundle = m131k_phase(device)
     phase_s["ag and 131k"] = time.perf_counter() - t0
     log(f"phase ag and 131k: {phase_s['ag and 131k']:.1f} s")
+
+    # 27. the JAX package's own draws on the card, and a Trainer from them
+    # on the 131k bundle
+    t0 = time.perf_counter()
+    jax_draws = jax_draws_phase(m131k_bundle, device)
+    del m131k_bundle
+    phase_s["jax draws"] = time.perf_counter() - t0
+    log(f"phase jax draws: {phase_s['jax draws']:.1f} s")
 
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
@@ -6220,6 +6448,9 @@ def drive(device) -> None:
                     f"encode_{mode}"][name])
     for name in ("segsum_bf16", "segsum_bf16_bwd"):
         records[name]["launches_m131k_two_epochs"] = m131k["launches"][name]
+        # phase 27, counted from 0 before each step
+        records[name]["launches_m131k_jax_draws_4_steps"] = \
+            jax_draws["launches"][name]
     schedule_report(records)
     kernels = []
     for r in records.values():
@@ -6276,7 +6507,7 @@ def drive(device) -> None:
         "seq_parallel": seq_parallel, "mesh_options": mesh_options,
         "flagship_mesh": flagship_mesh, "ag": ag,
         "m131k": {k: v for k, v in m131k.items() if k != "profile"},
-        "m131k_profile": m131k["profile"]}
+        "m131k_profile": m131k["profile"], "jax_draws": jax_draws}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

@@ -18,7 +18,10 @@ explicitly. `--import_tf1 PREFIX` starts from a reference TF1 Saver
 checkpoint (weights, Adam moments and global step; reading it needs
 tensorflow). `--profile_dir DIR` writes a torch.profiler trace of one
 throwaway epoch under DIR before the run (the state and RNG are restored
-after it, so the run is unchanged). `--supervise` runs the training under
+after it, so the run is unchanged). `--draws jax` trains from the JAX
+package's own initial values and dropout masks for the same `--seed`
+(`Trainer(draws="jax")`; not a Config field, so the Config stays JAX's
+field for field). `--supervise` runs the training under
 the wedge watchdog (`train/supervisor.py`): the same command without the
 supervisor's flags as a child, recovered with `--load_model` when it
 wedges or crashes. `--per_token_seq_attention --seq_parallel` with
@@ -77,6 +80,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--test", type=lambda s: s.lower() != "false",
                    dest="test_mode", default=None)
     p.add_argument("--seed", type=int)
+    p.add_argument("--draws", choices=["torch", "jax"], default="torch",
+                   help="initial values and dropout masks: torch = the "
+                        "port's torch.Generators; jax = the JAX package's "
+                        "own draws for the same seed (threefry, "
+                        "utils/jax_random.py), so a run starts from JAX's "
+                        "weights and masks (one device only)")
     p.add_argument("--ckpt_root", default="./Models")
     p.add_argument("--uid", type=int, default=-1,
                    help="dump this test-batch row's candidate scores "
@@ -263,7 +272,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             mesh = make_mesh(data=data_ax, model=ns.mesh_model)
         log(f"Mesh: data={data_ax} model={ns.mesh_model}")
     trainer = Trainer(cfg, bundle, ckpt_root=ns.ckpt_root, device=ns.device,
-                      mesh=mesh)
+                      mesh=mesh, draws=ns.draws)
     trainer.debug_uid = ns.uid
     log("Model Prepared")
     if ns.import_tf1:

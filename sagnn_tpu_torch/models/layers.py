@@ -4,9 +4,10 @@
 Initialisers match TF1: glorot/xavier uniform with TF's fan computation
 (`_compute_fans`): for an N-D shape, receptive_field = prod(shape[:-2]),
 fan_in = shape[-2]*rf, fan_out = shape[-1]*rf. This matters for the
-[g, U, D] embedding tables (NNLayers.py:47-50). Draws come from an explicit
-`torch.Generator`, so the values differ from `jax.random`'s for the same
-seed; tests hand both packages the same numpy weights instead.
+[g, U, D] embedding tables (NNLayers.py:47-50). `tf_glorot_uniform` draws
+from an explicit `torch.Generator`, so its values differ from
+`jax.random`'s for the same seed; `models.selfgnn.init_params_jax` draws
+JAX's own values (`utils/jax_random.py`) with the same bound.
 
 The TF1 layer library (`activate`, `batch_norm`, `dropout`, `fc`;
 NNLayers.py:80-181) is dead in the reference model and kept for
@@ -21,9 +22,9 @@ from typing import Iterable, Sequence
 import torch
 
 
-def tf_glorot_uniform(gen: torch.Generator, shape: Sequence[int],
-                      device: torch.device | str = "cpu",
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def glorot_limit(shape: Sequence[int]) -> float:
+    """TF glorot uniform's bound sqrt(6 / (fan_in + fan_out)) for `shape`
+    (JAX `tf_glorot_uniform`, layers.py:21-33)."""
     shape = tuple(shape)
     if len(shape) < 1:
         fan_in = fan_out = 1
@@ -33,7 +34,14 @@ def tf_glorot_uniform(gen: torch.Generator, shape: Sequence[int],
         rf = math.prod(shape[:-2]) if len(shape) > 2 else 1
         fan_in = shape[-2] * rf
         fan_out = shape[-1] * rf
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return math.sqrt(6.0 / (fan_in + fan_out))
+
+
+def tf_glorot_uniform(gen: torch.Generator, shape: Sequence[int],
+                      device: torch.device | str = "cpu",
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    shape = tuple(shape)
+    limit = glorot_limit(shape)
     u = torch.rand(shape, generator=gen, dtype=dtype, device=gen.device)
     return (u * (2.0 * limit) - limit).to(device)
 

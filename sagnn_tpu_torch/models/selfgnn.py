@@ -46,9 +46,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from sagnn_tpu_torch.config import ModelConfig
+from sagnn_tpu_torch.convert import flatten_tree
 from sagnn_tpu_torch.data.graph import (IntervalGraphs, direction_permutation,
                                         edge_weights, inverse_permutation)
-from sagnn_tpu_torch.models.layers import l2_sum, leaky_relu, tf_glorot_uniform
+from sagnn_tpu_torch.models.layers import (glorot_limit, l2_sum, leaky_relu,
+                                          tf_glorot_uniform)
 from sagnn_tpu_torch.ops.attention import (layer_norm,
                                            multi_head_self_attention)
 from sagnn_tpu_torch.ops.chunking import auto_chunk_rows, scatter_local_mask
@@ -67,6 +69,7 @@ from sagnn_tpu_torch.parallel.ring_attention import (
 from sagnn_tpu_torch.parallel.sharding import (TPGraphs, all_gather,
                                                tp_attention_spmm, tp_spmm,
                                                tp_weighted_spmm)
+from sagnn_tpu_torch.utils import jax_random
 
 Params = Dict[str, torch.Tensor]
 
@@ -173,6 +176,67 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, num_users: int,
         else:
             out[key] = tf_glorot_uniform(gen, shape, device=device)
     return out
+
+
+def init_params_jax(key: torch.Tensor, cfg: ModelConfig, num_users: int,
+                    num_items: int, max_time: int = 1,
+                    device: torch.device | str = "cpu") -> Params:
+    """The JAX package's `init_params` (selfgnn.py:85-118) from a JAX key
+    (`utils/jax_random.py`), draw for draw: the key split into 64, taken in
+    JAX's `next(ks)` order (the reg tables and weights, then the LSTM, the
+    user and item MHSA and each sequence MHSA, which splits its key in
+    three for wq, wk, wv); TF glorot uniform for the reg leaves
+    (layers.py:21-33), xavier uniform for the LSTM kernel and the MHSA
+    weights (attention.py:23-35, lstm.py:30), zeros and ones where JAX has
+    them. The values are JAX's bits, drawn on `device`; the tree goes
+    through `convert.flatten_tree` into the port's flat layout."""
+    ks = iter(jax_random.split(key, 64))
+    g, D = cfg.graph_num, cfg.latdim
+    n_prop = g * cfg.gnn_layer * 2
+
+    def uniform(k, shape, limit):
+        return jax_random.uniform(k, shape, -limit, limit, device)
+
+    def glorot(shape):
+        return uniform(next(ks), shape, glorot_limit(shape))
+
+    def xavier(k, shape):
+        return uniform(k, shape, (6.0 / (shape[-2] + shape[-1])) ** 0.5)
+
+    def zeros(n):
+        return torch.zeros((n,), device=device)
+
+    def mhsa():
+        kq, kk, kv = jax_random.split(next(ks), 3)
+        return {"wq": xavier(kq, (D, D)), "bq": zeros(D),
+                "wk": xavier(kk, (D, D)), "bk": zeros(D),
+                "wv": xavier(kv, (D, D)), "bv": zeros(D)}
+
+    def ln():
+        return {"scale": torch.ones((D,), device=device), "shift": zeros(D)}
+
+    reg = {
+        "u_embed": glorot((g, num_users, D)),
+        "i_embed": glorot((g, num_items, D)),
+        "pos_embed": glorot((cfg.pos_length, D)),
+        "time_embed": glorot((max_time + 1, D)),
+        "time_fc": glorot((n_prop, D, D)),
+        "meta2_w": glorot((3 * D, cfg.ssldim)),
+        "meta3_w": glorot((cfg.ssldim, 1)),
+    }
+    free = {
+        "lstm": {"kernel": xavier(next(ks), (2 * D, 4 * D)),
+                 "bias": zeros(4 * D)},
+        "mhsa_user": mhsa(),
+        "mhsa_item": mhsa(),
+        "ln_user": ln(), "ln_item": ln(),
+        "seq_ln_item": ln(), "seq_ln_pos": ln(),
+        "seq_mhsa": [mhsa() for _ in range(cfg.att_layer)],
+        "seq_ln": [ln() for _ in range(cfg.att_layer)],
+        "meta2_b": zeros(cfg.ssldim),
+        "meta3_b": zeros(1),
+    }
+    return flatten_tree({"reg": reg, "free": free})
 
 
 def graphs_to_device(gb: IntervalGraphs, device: torch.device | str,
@@ -603,6 +667,75 @@ def draw_step_masks(cfg: ModelConfig, graphs: Dict, num_users: int,
                                                 gen, device))
 
 
+def draw_jax_step_masks(cfg: ModelConfig, graphs: Dict, num_users: int,
+                        num_items: int, key: torch.Tensor,
+                        device: torch.device) -> StepMasks:
+    """A training step's StepMasks as the JAX package draws them from the
+    step's key (`utils/jax_random.py`; trainer.py:497): with edge dropout
+    the key is split first and the second half split into the user- and
+    item-target directions' keys (selfgnn.py:841-845), then the key left
+    is split into ku, ki for the LSTM dropout (:599-601). Each is drawn
+    with JAX's shapes, on `device`, outside every checkpoint."""
+    weights = None
+    if cfg.edge_dropout_keep < 1.0:
+        key, drop = jax_random.split(key)
+        weights = edge_dropout_jax(graphs, cfg, *jax_random.split(drop))
+    keep = None
+    if cfg.keep_rate < 1.0:
+        ku, ki = jax_random.split(key)
+        keep = (fusion_keep_mask_jax(cfg, num_users, ku, device),
+                fusion_keep_mask_jax(cfg, num_items, ki, device))
+    return StepMasks(weights, keep)
+
+
+def edge_dropout_jax(graphs: Dict, cfg: ModelConfig, ku: torch.Tensor,
+                     ki: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`edge_dropout`'s weights from JAX's keys: w * bernoulli(k, keep,
+    [g, E]) / keep per direction, w the edge_norm weights or ones
+    (trainer.py:163-176, selfgnn.py:268-271), each in its direction's own
+    order, as the port's hops take them. "xla" draws each direction's mask
+    in that direction's order (selfgnn.py:555-559); "pallas" draws both
+    in the user-target order, the canonical one (:524-529), so the
+    item-target mask is gathered into its order through graphs'
+    i_from_u. The division is by an f32 tensor, as JAX divides, not by
+    a reciprocal."""
+    src = graphs["u_src"]
+    shape, dev = tuple(src.shape), src.device
+    base = graphs.get("edge_weights")
+    keep = torch.full((), cfg.edge_dropout_keep, dtype=torch.float32,
+                      device=dev)
+    out = []
+    for d, k in enumerate((ku, ki)):
+        m = jax_random.bernoulli(k, cfg.edge_dropout_keep, shape, dev)
+        if d == 1 and cfg.spmm_backend == "pallas":
+            m = torch.gather(m, 1, graphs["i_from_u"].long())
+        w = m.to(torch.float32) if base is None else base[d] * m
+        out.append(w / keep)
+    return tuple(out)
+
+
+def fusion_keep_mask_jax(cfg: ModelConfig, n: int, key: torch.Tensor,
+                         device: torch.device) -> torch.Tensor:
+    """One side's LSTM dropout keep mask [n, g, D] from JAX's key for it:
+    bernoulli(key, keep_rate, (n, g, D)) when the fusion runs unchunked;
+    with fusion_chunk_rows blocks, block i's rows are bernoulli(
+    fold_in(key, i), keep_rate, (rows, g, D)) and the remainder block's
+    fold_in(key, nb) (JAX selfgnn.py:614-650). The blocks are drawn one
+    at a time into one mask, which `_temporal_fusion` cuts at the same
+    rows."""
+    shape = (cfg.graph_num, cfg.latdim)
+    rows = cfg.fusion_chunk_rows
+    if rows <= 0 or n <= rows:
+        return jax_random.bernoulli(key, cfg.keep_rate, (n, *shape), device)
+    out = torch.empty((n, *shape), dtype=torch.bool, device=device)
+    for i, lo in enumerate(range(0, n, rows)):
+        hi = min(n, lo + rows)
+        out[lo:hi] = jax_random.bernoulli(jax_random.fold_in(key, i),
+                                          cfg.keep_rate, (hi - lo, *shape),
+                                          device)
+    return out
+
+
 def _temporal_fusion(params: Params, user_vec: torch.Tensor,
                      item_vec: torch.Tensor, cfg: ModelConfig,
                      keep: Optional[Tuple[torch.Tensor,
@@ -623,10 +756,11 @@ def _temporal_fusion(params: Params, user_vec: torch.Tensor,
     views from one `split` of the states, whose backward concatenates the
     blocks' gradients once; a slice per block would make a zero-filled
     full-size gradient per block and add them all. Block b gets rows
-    [b·rows, (b+1)·rows) of the one mask drawn for all nodes, the mask
-    the unchunked stack would use, so chunking changes no value. (JAX folds the block index
-    into its key, so its chunked masks differ from its unchunked ones; the
-    port's streams cannot match JAX's anyway, ROADMAP Queue C.) The caller
+    [b·rows, (b+1)·rows) of the one mask drawn for all nodes: from the
+    dropout generator it is the mask the unchunked stack would use, so
+    chunking changes no value; from JAX's keys (`fusion_keep_mask_jax`)
+    each block's rows were drawn from the block index folded into the key,
+    as JAX draws them, so the blocks here are JAX's blocks. The caller
     draws the masks outside every checkpoint, because a checkpoint's
     recompute restores only the default generators and would draw other
     masks from an explicit generator.
@@ -983,12 +1117,18 @@ class SelfGNN:
                 torch.cat([v.to(dev0) for v in item_vec], dim=1))
 
     def train_losses(self, params: Params, graphs: Dict, batch: TrainBatch,
-                     gen: Optional[torch.Generator] = None
+                     gen: Optional[torch.Generator] = None,
+                     masks: Optional[StepMasks] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
         """(preLoss, sslloss, aux{pos_pred, neg_pred}) for one step
         (model.py:241-246), with autograd. `batch` holds tensors on the
-        params' device; `gen` as in `encode`."""
-        encodings = self.encode(params, graphs, train=True, gen=gen)
+        params' device; `gen` as in `encode`, or the step's `masks` drawn
+        already (`draw_jax_step_masks`) in its place."""
+        if masks is None:
+            encodings = self.encode(params, graphs, train=True, gen=gen)
+        else:
+            check_ported(self.cfg, train=True)
+            encodings = self.encode_with_masks(params, graphs, masks)
         hinge, ssl, aux = self.batch_losses(params, batch, *encodings)
         # the reference's reduce_mean over the real pairs (model.py:244)
         pre_loss = hinge / torch.clamp_min(torch.sum(batch.pair_mask), 1.0)

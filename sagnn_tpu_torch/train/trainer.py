@@ -77,7 +77,9 @@ from sagnn_tpu_torch.data.io import DatasetBundle
 from sagnn_tpu_torch.data.sampler import Sampler
 from sagnn_tpu_torch.device import resolve_device
 from sagnn_tpu_torch.models.selfgnn import (SelfGNN, check_ported,
-                                            graphs_to_device, reg_loss)
+                                            draw_jax_step_masks,
+                                            graphs_to_device, init_params_jax,
+                                            reg_loss)
 from sagnn_tpu_torch.parallel.distributed import (MeshState,
                                                   init_sharded_state,
                                                   make_sharded_train_step,
@@ -93,8 +95,12 @@ from sagnn_tpu_torch.train.metrics import (MetricsHistory,
                                            streaming_positive_ranks,
                                            topk_metrics)
 from sagnn_tpu_torch.train.optim import AdamState, TF1Adam
+from sagnn_tpu_torch.utils import jax_random
 from sagnn_tpu_torch.utils.logger import log
 from sagnn_tpu_torch.utils.profiling import StepTimer
+
+DRAWS = ("torch", "jax")
+
 
 class _GatheredState(dict):
     """A mesh Trainer's `state`: the gathered single-device state, whose
@@ -120,10 +126,25 @@ class Trainer:
     def __init__(self, cfg: Config, bundle: DatasetBundle,
                  ckpt_root: str = "./Models",
                  device: torch.device | str | None = None, mesh=None,
-                 sampler_backend: str = "auto"):
+                 sampler_backend: str = "auto", draws: str = "torch"):
         """device: default "cuda", or with a mesh the mesh's first device
         (a `device` of another type than the mesh's is refused).
-        sampler_backend: the `Sampler`'s ("auto", "native" or "numpy")."""
+        sampler_backend: the `Sampler`'s ("auto", "native" or "numpy").
+        draws: where the initial values and the dropout masks come from.
+        "torch" (the default): `torch.Generator`s seeded from
+        cfg.train.seed. "jax": the JAX package's own draws for the same
+        seed (`utils/jax_random.py`): its PRNGKey split into the init key
+        (trainer.py:274, 289), its `init_params` draw for draw
+        (`init_params_jax`), and each step's masks from the key split off
+        the trainer's key (trainer.py:497, `draw_jax_step_masks`), so a
+        run trains from JAX's initial values and masks. Not on a mesh
+        (ROADMAP A6(f))."""
+        if draws not in DRAWS:
+            raise ValueError(f"draws={draws!r}: one of {DRAWS}")
+        if draws == "jax" and mesh is not None:
+            raise ValueError("draws='jax' runs on one device: a mesh's "
+                             "draws are not JAX's yet (ROADMAP A6(f))")
+        self.draws = draws
         ring = cfg.model.spmm_backend == "ring"
         if mesh is not None:
             if device is not None and \
@@ -184,8 +205,16 @@ class Trainer:
         # dropout generator lives on the device and is seeded from it
         init_gen = torch.Generator().manual_seed(tc.seed)
         self._mesh_state: Optional[MeshState] = None
+        # JAX's key stream (draws="jax"): the seed's key, less the init key
+        self.rng: Optional[torch.Tensor] = None
+        if draws == "jax":
+            self.rng, init_key = jax_random.split(
+                jax_random.prng_key(tc.seed))
+            params = init_params_jax(init_key, cfg.model, bundle.num_users,
+                                     bundle.num_items, device=self.device)
         if mesh is None:
-            params = self.model.init(init_gen, device=self.device)
+            if draws == "torch":
+                params = self.model.init(init_gen, device=self.device)
             for v in params.values():
                 v.requires_grad_(True)
             self._state = {"params": params,
@@ -305,8 +334,15 @@ class Trainer:
             return totals
         tc = self.cfg.train
         params = self.state["params"]
+        masks = None
+        if self.draws == "jax":
+            self.rng, key = jax_random.split(self.rng)
+            masks = draw_jax_step_masks(self.cfg.model, self.graphs,
+                                        self.bundle.num_users,
+                                        self.bundle.num_items, key,
+                                        self.device)
         pre, ssl, _ = self.model.train_losses(params, self.graphs, batch,
-                                              self.dropout_gen)
+                                              self.dropout_gen, masks)
         reg = tc.reg * reg_loss(params) + tc.ssl_reg * ssl
         loss = pre + reg
         keys = list(params)
@@ -397,18 +433,30 @@ class Trainer:
     def capture_rng_state(self, next_epoch: int) -> Dict:
         """JSON-able snapshot of every RNG the trajectory depends on: the
         sampler's bit generator (epoch permutations, batch seeds, SSL
-        draws) and the dropout generator, with the epoch to resume at."""
-        return {
-            "sampler": self.sampler.rng.bit_generator.state,
-            "dropout_gen": self.dropout_gen.get_state().tolist(),
-            "epoch": int(next_epoch),
-        }
+        draws) and the dropout generator, or with draws="jax" the JAX key
+        under JAX's own field name (trainer.py:545-560), with the epoch to
+        resume at."""
+        rs = {"sampler": self.sampler.rng.bit_generator.state}
+        if self.draws == "jax":
+            rs["jax_key"] = self.rng.tolist()
+        else:
+            rs["dropout_gen"] = self.dropout_gen.get_state().tolist()
+        rs["epoch"] = int(next_epoch)
+        return rs
 
     def restore_rng_state(self, rs: Dict) -> int:
-        """Install a capture_rng_state snapshot; returns its epoch."""
+        """Install a capture_rng_state snapshot; returns its epoch. A
+        snapshot of the other kind of draws is refused."""
+        field = "jax_key" if self.draws == "jax" else "dropout_gen"
+        if field not in rs:
+            raise ValueError(f"the RNG snapshot has no {field!r}: it was "
+                             f"not taken with draws={self.draws!r}")
         self.sampler.rng.bit_generator.state = rs["sampler"]
-        self.dropout_gen.set_state(
-            torch.tensor(rs["dropout_gen"], dtype=torch.uint8))
+        if self.draws == "jax":
+            self.rng = torch.tensor(rs["jax_key"], dtype=torch.int64)
+        else:
+            self.dropout_gen.set_state(
+                torch.tensor(rs["dropout_gen"], dtype=torch.uint8))
         return int(rs["epoch"])
 
     def throughput_stats(self) -> Dict[str, float]:

@@ -55,6 +55,9 @@ from sagnn_tpu_torch.train.trainer import Trainer
 from tests.torch_port_helpers import (MCFG, losses_and_grads_vs_jax,
                                       numpy_tree, setup, torch_cfg,
                                       train_batches, ulps_of_max)
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 BF16 = dataclasses.replace(MCFG, fusion_dtype="bf16", spmm_backend="pallas",
                            spmm_exact=False, stable_softmax=True)

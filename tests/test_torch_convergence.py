@@ -11,6 +11,10 @@ import pytest
 from sagnn_tpu_torch import main as tmain
 from sagnn_tpu_torch.utils import convergence as conv
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the recipe at 2,048 x 1,536 x 30k edges: one step of 2,048 users an

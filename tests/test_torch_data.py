@@ -15,6 +15,10 @@ from sagnn_tpu_torch.data import sampler as tsampler
 from sagnn_tpu_torch.data import synthetic as tsynth
 from sagnn_tpu_torch.ops.spmm_cuda import build_stacked_plans, csr_row_ptr
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 SIZES = [dict(num_users=40, num_items=70, graph_num=3, test_size=12, seed=3),
          dict(num_users=25, num_items=30, graph_num=2, test_size=8, seed=11,
               seq_len_range=(2, 9))]

@@ -63,6 +63,9 @@ from sagnn_tpu_torch.serve import Recommender
 from sagnn_tpu_torch.train.trainer import Trainer
 
 from tests.torch_port_helpers import MCFG, numpy_tree, setup, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATT = dict(rtol=1e-4, atol=1e-5)

@@ -24,6 +24,10 @@ from sagnn_tpu_torch.parallel import edge_partition as ep
 from sagnn_tpu_torch.parallel import sharding
 from sagnn_tpu_torch.parallel.mesh import make_mesh
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 U, I, D, E = 300, 250, 16, 4000
 
 

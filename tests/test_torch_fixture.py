@@ -25,6 +25,9 @@ from sagnn_tpu_torch.models.selfgnn import SelfGNN, graphs_to_device
 from sagnn_tpu_torch.train.metrics import topk_metrics
 
 from tests.torch_port_helpers import numpy_tree
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "tf_reference_tiny.npz")

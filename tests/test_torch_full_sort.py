@@ -29,6 +29,9 @@ from sagnn_tpu_torch.parallel.mesh import make_mesh
 from sagnn_tpu_torch.train import metrics as tmetrics
 from sagnn_tpu_torch.train.trainer import Trainer
 from tests.torch_port_helpers import numpy_tree
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KS = (1, 5, 10, 15, 20)

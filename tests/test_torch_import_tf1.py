@@ -38,6 +38,9 @@ from sagnn_tpu_torch.train.trainer import Trainer
 
 from tests.test_torch_fixture import build_model_cfg
 from tests.torch_port_helpers import numpy_tree, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "tf_reference_tiny.npz")

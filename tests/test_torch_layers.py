@@ -34,6 +34,10 @@ from sagnn_tpu_torch.models import selfgnn as ts
 from sagnn_tpu_torch.ops import attention as tatt
 from sagnn_tpu_torch.utils import logger as tlogger
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 METHODS = ["relu", "sigmoid", "tanh", "softmax", "leakyRelu", "-1relu",
            "relu6", "relu3"]
 

@@ -25,6 +25,9 @@ from sagnn_tpu_torch.ops import spmm_cuda
 from sagnn_tpu_torch.train.metrics import topk_metrics
 
 from tests.torch_port_helpers import MCFG, numpy_tree, setup, t, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ATT = dict(rtol=1e-4, atol=1e-5)
 

@@ -33,6 +33,10 @@ from sagnn_tpu_torch.parallel.multihost import (load_bundle, parse_args,
                                                 train_config)
 from sagnn_tpu_torch.train.trainer import Trainer
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = [f.name for f in dataclasses.fields(TrainBatch)]
 

@@ -24,6 +24,10 @@ from sagnn_tpu_torch.ops import lstm as tlstm
 from sagnn_tpu_torch.ops import segment as tseg
 from sagnn_tpu_torch.ops import spmm_cuda
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 
 def _graph(rng, n_tgt, n_src, n_edges, n_pad, skew=False):
     """Target-sorted COO with `n_pad` pad edges (tgt == n_tgt) at the end;

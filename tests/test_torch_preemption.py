@@ -17,6 +17,10 @@ from sagnn_tpu_torch.data.synthetic import synthetic_dataset
 from sagnn_tpu_torch.train.checkpoint import CheckpointManager
 from sagnn_tpu_torch.train.trainer import Trainer
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 
 def _cfg():
     model = ModelConfig(latdim=16, graph_num=2, gnn_layer=2, att_layer=1,

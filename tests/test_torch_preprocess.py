@@ -20,6 +20,10 @@ import sagnn_tpu_torch.data.preprocess as tpp
 from sagnn_tpu_torch.config import Config, ModelConfig, TrainConfig
 from sagnn_tpu_torch.train.trainer import Trainer
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -19,6 +19,10 @@ from sagnn_tpu_torch.data.synthetic import synthetic_dataset
 from sagnn_tpu_torch.ops import probes
 from sagnn_tpu_torch.ops import spmm_cuda as sc
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_EPS = float(torch.finfo(torch.float32).eps)
 

@@ -20,6 +20,10 @@ from sagnn_tpu_torch.train import trainer as trainer_mod
 from sagnn_tpu_torch.utils.profiling import (EdgeRateCounter, StepTimer,
                                              trace)
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 
 @pytest.mark.parametrize("times", [[], [0.5], [0.01, 0.02, 0.04, 0.03],
                                    [0.0, 0.0]])

@@ -45,6 +45,9 @@ from sagnn_tpu_torch.parallel.mesh import make_mesh
 from sagnn_tpu_torch.train.trainer import Trainer
 
 from tests.torch_port_helpers import numpy_tree
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 P = 4
 U, I, D, E = 120, 100, 16, 1500

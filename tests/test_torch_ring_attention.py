@@ -57,6 +57,9 @@ from sagnn_tpu_torch.serve import Recommender
 from sagnn_tpu_torch.train.trainer import Trainer
 
 from tests.torch_port_helpers import numpy_tree, t, ulps_of_max
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 MODEL = dict(graph_num=2, gnn_layer=1, att_layer=1, latdim=16, num_heads=4,
              ssldim=8, pos_length=16, keep_rate=1.0,

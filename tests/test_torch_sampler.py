@@ -17,6 +17,10 @@ from sagnn_tpu_torch.data import native_sampler as tnative
 from sagnn_tpu_torch.data import sampler as tsampler
 from sagnn_tpu_torch.models.selfgnn import TrainBatch
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 # (bundle kwargs, sampler kwargs): the second bundle has short sequences,
 # so some users have few or no SSL pairs and short train rows
 CASES = [

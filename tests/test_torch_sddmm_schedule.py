@@ -22,6 +22,10 @@ import torch
 from sagnn_tpu_torch.ops import probes
 from sagnn_tpu_torch.ops import spmm_cuda as sc
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 SPAN, BATCH = sc.SDDMM_SPAN, sc.SDDMM_BATCH
 WARPS = sc.SDDMM_WARPS_PER_BLOCK
 DS = [2, 16, 64, 96, 130]

@@ -19,6 +19,10 @@ import pytest
 
 from sagnn_tpu_torch.ops import spmm_cuda as sc
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 M = sc.PIECE_ITEMS
 
 

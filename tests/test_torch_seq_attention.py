@@ -40,6 +40,9 @@ from sagnn_tpu_torch.train.trainer import Trainer
 from tests.torch_port_helpers import (MCFG, losses_and_grads_vs_jax,
                                       numpy_tree, setup, t, torch_cfg,
                                       train_batches, ulps_of_max)
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 PER_TOKEN = dataclasses.replace(MCFG, per_token_seq_attention=True)
 TOL = dict(rtol=1e-5, atol=1e-6)

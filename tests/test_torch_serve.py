@@ -18,6 +18,9 @@ from sagnn_tpu_torch import config as tcfg
 from sagnn_tpu_torch.serve import Recommender
 
 from tests.torch_port_helpers import MCFG, setup, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -40,6 +40,9 @@ from sagnn_tpu_torch.models.selfgnn import SelfGNN as TorchSelfGNN
 from sagnn_tpu_torch.models.selfgnn import graphs_to_device
 
 from tests.torch_port_helpers import MCFG, numpy_tree, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = 1e-5
 RANKS = 8

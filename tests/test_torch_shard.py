@@ -37,6 +37,9 @@ from sagnn_tpu_torch.models.selfgnn import (SelfGNN, TrainBatch,
 from sagnn_tpu_torch.ops import spmm_cuda as sc
 
 from tests.torch_port_helpers import MCFG, numpy_tree, setup, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 R = jsp.R
 

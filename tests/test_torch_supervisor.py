@@ -27,6 +27,10 @@ from sagnn_tpu_torch.train import supervisor as sup_mod
 from sagnn_tpu_torch.train.supervisor import (Supervisor, Watch,
                                               child_cpu_seconds)
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = textwrap.dedent("""

@@ -37,6 +37,9 @@ from sagnn_tpu_torch.serve import Recommender
 
 from tests.test_torch_cuda import bf16_stream_error
 from tests.torch_port_helpers import MCFG, setup, t, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 B, I, D, K = 8, 333, 16, 10
 

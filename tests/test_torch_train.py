@@ -47,6 +47,9 @@ from sagnn_tpu_torch.train.optim import TF1Adam
 
 from tests.test_tf_fixture import CHECKS, build_batch, build_model_cfg
 from tests.torch_port_helpers import MCFG, numpy_tree, setup, torch_cfg
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "tf_reference_tiny.npz")

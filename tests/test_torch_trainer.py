@@ -24,6 +24,10 @@ from sagnn_tpu_torch.train.metrics import MetricsHistory
 from sagnn_tpu_torch.train.trainer import Trainer
 from sagnn_tpu_torch.utils.profiling import StepTimer
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -18,6 +18,10 @@ from sagnn_tpu_torch.data.synthetic import synthetic_dataset
 from sagnn_tpu_torch.parallel.mesh import make_mesh
 from sagnn_tpu_torch.train.trainer import Trainer
 
+from tests.torch_threads import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 CFG = tcfg.Config(
     model=tcfg.ModelConfig(graph_num=2, gnn_layer=1, att_layer=1, latdim=16,
                            num_heads=4, ssldim=8, pos_length=16,
