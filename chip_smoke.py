@@ -211,7 +211,7 @@ line then):
                keepRate 0.5 on one generator state, with sym_sqrt (K2) and
                with spmm_fold_gather (K4); the ring on 2 x 2 (one ring per
                data rank, 96 + 96 K6 launches) against "pallas";
-               `Trainer(mesh=2x2).run()` for 4 steps with both evaluations,
+               `Trainer(mesh=2x2).run()` for 2 steps with both evaluations,
                its checkpoint restored into a "pallas" Trainer (params bit
                for bit, metrics within one user's rank); the host time of a
                single-device step with the card's waits spinning and
@@ -272,6 +272,19 @@ line then):
                (12 + 12 bf16 K1 launches each, counted from 0), each
                step's keep masks within 0.5 ± 0.001 kept, the draw's ms a
                step (CUDA events), the steps' wall ms, finite losses.
+ 28. JAX's draws on a mesh — at gowalla width ("pallas", keepRate 0.5),
+               for the preset (K1) and with edge_dropout_keep 0.8 (K2): a
+               `Trainer(draws="jax")` on one device and one on a one-card
+               2 x 2 mesh, their initial values equal per leaf (digest);
+               two steps, each step's masks drawn on the card from the
+               step's key, the draw timed (CUDA events), the first step's
+               equal to the CPU's draw of that key (digests of the packed
+               bits and of the edge weights); the mesh step on those masks held to the
+               single-device step at the mesh's params (phase 22's
+               tolerances, the kinks replayed); then `train_step` on both
+               Trainers (12 + 12 K1 or K2 launches per data rank per model
+               rank a mesh step, counted from 0), their losses at
+               LOSS_RTOL.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -726,13 +739,14 @@ def f64_propagation(kinks: list | None = None):
             setattr(selfgnn, name, fn)
 
 
-def loss_and_grads(model, leaves, graphs, batch, tc, gen=None):
-    """(preLoss, sslloss, {param: gradient}) of one step's whole loss."""
+def loss_and_grads(model, leaves, graphs, batch, tc, gen=None, masks=None):
+    """(preLoss, sslloss, {param: gradient}) of one step's whole loss, its
+    masks drawn from `gen` or given as `masks`."""
     import torch
     from sagnn_tpu_torch.models import selfgnn
 
     keys = sorted(leaves)
-    pre, ssl, _ = model.train_losses(leaves, graphs, batch, gen)
+    pre, ssl, _ = model.train_losses(leaves, graphs, batch, gen, masks)
     loss = pre + tc.reg * selfgnn.reg_loss(leaves) + tc.ssl_reg * ssl
     grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
                                 allow_unused=True)
@@ -4339,13 +4353,13 @@ def profiler_trace_phase(cfg, bundle, device) -> dict:
 
 # phase 22, mesh training at gowalla width on the card: the meshes whose
 # keepRate-1 step is held against the single-device step, the 2 x 2
-# Trainer's short epoch (4 steps of 512), and the cost of blocking sync:
+# Trainer's short epoch (2 steps of 512), and the cost of blocking sync:
 # BLOCKING_SYNC_ROUNDS rounds, each setting's turn first in every other
 # round, each turn BLOCKING_SYNC_WAITS device waits of BLOCKING_SYNC_CYCLES
 # (torch.cuda._sleep, about 1 ms) and BLOCKING_SYNC_STEPS single-device
 # steps, each synchronised
 MESH_SHAPES = ((2, 2), (4, 1))
-MESH_TRN_NUM = 2_048
+MESH_TRN_NUM = 1_024
 BLOCKING_SYNC_ROUNDS = 8
 BLOCKING_SYNC_WAITS = 16
 BLOCKING_SYNC_CYCLES = 2_000_000
@@ -4453,11 +4467,12 @@ def check_mesh_step(got, want, tc, what, loss_rtol=LOSS_RTOL,
     return share, k
 
 
-def single_step(model, leaves, graphs, batch, tc, gen=None, kinks=None):
+def single_step(model, leaves, graphs, batch, tc, gen=None, kinks=None,
+                masks=None):
     """The single-device step a mesh step is held to (`check_mesh_step`'s
-    `want`): (preLoss, sslloss, gradients, leaves); with `kinks` (a mesh
-    step's, `_per_hop`) each hop's leaky-relu takes the side the mesh
-    took."""
+    `want`): (preLoss, sslloss, gradients, leaves), its masks from `gen`
+    or given as `masks`; with `kinks` (a mesh step's, `_per_hop`) each
+    hop's leaky-relu takes the side the mesh took."""
     import torch
 
     def replay(x, leaky):
@@ -4465,7 +4480,8 @@ def single_step(model, leaves, graphs, batch, tc, gen=None, kinks=None):
 
     with (_hop_relu(replay) if kinks is not None
           else contextlib.nullcontext()):
-        pre, ssl, g = loss_and_grads(model, leaves, graphs, batch, tc, gen)
+        pre, ssl, g = loss_and_grads(model, leaves, graphs, batch, tc, gen,
+                                     masks)
     if kinks is not None:
         check(not kinks, "every mesh hop replayed on the single step")
     return pre, ssl, g, leaves
@@ -5893,6 +5909,161 @@ def jax_draws_phase(bundle, device, known=JAX_KNOWN) -> dict:
     return out
 
 
+# phase 28: JAX's draws on a one-card 2 x 2 mesh at gowalla width, the
+# preset (K1) and with edge dropout (K2); JAX_MESH_STEPS steps each
+JAX_MESH_STEPS = 2
+JAX_MESH_EDGE_KEEP = 0.8
+
+
+def mask_digests(masks) -> dict:
+    """Digests of a StepMasks' draws: the packed bits of each keep mask,
+    the f32 bytes of each edge-dropout weight array."""
+    import numpy as np
+    out = {}
+    for name, pair in (("keep", masks.keep), ("edge", masks.edge_weights)):
+        for side, t in zip("ui", pair or ()):
+            a = t.detach().cpu().numpy()
+            out[f"{name}_{side}"] = digest(np.packbits(a.ravel())
+                                           if a.dtype == bool else a)
+    return out
+
+
+def jax_mesh_phase(cfg, bundle, device) -> dict:
+    """28. `Trainer(draws="jax")` on a one-card 2 x 2 mesh at the preset's
+    width, "pallas" at keepRate 0.5, for the preset (K1) and with
+    edge_dropout_keep JAX_MESH_EDGE_KEEP (K2), beside the same Trainer on
+    one device: their initial values per leaf (digest), then
+    JAX_MESH_STEPS steps. Each step's masks are drawn on the card from the
+    key the step takes (timed, CUDA events), the first step's held
+    against the CPU's draw of that key (digests); the mesh step on them, without its update, is
+    held to the single-device step at the mesh's params with the same
+    masks (`check_mesh_step`, each hop's kink replayed); then both
+    Trainers' `train_step` (the mesh's K1 or K2 launches counted from 0,
+    12 + 12 per data rank per model rank), the mesh's losses against the
+    one device's at LOSS_RTOL and against its own held step's. Returns
+    its results."""
+    import torch
+    from sagnn_tpu_torch.models.selfgnn import draw_jax_step_masks
+    from sagnn_tpu_torch.ops import spmm_cuda as sc
+    from sagnn_tpu_torch.parallel.mesh import make_mesh
+    from sagnn_tpu_torch.parallel.sharding import gather
+    from sagnn_tpu_torch.train.trainer import Trainer
+    from sagnn_tpu_torch.utils import jax_random as jr
+
+    tc = cfg.train
+    cpu = torch.device("cpu")
+    hops = cfg.model.graph_num * cfg.model.gnn_layer * 2
+    out = {"card": gpu_name_and_power(), "launches": {}, "configs": {}}
+    root = tempfile.mkdtemp()
+    for name, kw, kernel in (
+            ("preset", {}, "segsum_f32"),
+            (f"edge_dropout_{JAX_MESH_EDGE_KEEP}",
+             {"edge_dropout_keep": JAX_MESH_EDGE_KEEP}, "wsegsum_f32")):
+        rcfg = cfg.replace(model=dataclasses.replace(cfg.model, **kw))
+        mc = rcfg.model
+        t0 = time.perf_counter()
+        one = Trainer(rcfg, bundle, ckpt_root=root, device=device,
+                      draws="jax")
+        mt = Trainer(rcfg, bundle, ckpt_root=root, draws="jax",
+                     mesh=make_mesh(2, 2, devices=[device] * 4))
+        torch.cuda.synchronize()
+        rec = {"setup_s": time.perf_counter() - t0}
+        want, got = one.state["params"], mt.state["params"]
+        check(set(want) == set(got), f"jax mesh {name}: the same leaves")
+        for k, v in want.items():
+            check(digest(got[k]) == digest(v),
+                  f"jax mesh {name} init {k}: the mesh's bits are one "
+                  "device's")
+        rec["init_leaves_equal"] = len(want)
+        del want, got
+        ids = one.sampler.epoch_user_ids(tc.trn_num)
+        # the CPU's draw reads the edge arrays' shape and the pallas
+        # permutation
+        cpu_graphs = {k: v.to(cpu) for k, v in one.graphs.items()
+                      if k in ("u_src", "i_from_u", "edge_weights")}
+        launches, mask_ms, shares, losses = [], [], [], []
+        for i in range(JAX_MESH_STEPS):
+            b = one.sampler.train_batch(ids[i * tc.batch:(i + 1) * tc.batch])
+            check(torch.equal(one.rng, mt.rng),
+                  f"jax mesh {name} step {i}: one key on both Trainers")
+            key = jr.split(mt.rng)[1]
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            masks = draw_jax_step_masks(mc, mt._mesh_step.mask_graphs,
+                                        bundle.num_users, bundle.num_items,
+                                        key, device)
+            end.record()
+            torch.cuda.synchronize()
+            mask_ms.append(start.elapsed_time(end))
+            if i == 0:
+                # integer arithmetic, held bit for bit on the CPU and to
+                # JAX's known answers in phase 27: once per config
+                card = mask_digests(masks)
+                host = mask_digests(draw_jax_step_masks(
+                    mc, cpu_graphs, bundle.num_users, bundle.num_items,
+                    key, cpu))
+                check(card == host and len(card) == (4 if kw else 2),
+                      f"jax mesh {name} step {i}: the card's masks {card} "
+                      f"are the CPU's {host}")
+            # the mesh step on those masks against one device's at the
+            # mesh's params, each hop's kink replayed
+            kinks = []
+            with kernel_kinks(kinks):
+                totals, grads = mt._mesh_step.loss_and_grads(
+                    mt.mesh_state, b, masks=masks)
+            st = mt.mesh_state
+            whole = {k: gather(v, st.specs[k], device)
+                     for k, v in grads.items()}
+            share, worst = check_mesh_step(
+                (totals, whole),
+                single_step(one.model, mt.state["params"], one.graphs,
+                            b.to(device), tc,
+                            kinks=_per_hop(kinks, hops, 2), masks=masks),
+                tc, f"jax mesh {name} step {i}")
+            shares.append({"grad_check_share": share,
+                           "grad_check_worst": worst})
+            del grads, whole, masks
+            # the Trainers' own steps: the masks drawn again from the key
+            sc.reset_launches()
+            got = mt.train_step(b)
+            torch.cuda.synchronize()
+            counts = dict(sc.LAUNCHES)
+            expect_launches(counts, f"jax mesh {name} step {i}",
+                            **{kernel: hops * 4, kernel + "_bwd": hops * 4})
+            launches.append({k: v for k, v in counts.items() if v})
+            ref = one.train_step(b.to(device))
+            for k in ("loss", "preLoss", "regLoss"):
+                for what, w in (("one device's step", ref[k]),
+                                ("its held step", totals[k])):
+                    check_close(got[k].reshape(1), w.reshape(1), LOSS_RTOL,
+                                0.0, f"jax mesh {name} step {i} {k} vs "
+                                f"{what}")
+            losses.append({k: float(v) for k, v in got.items()})
+        want, got = one.state["params"], mt.state["params"]
+        rec.update(
+            mask_draw_ms=mask_ms, step_checks=shares, losses=losses,
+            launches=launches, params_max_abs_diff=max(
+                float((got[k] - v).detach().abs().max())
+                for k, v in want.items()))
+        out["configs"][name] = rec
+        for k in (kernel, kernel + "_bwd"):
+            out["launches"][k] = [c.get(k, 0) for c in launches]
+        log(f"JAX draws on 2 x 2 ({name}, {out['card']}): set-up "
+            f"{rec['setup_s']:.1f} s, {rec['init_leaves_equal']} leaves "
+            "equal to one device's; masks the CPU's, drawn in "
+            + ", ".join(f"{v:.2f}" for v in mask_ms) + " ms; steps' "
+            "gradient shares " + ", ".join(
+                f"{c['grad_check_share']:.2f}" for c in shares)
+            + f"; launches {launches}; losses "
+            + ", ".join(f"{st['loss']:.6f}" for st in losses)
+            + f"; params after {JAX_MESH_STEPS} steps within "
+            f"{rec['params_max_abs_diff']:.3e} of one device's")
+        del one, mt, want, got
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6222,6 +6393,12 @@ def drive(device) -> None:
     phase_s["jax draws"] = time.perf_counter() - t0
     log(f"phase jax draws: {phase_s['jax draws']:.1f} s")
 
+    # 28. JAX's draws on a one-card 2 x 2 mesh at gowalla width
+    t0 = time.perf_counter()
+    jax_mesh = jax_mesh_phase(cfg, bundle, device)
+    phase_s["jax draws on a mesh"] = time.perf_counter() - t0
+    log(f"phase jax draws on a mesh: {phase_s['jax draws on a mesh']:.1f} s")
+
     # 12. the 1M-user flagship: K3 and K4 through the Trainer and the
     # Recommender
     t0 = time.perf_counter()
@@ -6451,6 +6628,10 @@ def drive(device) -> None:
         # phase 27, counted from 0 before each step
         records[name]["launches_m131k_jax_draws_4_steps"] = \
             jax_draws["launches"][name]
+    # phase 28, counted from 0 before each mesh step: per step, every data
+    # and model rank
+    for name, count in jax_mesh["launches"].items():
+        records[name]["launches_mesh_jax_draws_2x2"] = count
     schedule_report(records)
     kernels = []
     for r in records.values():
@@ -6507,7 +6688,8 @@ def drive(device) -> None:
         "seq_parallel": seq_parallel, "mesh_options": mesh_options,
         "flagship_mesh": flagship_mesh, "ag": ag,
         "m131k": {k: v for k, v in m131k.items() if k != "profile"},
-        "m131k_profile": m131k["profile"], "jax_draws": jax_draws}
+        "m131k_profile": m131k["profile"], "jax_draws": jax_draws,
+        "jax_mesh": jax_mesh}
     log("main_path " + json.dumps(main_path))
     train = {"card": card, "steps_per_epoch": steps,
              **{k: v for k, v in training.items()

@@ -21,7 +21,9 @@ throwaway epoch under DIR before the run (the state and RNG are restored
 after it, so the run is unchanged). `--draws jax` trains from the JAX
 package's own initial values and dropout masks for the same `--seed`
 (`Trainer(draws="jax")`; not a Config field, so the Config stays JAX's
-field for field). `--supervise` runs the training under
+field for field), on one device or with `--mesh_data`/`--mesh_model`,
+where each rank takes its part of the same draws as JAX's mesh Trainer
+does. `--supervise` runs the training under
 the wedge watchdog (`train/supervisor.py`): the same command without the
 supervisor's flags as a child, recovered with `--load_model` when it
 wedges or crashes. `--per_token_seq_attention --seq_parallel` with
@@ -85,7 +87,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "port's torch.Generators; jax = the JAX package's "
                         "own draws for the same seed (threefry, "
                         "utils/jax_random.py), so a run starts from JAX's "
-                        "weights and masks (one device only)")
+                        "weights and masks; on a mesh (--mesh_data/"
+                        "--mesh_model) the same draws, made whole and "
+                        "cut per rank, as JAX's mesh Trainer makes them")
     p.add_argument("--ckpt_root", default="./Models")
     p.add_argument("--uid", type=int, default=-1,
                    help="dump this test-batch row's candidate scores "

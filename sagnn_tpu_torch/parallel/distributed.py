@@ -23,9 +23,12 @@ each rank divides its hinge sum by the whole batch's count (a mean of the
 ranks' means would weigh a short last batch's padding); the SSL loss is a
 sum and splits as it is; the weight decay counts once, on data rank 0.
 The dropout draws (edge dropout, the LSTM dropout's masks) are made once
-per step from the caller's generator, for the whole tables, in the
-single-device order, and every rank reads its rows of them: a mesh step
-equals the single-device step on the same generator state.
+per step for the whole tables, in the single-device order, and every rank
+reads its rows of them: from the caller's generator, so a mesh step equals
+the single-device step on the same generator state, or handed in already
+drawn (`draw_jax_step_masks` from the step's JAX key: the JAX package's
+GSPMD step draws the same bits as its single-device step, since they
+depend on the global shapes alone).
 """
 
 from __future__ import annotations
@@ -103,12 +106,18 @@ def place_state(state: Dict, specs: Dict[str, Spec], mesh) -> MeshState:
 
 
 def init_sharded_state(rules: ShardingRules, model: SelfGNN,
-                       optimizer: TF1Adam, gen: torch.Generator,
-                       split_tables: bool = True) -> MeshState:
-    """Params drawn from `gen` as `SelfGNN.init` draws them on one device
-    (the mesh's first), then laid out by `param_shardings`; Adam's moments
-    zero in the same layout, the count 0."""
-    params = model.init(gen, device=rules.mesh.device)
+                       optimizer: TF1Adam,
+                       gen: Optional[torch.Generator] = None,
+                       split_tables: bool = True,
+                       params: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> MeshState:
+    """`params` (drawn already, e.g. by `init_params_jax` from the init
+    key, as JAX jits `model.init` under the shardings) or, without them,
+    params drawn from `gen` as `SelfGNN.init` draws them on one device (the
+    mesh's first), then laid out by `param_shardings`; Adam's moments zero
+    in the same layout, the count 0."""
+    if params is None:
+        params = model.init(gen, device=rules.mesh.device)
     specs = param_shardings(rules, params, split_tables)
     return place_state({"params": params, "opt_state": optimizer.init(params),
                         "step": 0}, specs, rules.mesh)
@@ -160,8 +169,9 @@ class ShardedTrainStep:
 
     encode(state, d, masks): data rank d's (final_user, final_item,
     user_vec, item_vec), whole on its first device, with autograd.
-    loss_and_grads(state, batch, gen): the step's losses and summed
-    gradients, without the update; apply(state, grads): the update.
+    loss_and_grads(state, batch, gen, masks): the step's losses and summed
+    gradients, without the update, its masks drawn from `gen` or given
+    (a StepMasks for the whole tables); apply(state, grads): the update.
     __call__(state, batch, gen): the step on a TrainBatch or a
     ShardedBatch, its masks drawn from `gen`; updates `state` in place and
     returns {"loss", "preLoss", "regLoss"} as 0-d tensors on the mesh's
@@ -215,11 +225,14 @@ class ShardedTrainStep:
                    for k, v in sorted(state.params[d].items())
                    if k.startswith("reg/") for s in v)
 
-    def loss_and_grads(self, state: MeshState, batch, gen=None):
+    def loss_and_grads(self, state: MeshState, batch, gen=None,
+                       masks: Optional[StepMasks] = None):
         """(totals, grads): {"loss", "preLoss", "regLoss"} summed over every
         data rank, and each param's gradient summed over 'data', laid out
         as data rank 0's shards (the same bits reach every process); the
-        step without its update."""
+        step without its update. The step's masks are `masks` when given
+        (whole tables, every rank cuts its rows and edges), else drawn from
+        `gen` (None: no dropout)."""
         tc = self.cfg.train
         mesh = self.mesh
         if not isinstance(batch, ShardedBatch):
@@ -229,9 +242,10 @@ class ShardedTrainStep:
             pairs = float(all_reduce_sum(
                 [torch.tensor([pairs], dtype=torch.float64)])[0])
         norm = max(1.0, pairs)
-        masks = draw_step_masks(self.cfg.model, self.mask_graphs,
-                                self.model.num_users, self.model.num_items,
-                                gen, mesh.device)
+        if masks is None:
+            masks = draw_step_masks(self.cfg.model, self.mask_graphs,
+                                    self.model.num_users,
+                                    self.model.num_items, gen, mesh.device)
         dev0 = mesh.device
         stats = []
         grads: List[Shards] = []

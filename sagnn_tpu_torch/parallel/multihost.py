@@ -26,6 +26,11 @@ rank 0's JSON line.
            ranks. The bundle is JAX's test one (48 x 64) unless
            `--data_dir` names one written by `data/io.save_dataset`, which
            every worker loads (`--preset` then sets the widths).
+           `--draws jax` trains from the JAX package's initial values and
+           masks for the seed (`Trainer(draws="jax")`): every process draws
+           the whole tables' from the same key and its ranks take their
+           part, as JAX's multi-process Trainer splits the same key in
+           every process.
 
 `--device` is cuda unless cpu is asked for.
 """
@@ -48,19 +53,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def _tiny_config():
-    """bench_multihost.py's configuration (48 users x 64 items)."""
+    """bench_multihost.py's configuration (48 users x 64 items), with the
+    LSTM dropout at the model's default keepRate 0.5 where it has 1.0, so
+    that a run draws masks, which every process must draw alike."""
     from sagnn_tpu_torch.config import Config, ModelConfig, TrainConfig
     return Config(
         model=ModelConfig(graph_num=2, gnn_layer=1, att_layer=1, latdim=16,
                           num_heads=4, ssldim=8, pos_length=16,
-                          keep_rate=1.0),
+                          keep_rate=0.5),
         train=TrainConfig(batch=16, samp_num=4, ssl_num=2, trn_num=32,
                           test_size=10, lr=5e-3))
 
 
 def train_config(args):
     """The configuration a train worker runs: the preset's (`--preset`) or
-    bench_multihost.py's, with --spmm_backend and --trn_num when given."""
+    `_tiny_config`, with --spmm_backend and --trn_num when given."""
     from sagnn_tpu_torch.config import PRESETS
     cfg = PRESETS[args.preset] if args.preset else _tiny_config()
     model = dataclasses.replace(cfg.model, spmm_backend=args.spmm_backend)
@@ -106,7 +113,8 @@ def worker_train(args) -> None:
     bundle = load_bundle(args)
     mesh = global_mesh(model=1, devices=[device] * args.local_devices)
     with tempfile.TemporaryDirectory() as root:
-        tr = Trainer(train_config(args), bundle, ckpt_root=root, mesh=mesh)
+        tr = Trainer(train_config(args), bundle, ckpt_root=root, mesh=mesh,
+                     draws=args.draws)
         sc.reset_launches()
         launch.COLLECTIVES.update(calls=0, seconds=0.0)
         t0 = time.perf_counter()
@@ -268,6 +276,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--spmm_backend", default="xla",
                     choices=["xla", "pallas"])
     ap.add_argument("--trn_num", type=int, help="train: users per epoch")
+    ap.add_argument("--draws", choices=["torch", "jax"], default="torch",
+                    help="train: the initial values and dropout masks from "
+                    "torch.Generators, or the JAX package's own draws for "
+                    "the seed, made whole in every process and cut per "
+                    "rank")
     ap.add_argument("--eval_users", type=int, default=0,
                     help="train: evaluate the first N test users (0: all)")
     ap.add_argument("--timeout", type=float, default=600.0,

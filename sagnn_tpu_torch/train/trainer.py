@@ -44,7 +44,10 @@ fusion_chunk_rows and the bf16 stack run per rank. `seq_parallel` (with
 `per_token_seq_attention`, a mesh whose 'model' axis divides pos_length)
 runs the sequence branch's attention as ring attention over each data
 rank's model row, in training and in the evaluation
-(`parallel/ring_attention.py`).
+(`parallel/ring_attention.py`). With draws="jax" a mesh, in one process
+or across processes, starts from the JAX package's initial values and
+trains on its masks, as one device does: each is drawn whole from JAX's
+keys and every rank takes its part.
 
 `fusion_dtype="bf16"` (the CLI's `--bf16` with a bf16 table) trains the
 fusion stack and the sequence branch in bf16 from f32 master weights.
@@ -120,8 +123,8 @@ class _GatheredState(dict):
 
 
 class Trainer:
-    """End-to-end trainer over one DatasetBundle on one device, or with the
-    ring backend over a mesh (module docstring)."""
+    """End-to-end trainer over one DatasetBundle on one device or over a
+    mesh (module docstring)."""
 
     def __init__(self, cfg: Config, bundle: DatasetBundle,
                  ckpt_root: str = "./Models",
@@ -137,13 +140,17 @@ class Trainer:
         (trainer.py:274, 289), its `init_params` draw for draw
         (`init_params_jax`), and each step's masks from the key split off
         the trainer's key (trainer.py:497, `draw_jax_step_masks`), so a
-        run trains from JAX's initial values and masks. Not on a mesh
-        (ROADMAP A6(f))."""
+        run trains from JAX's initial values and masks. On a mesh, in one
+        process or across processes, the same: JAX's mesh Trainer draws
+        the bits of its single-device Trainer (they depend on the global
+        shapes alone), so the params are drawn whole on the mesh's first
+        device and laid out, and each step's masks are drawn whole there
+        and every rank takes its rows and edges of them (every process
+        draws them alike from the same key). The edge masks are drawn at
+        the padded [g, E] shape, so they are JAX's for a JAX Trainer run
+        at its default pad_multiple, 512, the padding used here."""
         if draws not in DRAWS:
             raise ValueError(f"draws={draws!r}: one of {DRAWS}")
-        if draws == "jax" and mesh is not None:
-            raise ValueError("draws='jax' runs on one device: a mesh's "
-                             "draws are not JAX's yet (ROADMAP A6(f))")
         self.draws = draws
         ring = cfg.model.spmm_backend == "ring"
         if mesh is not None:
@@ -224,7 +231,8 @@ class Trainer:
             rules = ShardingRules(mesh)
             self._mesh_state = init_sharded_state(
                 rules, self.model, self.optimizer, init_gen,
-                split_tables=not ring)
+                split_tables=not ring,
+                params=params if draws == "jax" else None)
             if ring:
                 step_graphs, mask_graphs = rows, {}
             else:
@@ -324,9 +332,16 @@ class Trainer:
         {"loss", "preLoss", "regLoss"} (regLoss = reg·L2 + ssl_reg·SSL) as
         0-d device tensors, not yet synchronised, and on one device
         "sslLoss", the unweighted SSL hinge."""
+        masks = None
+        if self.draws == "jax":
+            self.rng, key = jax_random.split(self.rng)
+            masks = draw_jax_step_masks(
+                self.cfg.model, self.graphs if self.mesh is None
+                else self._mesh_step.mask_graphs, self.bundle.num_users,
+                self.bundle.num_items, key, self.device)
         if self._mesh_state is not None:
             totals, grads = self._mesh_step.loss_and_grads(
-                self._mesh_state, batch, self.dropout_gen)
+                self._mesh_state, batch, self.dropout_gen, masks)
             # the update changes every replica's params and moments; a
             # preemption signal that lands meanwhile is saved after it
             with self._signals_deferred():
@@ -334,13 +349,6 @@ class Trainer:
             return totals
         tc = self.cfg.train
         params = self.state["params"]
-        masks = None
-        if self.draws == "jax":
-            self.rng, key = jax_random.split(self.rng)
-            masks = draw_jax_step_masks(self.cfg.model, self.graphs,
-                                        self.bundle.num_users,
-                                        self.bundle.num_items, key,
-                                        self.device)
         pre, ssl, _ = self.model.train_losses(params, self.graphs, batch,
                                               self.dropout_gen, masks)
         reg = tc.reg * reg_loss(params) + tc.ssl_reg * ssl

@@ -41,7 +41,7 @@ from sagnn_tpu_torch.models.selfgnn import draw_jax_step_masks
 from sagnn_tpu_torch.parallel.mesh import make_mesh
 from sagnn_tpu_torch.train.trainer import Trainer
 
-from tests.torch_port_helpers import numpy_tree
+from tests.torch_port_helpers import no_gradient, numpy_tree, record_steps
 from tests.torch_threads import one_torch_thread
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
@@ -55,18 +55,6 @@ TRAIN = dict(batch=64, trn_num=256, samp_num=4, ssl_num=3, test_size=8,
 STEPS = 4
 
 
-def no_gradient(key):
-    """Leaves whose gradient is zero in exact arithmetic, so that both
-    packages move them by rounding noise alone, which Adam's fresh moments
-    scale up to a fraction of a step: every MHSA's key bias (the softmax
-    is unchanged by a bias added to every key), and the pooled sequence
-    branch's query and key (quirk Q3: attention over one token, whose
-    softmax is 1)."""
-    leaf = key.rsplit("/", 1)[1]
-    return leaf == "bk" or (key.startswith("free/seq_mhsa/")
-                            and leaf in ("wq", "bq", "wk"))
-
-
 def _configs(**model):
     m, t = dict(MODEL, **model), dict(TRAIN)
     return (JConfig(model=JModelConfig(**m), train=JTrainConfig(**t)),
@@ -74,24 +62,11 @@ def _configs(**model):
                         train=tcfg.TrainConfig(**t)))
 
 
-def _record_steps(jtr):
-    """Wrap the JAX Trainer's jitted step so each step's stats are kept."""
-    steps, step = [], jtr._train_step
-
-    def recorded(*args):
-        state, stats = step(*args)
-        steps.append(stats)
-        return state, stats
-
-    jtr._train_step = recorded
-    return steps
-
-
 def _jax_run(tmp, **model):
     jcfg, _ = _configs(**model)
     jtr = JTrainer(jcfg, j_synth(**BUNDLE), ckpt_root=str(tmp))
     init = flatten_tree(numpy_tree(jtr.state["params"]))
-    steps = _record_steps(jtr)
+    steps = record_steps(jtr)
     jtr.train_epoch(verbose=False)
     stats = [{k: float(v) for k, v in s.items()} for s in steps]
     return init, stats, flatten_tree(numpy_tree(jtr.state["params"]))
@@ -256,9 +231,13 @@ def test_resume_replays_the_unbroken_run(tmp_path):
                 ckpt_root=str(tmp_path), device="cpu").restore_rng_state(rs)
 
 
-def test_a_mesh_refuses_jax_draws(tmp_path):
-    with pytest.raises(ValueError, match="A6"):
-        _trainer(tmp_path, mesh=make_mesh(data=2, devices=["cpu"] * 2))
+def test_the_ring_refuses_jax_draws_with_edge_dropout(tmp_path):
+    """A mesh takes draws="jax" (tests/test_torch_jax_draws_mesh.py), but
+    the ring refuses edge dropout for JAX's reason (its weights are
+    bucketed on the host; sagnn_tpu/train/trainer.py:157-161)."""
+    with pytest.raises(ValueError, match="needs the xla or pallas backend"):
+        _trainer(tmp_path, mesh=make_mesh(model=2, devices=["cpu"] * 2),
+                 spmm_backend="ring", edge_dropout_keep=0.8)
 
 
 def test_chip_smoke_known_answers_are_jax(monkeypatch):

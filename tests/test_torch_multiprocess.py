@@ -3,7 +3,9 @@
 slices), `host_batch_slice`, and `python -m
 sagnn_tpu_torch.parallel.multihost` over gloo: the ring across 2 and 4
 processes against its checksum, and a 2-process training epoch against
-the single-process 2 x 1 mesh (rtol 1e-4, as tests/test_multihost.py).
+the single-process 2 x 1 mesh (rtol 1e-4, as tests/test_multihost.py),
+with the LSTM dropout on, from the port's draws and from JAX's (`--draws
+jax`).
 
 Each launcher runs in its own session with `--timeout 100` (it stops its
 workers when one fails or the time is out); the test stops the whole
@@ -143,15 +145,17 @@ def test_multihost_ring_passes_its_checksum(procs):
     assert res["processes"] == procs and res["checksum_ok"] is True
 
 
-def test_multihost_train_matches_the_single_process_mesh(tmp_path):
+def check_multihost_train(tmp_path, *flags):
     """Two processes, each sampling its half of every batch, against one
-    process on a 2 x 1 mesh: the epoch's losses and both evaluations."""
-    res = run_multihost("--mode", "train", "--procs", 2)
+    process on a 2 x 1 mesh, both with the train `flags`: the epoch's
+    losses and both evaluations."""
+    res = run_multihost("--mode", "train", "--procs", 2, *flags)
     assert res["processes"] == 2 and res["steps"] == 2
-    args = parse_args(["--mode", "train"])
+    args = parse_args(["--mode", "train", *flags])
     tr = Trainer(train_config(args), load_bundle(args),
                  ckpt_root=str(tmp_path),
-                 mesh=make_mesh(data=2, model=1, devices=["cpu"] * 2))
+                 mesh=make_mesh(data=2, model=1, devices=["cpu"] * 2),
+                 draws=args.draws)
     ref = tr.train_epoch(verbose=False)
     mets = tr.test_epoch()
     fs = tr.test_epoch(full_sort=True)
@@ -159,3 +163,16 @@ def test_multihost_train_matches_the_single_process_mesh(tmp_path):
                       ("HR", mets["HR"]), ("NDCG", mets["NDCG"]),
                       ("fs_HR", fs["HR"]), ("fs_NDCG", fs["NDCG"])):
         np.testing.assert_allclose(res[key], want, rtol=1e-4, err_msg=key)
+
+
+def test_multihost_train_matches_the_single_process_mesh(tmp_path):
+    check_multihost_train(tmp_path)
+
+
+def test_multihost_train_with_jax_draws_matches_the_single_process_mesh(
+        tmp_path):
+    """`--draws jax` with the LSTM dropout on: every process draws the
+    whole masks from the same JAX key and its rank takes its rows, as the
+    one-process 2 x 1 mesh does (whose draws
+    tests/test_torch_jax_draws_mesh.py holds to JAX's mesh Trainer)."""
+    check_multihost_train(tmp_path, "--draws", "jax")

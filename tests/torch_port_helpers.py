@@ -65,6 +65,32 @@ def t(a):
     return torch.from_numpy(np.asarray(a))
 
 
+def no_gradient(key, pooled_seq=True):
+    """Leaves whose gradient is zero in exact arithmetic, so that both
+    packages move them by rounding noise alone, which Adam's fresh moments
+    scale up to a fraction of a step: every MHSA's key bias (the softmax
+    is unchanged by a bias added to every key), and, where the sequence
+    branch pools (`pooled_seq`; not with per_token_seq_attention), its
+    query and key (quirk Q3: attention over one token, whose softmax is
+    1)."""
+    leaf = key.rsplit("/", 1)[1]
+    return leaf == "bk" or (pooled_seq and key.startswith("free/seq_mhsa/")
+                            and leaf in ("wq", "bq", "wk"))
+
+
+def record_steps(jtr):
+    """Wrap the JAX Trainer's jitted step so each step's stats are kept."""
+    steps, step = [], jtr._train_step
+
+    def recorded(*args):
+        state, stats = step(*args)
+        steps.append(stats)
+        return state, stats
+
+    jtr._train_step = recorded
+    return steps
+
+
 def ulps_of_max(got, want) -> float:
     """max |got - want| in bf16 ulps of max |want|: one ulp is
     2^(floor(log2 max|want|) - 7)."""
