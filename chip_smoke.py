@@ -4281,8 +4281,9 @@ def profiler_trace_phase(cfg, bundle, device) -> dict:
     state and RNG restored. Checks: the trace file parses as JSON with CPU
     op events; params, Adam moments, counts and the RNG state after it
     bit-equal to a snapshot taken before; its K1 launches (12 + 12 per
-    step); a positive edge rate (`EdgeRateCounter`). Logged: the trace's
-    CUDA kernel events and K1 symbols among them."""
+    step); the port's step spans (`sagnn.train.step`, one a step) and a
+    positive step time. Logged: the trace's CUDA kernel events and K1
+    symbols among them."""
     import copy
     import glob
 
@@ -4290,7 +4291,6 @@ def profiler_trace_phase(cfg, bundle, device) -> dict:
     from sagnn_tpu_torch import main as tmain
     from sagnn_tpu_torch.ops import spmm_cuda as sc
     from sagnn_tpu_torch.train.trainer import Trainer
-    from sagnn_tpu_torch.utils.profiling import EdgeRateCounter
 
     out = {"card": gpu_name_and_power()}
     work = tempfile.mkdtemp()
@@ -4336,15 +4336,18 @@ def profiler_trace_phase(cfg, bundle, device) -> dict:
         check(same, "state after the profiled epoch bit-equal to before")
         check(trainer.capture_rng_state(0) == rng,
               "RNG state after the profiled epoch equal to before")
-        rate = EdgeRateCounter(trainer.edges_per_step,
-                               trainer.step_timer.windowed(steps))
-        out["edges_per_sec"] = rate.edges_per_sec
-        check(rate.edges_per_sec > 0, "a positive edge rate")
+        out["step_spans"] = sum(e.get("name") == "sagnn.train.step"
+                                and e.get("cat") == "user_annotation"
+                                for e in events)
+        check(out["step_spans"] == steps,
+              f"{steps} sagnn.train.step spans: {out['step_spans']}")
+        out["step_ms"] = trainer.step_timer.windowed(steps).mean * 1e3
+        check(out["step_ms"] > 0, "a positive step time")
         log(f"profiled epoch ({out['card']}): {out['profiled_epoch_s']:.1f}"
             f" s, trace {out['trace_mb']:.1f} MB, {out['cpu_op_events']} "
             f"CPU op events, {out['cuda_kernel_events']} CUDA kernel events"
             f" ({out['k1_kernel_events']} of them K1); "
-            f"{rate.edges_per_sec / 1e9:.3f} Gedges/s; state and RNG "
+            f"{out['step_ms']:.1f} ms a step; state and RNG "
             "restored bit for bit")
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -202,21 +202,19 @@ def profile_epoch(trainer, logdir: str) -> None:
     written to `logdir`, then the Trainer's state (params, Adam moments,
     step) and RNGs (sampler and dropout) put back as they were, so the
     run that follows is unchanged (JAX main.py:229-242). Logs the epoch's
-    propagation edges/s."""
+    step time. The trace holds the port's `sagnn.` spans."""
     import copy
 
-    from sagnn_tpu_torch.utils.profiling import EdgeRateCounter, trace
+    from sagnn_tpu_torch.utils.profiling import trace
     state = copy.deepcopy(trainer.state)
     rng = trainer.capture_rng_state(0)
     with trace(logdir, cuda=trainer.device.type == "cuda"):
         trainer.train_epoch(verbose=False)
-    rate = EdgeRateCounter(trainer.edges_per_step, trainer.step_timer
-                           .windowed(trainer._steps_last_epoch))
+    timer = trainer.step_timer.windowed(trainer._steps_last_epoch)
     trainer.state = state
     trainer.restore_rng_state(rng)
-    log(f"Profile trace written to {logdir}: {len(rate.timer.times)} "
-        f"steps, {rate.timer.mean * 1e3:.1f} ms per step, propagation "
-        f"{rate.edges_per_sec / 1e9:.4f} Gedges/s")
+    log(f"Profile trace written to {logdir}: {len(timer.times)} "
+        f"steps, {timer.mean * 1e3:.1f} ms per step")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

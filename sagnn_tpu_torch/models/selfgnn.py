@@ -70,6 +70,7 @@ from sagnn_tpu_torch.parallel.sharding import (TPGraphs, all_gather,
                                                tp_attention_spmm, tp_spmm,
                                                tp_weighted_spmm)
 from sagnn_tpu_torch.utils import jax_random
+from sagnn_tpu_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -419,58 +420,61 @@ def _interval_propagation(params: Params, graphs: Dict, cfg: ModelConfig,
     activations, as JAX checkpoints the scan body (selfgnn.py:273-276).
     Propagation draws no random numbers (edge-dropout weights come in as
     an argument), so the recompute repeats the forward exactly."""
-    if cfg.spmm_backend == "ring":
-        return _per_interval(params, cfg, _ring_interval(
-            graphs["ring"], cfg, num_users, num_items, mesh,
-            params["reg/u_embed"].device))
-    pallas = cfg.spmm_backend == "pallas"
-    sharded = _src_sharded(cfg)
-    if edge_weights is None and cfg.edge_norm is not None:
-        edge_weights = (graphs["edge_weights"][0], graphs["edge_weights"][1])
+    with span("sagnn.model.propagation"):
+        if cfg.spmm_backend == "ring":
+            return _per_interval(params, cfg, _ring_interval(
+                graphs["ring"], cfg, num_users, num_items, mesh,
+                params["reg/u_embed"].device))
+        pallas = cfg.spmm_backend == "pallas"
+        sharded = _src_sharded(cfg)
+        if edge_weights is None and cfg.edge_norm is not None:
+            edge_weights = (graphs["edge_weights"][0],
+                            graphs["edge_weights"][1])
 
-    def hop(x, x_tgt, side, k, num_tgt):
-        """One hop of interval k into the `side` ("u" or "i") targets, from
-        the other side's x; x_tgt is the target side's current embedding
-        (read by edge attention only)."""
-        other = "i" if side == "u" else "u"
-        src, tgt = graphs[f"{side}_src"][k], graphs[f"{side}_tgt"][k]
-        w = None if edge_weights is None else \
-            edge_weights[0 if side == "u" else 1][k]
-        if not pallas:
-            return propagate(x, src, tgt, num_tgt, cfg.leaky, w)
-        if sharded:
-            ss = graphs["plans_ss"]
-            agg = spmm_src_sharded(
-                x, ss[f"{side}_src"][k], ss[f"{side}_ptr"][k],
-                ss[f"{other}_src"][k], ss[f"{other}_ptr"][k],
-                cfg.spmm_src_shard_rows, cfg.spmm_exact,
-                cfg.spmm_fold_gather)
+        def hop(x, x_tgt, side, k, num_tgt):
+            """One hop of interval k into the `side` ("u" or "i")
+            targets, from the other side's x; x_tgt is the target side's
+            current embedding (read by edge attention only)."""
+            other = "i" if side == "u" else "u"
+            src, tgt = graphs[f"{side}_src"][k], graphs[f"{side}_tgt"][k]
+            w = None if edge_weights is None else \
+                edge_weights[0 if side == "u" else 1][k]
+            if not pallas:
+                return propagate(x, src, tgt, num_tgt, cfg.leaky, w)
+            if sharded:
+                ss = graphs["plans_ss"]
+                agg = spmm_src_sharded(
+                    x, ss[f"{side}_src"][k], ss[f"{side}_ptr"][k],
+                    ss[f"{other}_src"][k], ss[f"{other}_ptr"][k],
+                    cfg.spmm_src_shard_rows, cfg.spmm_exact,
+                    cfg.spmm_fold_gather)
+                return leaky_relu(agg, cfg.leaky)
+            plans = (graphs[f"{side}_ptr"][k], graphs[f"{other}_src"][k],
+                     graphs[f"{other}_ptr"][k])
+            if cfg.edge_attention:
+                agg = attention_propagate(x, x_tgt, src, tgt, *plans,
+                                          graphs[f"{other}_from_{side}"][k],
+                                          exact=cfg.spmm_exact)
+            elif w is not None:
+                agg = spmm_weighted(x, w, src, tgt, *plans,
+                                    graphs[f"{other}_from_{side}"][k],
+                                    cfg.spmm_exact)
+            else:
+                agg = spmm(x, src, *plans, cfg.spmm_exact,
+                           cfg.spmm_fold_gather)
             return leaky_relu(agg, cfg.leaky)
-        plans = (graphs[f"{side}_ptr"][k], graphs[f"{other}_src"][k],
-                 graphs[f"{other}_ptr"][k])
-        if cfg.edge_attention:
-            agg = attention_propagate(x, x_tgt, src, tgt, *plans,
-                                      graphs[f"{other}_from_{side}"][k],
-                                      exact=cfg.spmm_exact)
-        elif w is not None:
-            agg = spmm_weighted(x, w, src, tgt, *plans,
-                                graphs[f"{other}_from_{side}"][k],
-                                cfg.spmm_exact)
-        else:
-            agg = spmm(x, src, *plans, cfg.spmm_exact, cfg.spmm_fold_gather)
-        return leaky_relu(agg, cfg.leaky)
 
-    def interval(k, u0, i0):
-        embs0, embs1 = [u0], [i0]
-        for _ in range(cfg.gnn_layer):
-            a0 = hop(embs1[-1], embs0[-1], "u", k, num_users)
-            a1 = hop(embs0[-1], embs1[-1], "i", k, num_items)
-            embs0.append(a0 + embs0[-1])
-            embs1.append(a1 + embs1[-1])
-        # tf.add_n over all layers
-        return sum(embs0[1:], embs0[0]), sum(embs1[1:], embs1[0])
+        def interval(k, u0, i0):
+            embs0, embs1 = [u0], [i0]
+            for _ in range(cfg.gnn_layer):
+                a0 = hop(embs1[-1], embs0[-1], "u", k, num_users)
+                a1 = hop(embs0[-1], embs1[-1], "i", k, num_items)
+                embs0.append(a0 + embs0[-1])
+                embs1.append(a1 + embs1[-1])
+            # tf.add_n over all layers
+            return sum(embs0[1:], embs0[0]), sum(embs1[1:], embs1[0])
 
-    return _per_interval(params, cfg, interval)
+        return _per_interval(params, cfg, interval)
 
 
 def _ring_interval(ring: Dict, cfg: ModelConfig, num_users: int,
@@ -773,48 +777,50 @@ def _temporal_fusion(params: Params, user_vec: torch.Tensor,
     is forced (Q5's raw exp overflows in bf16). PyTorch's bf16 reductions
     accumulate in f32 and round once, as jnp's do (tests/test_torch_bf16.py
     and the card test hold it). The outputs are f32."""
-    bf16 = cfg.fusion_dtype == "bf16"
-    stable = cfg.stable_softmax or bf16
+    with span("sagnn.model.fusion"):
+        bf16 = cfg.fusion_dtype == "bf16"
+        stable = cfg.stable_softmax or bf16
 
-    def cast(p: Params) -> Params:
-        return {k: v.to(torch.bfloat16) for k, v in p.items()} if bf16 \
-            else p
+        def cast(p: Params) -> Params:
+            return {k: v.to(torch.bfloat16) for k, v in p.items()} if bf16 \
+                else p
 
-    lstm_p = cast(sub(params, "free/lstm"))
+        lstm_p = cast(sub(params, "free/lstm"))
 
-    def stream(x_t, mhsa_p, ln_p, keep):
-        """[n, g, D] -> [n, D] (f32 from a bf16 stack)"""
-        if bf16:
-            x_t = x_t.to(torch.bfloat16)
-        x_t = lstm_scan(lstm_p, x_t, keep_rate=cfg.keep_rate,
-                        keep_mask=keep)
-        m = multi_head_self_attention(
-            mhsa_p, layer_norm(x_t, ln_p["scale"], ln_p["shift"]),
-            cfg.num_heads, stable=stable)
-        m = torch.mean(m, dim=1)
-        return m.float() if bf16 else m
+        def stream(x_t, mhsa_p, ln_p, keep):
+            """[n, g, D] -> [n, D] (f32 from a bf16 stack)"""
+            if bf16:
+                x_t = x_t.to(torch.bfloat16)
+            x_t = lstm_scan(lstm_p, x_t, keep_rate=cfg.keep_rate,
+                            keep_mask=keep)
+            m = multi_head_self_attention(
+                mhsa_p, layer_norm(x_t, ln_p["scale"], ln_p["shift"]),
+                cfg.num_heads, stable=stable)
+            m = torch.mean(m, dim=1)
+            return m.float() if bf16 else m
 
-    def fuse(vec, mhsa_p, ln_p, keep):
-        rows = cfg.fusion_chunk_rows
-        x_t = vec.transpose(0, 1)
-        if rows <= 0 or x_t.shape[0] <= rows:
-            return stream(x_t, mhsa_p, ln_p, keep)
-        blocks = x_t.split(rows)
-        keeps = keep.split(rows) if keep is not None else [None] * len(blocks)
-        if not torch.is_grad_enabled():
-            return torch.cat([stream(b, mhsa_p, ln_p, k)
+        def fuse(vec, mhsa_p, ln_p, keep):
+            rows = cfg.fusion_chunk_rows
+            x_t = vec.transpose(0, 1)
+            if rows <= 0 or x_t.shape[0] <= rows:
+                return stream(x_t, mhsa_p, ln_p, keep)
+            blocks = x_t.split(rows)
+            keeps = (keep.split(rows) if keep is not None
+                     else [None] * len(blocks))
+            if not torch.is_grad_enabled():
+                return torch.cat([stream(b, mhsa_p, ln_p, k)
+                                  for b, k in zip(blocks, keeps)])
+            return torch.cat([checkpoint(stream, b, mhsa_p, ln_p, k,
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
                               for b, k in zip(blocks, keeps)])
-        return torch.cat([checkpoint(stream, b, mhsa_p, ln_p, k,
-                                     use_reentrant=False,
-                                     preserve_rng_state=False)
-                          for b, k in zip(blocks, keeps)])
 
-    keep_u, keep_i = (None, None) if keep is None else keep
-    mu = fuse(user_vec, cast(sub(params, "free/mhsa_user")),
-              cast(sub(params, "free/ln_user")), keep_u)
-    mi = fuse(item_vec, cast(sub(params, "free/mhsa_item")),
-              cast(sub(params, "free/ln_item")), keep_i)
-    return mu, mi
+        keep_u, keep_i = (None, None) if keep is None else keep
+        mu = fuse(user_vec, cast(sub(params, "free/mhsa_user")),
+                  cast(sub(params, "free/ln_user")), keep_u)
+        mi = fuse(item_vec, cast(sub(params, "free/mhsa_item")),
+                  cast(sub(params, "free/ln_item")), keep_i)
+        return mu, mi
 
 
 def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
@@ -838,55 +844,58 @@ def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
     the pooled path's attention takes the stable softmax too. Ring
     attention computes in f32 from the bf16 inputs and returns bf16, as
     JAX's does (ring_attention.py:52)."""
-    bf16 = cfg.fusion_dtype == "bf16"
-    ring = cfg.per_token_seq_attention and cfg.seq_parallel
+    with span("sagnn.model.sequence"):
+        bf16 = cfg.fusion_dtype == "bf16"
+        ring = cfg.per_token_seq_attention and cfg.seq_parallel
 
-    def cast(t: torch.Tensor) -> torch.Tensor:
-        return t.to(torch.bfloat16) if bf16 else t
+        def cast(t: torch.Tensor) -> torch.Tensor:
+            return t.to(torch.bfloat16) if bf16 else t
 
-    def free(prefix: str) -> Params:
-        return {k: cast(v) for k, v in sub(params, prefix).items()}
+        def free(prefix: str) -> Params:
+            return {k: cast(v) for k, v in sub(params, prefix).items()}
 
-    seq_emb = cast(rows(item_att_emb, seq))                     # [B, L, D]
-    seq_mask = cast(seq_mask)
-    pos_embed = cast(params["reg/pos_embed"])
-    ln_item, ln_pos = free("free/seq_ln_item"), free("free/seq_ln_pos")
+        seq_emb = cast(rows(item_att_emb, seq))                     # [B, L, D]
+        seq_mask = cast(seq_mask)
+        pos_embed = cast(params["reg/pos_embed"])
+        ln_item, ln_pos = free("free/seq_ln_item"), free("free/seq_ln_pos")
 
-    if cfg.per_token_seq_attention:
-        # the layer norm of the positions is the same for every row:
-        # computed once, [1, L, D], and broadcast
-        x = layer_norm(seq_emb, ln_item["scale"], ln_item["shift"])
-        x = x + layer_norm(pos_embed[None], ln_pos["scale"],
-                           ln_pos["shift"])
-        x = x * seq_mask[:, :, None]
-        for i in range(cfg.att_layer):
-            ln = free(f"free/seq_ln/{i}")
-            xn = layer_norm(x, ln["scale"], ln["shift"])
-            if ring:
-                h = ring_multi_head_self_attention(
-                    mesh, free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
-                    seq_mask)
-            else:
+        if cfg.per_token_seq_attention:
+            # the layer norm of the positions is the same for every row:
+            # computed once, [1, L, D], and broadcast
+            x = layer_norm(seq_emb, ln_item["scale"], ln_item["shift"])
+            x = x + layer_norm(pos_embed[None], ln_pos["scale"],
+                               ln_pos["shift"])
+            x = x * seq_mask[:, :, None]
+            for i in range(cfg.att_layer):
+                ln = free(f"free/seq_ln/{i}")
+                xn = layer_norm(x, ln["scale"], ln["shift"])
+                if ring:
+                    h = ring_multi_head_self_attention(
+                        mesh, free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
+                        seq_mask)
+                else:
+                    h = multi_head_self_attention(
+                        free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
+                        stable=True, mask=seq_mask)
+                x = leaky_relu(h, cfg.leaky) + x
+            att = torch.sum(x * seq_mask[:, :, None], dim=1)
+        else:
+            stable = cfg.stable_softmax or bf16
+            pooled_items = torch.einsum("bl,bld->bd", seq_mask,
+                                        seq_emb)[:, None]
+            pooled_pos = torch.einsum("bl,ld->bd", seq_mask,
+                                      pos_embed)[:, None]
+            x = layer_norm(pooled_items, ln_item["scale"], ln_item["shift"])
+            x = x + layer_norm(pooled_pos, ln_pos["scale"], ln_pos["shift"])
+            for i in range(cfg.att_layer):
+                ln = free(f"free/seq_ln/{i}")
                 h = multi_head_self_attention(
-                    free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
-                    stable=True, mask=seq_mask)
-            x = leaky_relu(h, cfg.leaky) + x
-        att = torch.sum(x * seq_mask[:, :, None], dim=1)
-    else:
-        stable = cfg.stable_softmax or bf16
-        pooled_items = torch.einsum("bl,bld->bd", seq_mask, seq_emb)[:, None]
-        pooled_pos = torch.einsum("bl,ld->bd", seq_mask, pos_embed)[:, None]
-        x = layer_norm(pooled_items, ln_item["scale"], ln_item["shift"])
-        x = x + layer_norm(pooled_pos, ln_pos["scale"], ln_pos["shift"])
-        for i in range(cfg.att_layer):
-            ln = free(f"free/seq_ln/{i}")
-            h = multi_head_self_attention(
-                free(f"free/seq_mhsa/{i}"),
-                layer_norm(x, ln["scale"], ln["shift"]),
-                cfg.num_heads, stable=stable)
-            x = leaky_relu(h, cfg.leaky) + x  # model.py:166
-        att = torch.sum(x, dim=1)  # [B, D] (model.py:167)
-    return att.float() if bf16 else att
+                    free(f"free/seq_mhsa/{i}"),
+                    layer_norm(x, ln["scale"], ln["shift"]),
+                    cfg.num_heads, stable=stable)
+                x = leaky_relu(h, cfg.leaky) + x  # model.py:166
+            att = torch.sum(x, dim=1)  # [B, D] (model.py:167)
+        return att.float() if bf16 else att
 
 
 def rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -1144,21 +1153,23 @@ class SelfGNN:
         batch's count (`parallel/distributed.py`); the SSL loss is a sum
         and splits as it is."""
         cfg = self.cfg
-        att_user = _sequence_branch(params, final_item, batch.seq,
-                                    batch.seq_mask, cfg, self.mesh)
-        pu = rows(final_user, batch.uids)
-        au = leaky_relu(rows(att_user, batch.useq_row), cfg.leaky)
+        with span("sagnn.model.losses"):
+            att_user = _sequence_branch(params, final_item, batch.seq,
+                                        batch.seq_mask, cfg, self.mesh)
+            pu = rows(final_user, batch.uids)
+            au = leaky_relu(rows(att_user, batch.useq_row), cfg.leaky)
 
-        def preds(iids):                              # model.py:169-173
-            pi = rows(final_item, iids)               # iEmbed_att == final_item
-            return torch.sum(pu * pi, dim=-1) + torch.sum(au * pi, dim=-1)
+            def preds(iids):                          # model.py:169-173
+                pi = rows(final_item, iids)       # iEmbed_att == final_item
+                return (torch.sum(pu * pi, dim=-1)
+                        + torch.sum(au * pi, dim=-1))
 
-        pos = preds(batch.pos_iids)
-        neg = preds(batch.neg_iids)
-        hinge = _hinge(1.0 - (pos - neg)) * batch.pair_mask
-        ssl = _ssl_loss(params, batch, final_user, final_item, user_vec,
-                        item_vec, cfg)
-        return torch.sum(hinge), ssl, {"pos_pred": pos, "neg_pred": neg}
+            pos = preds(batch.pos_iids)
+            neg = preds(batch.neg_iids)
+            hinge = _hinge(1.0 - (pos - neg)) * batch.pair_mask
+            ssl = _ssl_loss(params, batch, final_user, final_item, user_vec,
+                            item_vec, cfg)
+            return torch.sum(hinge), ssl, {"pos_pred": pos, "neg_pred": neg}
 
     @torch.no_grad()
     def serving_queries(self, params: Params, final_user: torch.Tensor,
@@ -1226,15 +1237,20 @@ class SelfGNN:
             chunk_rows = auto_chunk_rows(self.num_items)
         seen_seq = seq if exclude_seen else None
         seen_mask = seq_mask if exclude_seen else None
-        if chunk_rows > 0:
-            queries = self.serving_queries(params, final_user, final_item,
-                                           user_ids, seq, seq_mask)
-            return chunked_topk(queries, final_item, self.num_items, k,
-                                chunk_rows, recall_target, seen_seq,
-                                seen_mask)
-        scores = self.score_all_items(params, final_user, final_item,
-                                      user_ids, seq, seq_mask)
-        if exclude_seen:
-            seen = scatter_local_mask(seq, 0, self.num_items, valid=seq_mask)
-            scores = scores.masked_fill(seen, float("-inf"))
-        return topk_descending(scores, k, recall_target)
+        with span("sagnn.serve.score"):
+            if chunk_rows > 0:
+                # the chunked path scores and selects chunk by chunk
+                queries = self.serving_queries(params, final_user,
+                                               final_item, user_ids, seq,
+                                               seq_mask)
+                return chunked_topk(queries, final_item, self.num_items, k,
+                                    chunk_rows, recall_target, seen_seq,
+                                    seen_mask)
+            scores = self.score_all_items(params, final_user, final_item,
+                                          user_ids, seq, seq_mask)
+            if exclude_seen:
+                seen = scatter_local_mask(seq, 0, self.num_items,
+                                          valid=seq_mask)
+                scores = scores.masked_fill(seen, float("-inf"))
+        with span("sagnn.serve.topk"):
+            return topk_descending(scores, k, recall_target)

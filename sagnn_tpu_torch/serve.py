@@ -55,6 +55,7 @@ from sagnn_tpu_torch.parallel.serving import (pad_catalog, shard_catalog,
                                               sharded_recommend_top_k)
 from sagnn_tpu_torch.train.checkpoint import CheckpointManager
 from sagnn_tpu_torch.train.metrics import topk_metrics
+from sagnn_tpu_torch.utils.profiling import span
 
 
 def catalog_mesh(shards: int, device: torch.device | str = "cuda") -> Mesh:
@@ -179,26 +180,28 @@ class Recommender:
         value (`models.selfgnn.topk_descending`). With a catalog_mesh the
         top-k runs over the sharded catalog (sharded once per encode) and
         returns on the mesh's first device."""
-        users = np.asarray(users, np.int64)
-        seq, mask = user_sequences(self.bundle, users,
-                                   self.cfg.model.pos_length)
-        user_ids = torch.from_numpy(users).to(self.device)
-        seq = torch.from_numpy(seq).to(self.device)
-        mask = torch.from_numpy(mask).to(self.device)
-        if self.catalog_mesh is None:
-            return self.model.recommend_top_k(
-                self.params, self.graphs, user_ids, seq, mask, k=k,
+        with span("sagnn.serve.request"):
+            users = np.asarray(users, np.int64)
+            with span("sagnn.serve.sequences"):
+                seq, mask = user_sequences(self.bundle, users,
+                                           self.cfg.model.pos_length)
+            user_ids = torch.from_numpy(users).to(self.device)
+            seq = torch.from_numpy(seq).to(self.device)
+            mask = torch.from_numpy(mask).to(self.device)
+            if self.catalog_mesh is None:
+                return self.model.recommend_top_k(
+                    self.params, self.graphs, user_ids, seq, mask, k=k,
+                    exclude_seen=exclude_seen, recall_target=recall_target,
+                    chunk_rows=chunk_rows, encodings=self.encodings)
+            final_user, final_item = self.encodings
+            if self._catalog is None:
+                self._catalog = shard_catalog(self.catalog_mesh, pad_catalog(
+                    final_item, len(self.catalog_mesh.model_devices)))
+            return sharded_recommend_top_k(
+                self.model, self.catalog_mesh, self.params, final_user,
+                final_item, user_ids, seq, mask, k=k,
                 exclude_seen=exclude_seen, recall_target=recall_target,
-                chunk_rows=chunk_rows, encodings=self.encodings)
-        final_user, final_item = self.encodings
-        if self._catalog is None:
-            self._catalog = shard_catalog(self.catalog_mesh, pad_catalog(
-                final_item, len(self.catalog_mesh.model_devices)))
-        return sharded_recommend_top_k(
-            self.model, self.catalog_mesh, self.params, final_user,
-            final_item, user_ids, seq, mask, k=k, exclude_seen=exclude_seen,
-            recall_target=recall_target, item_table=self._catalog,
-            chunk_rows=chunk_rows)
+                item_table=self._catalog, chunk_rows=chunk_rows)
 
     def evaluate(self, max_users: Optional[int] = None,
                  ks=(1, 5, 10, 15, 20)) -> Dict[str, float]:

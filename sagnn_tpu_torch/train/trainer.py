@@ -100,7 +100,7 @@ from sagnn_tpu_torch.train.metrics import (MetricsHistory,
 from sagnn_tpu_torch.train.optim import AdamState, TF1Adam
 from sagnn_tpu_torch.utils import jax_random
 from sagnn_tpu_torch.utils.logger import log
-from sagnn_tpu_torch.utils.profiling import StepTimer
+from sagnn_tpu_torch.utils.profiling import StepTimer, span
 
 DRAWS = ("torch", "jax")
 
@@ -204,10 +204,6 @@ class Trainer:
         self.sample_timer = StepTimer()   # host sampling per batch
         self.step_stats: list = []        # the last epoch's per-step losses
         self.debug_uid = -1
-        # edges processed per step: 2 directions × gnn_layer hops × the
-        # real edges summed over intervals
-        self.edges_per_step = (2 * cfg.model.gnn_layer
-                               * int(self.graph_blocks.edge_counts.sum()))
         # weights from a CPU generator (the same on every device); the
         # dropout generator lives on the device and is seeded from it
         init_gen = torch.Generator().manual_seed(tc.seed)
@@ -332,40 +328,43 @@ class Trainer:
         {"loss", "preLoss", "regLoss"} (regLoss = reg·L2 + ssl_reg·SSL) as
         0-d device tensors, not yet synchronised, and on one device
         "sslLoss", the unweighted SSL hinge."""
-        masks = None
-        if self.draws == "jax":
-            self.rng, key = jax_random.split(self.rng)
-            masks = draw_jax_step_masks(
-                self.cfg.model, self.graphs if self.mesh is None
-                else self._mesh_step.mask_graphs, self.bundle.num_users,
-                self.bundle.num_items, key, self.device)
-        if self._mesh_state is not None:
-            totals, grads = self._mesh_step.loss_and_grads(
-                self._mesh_state, batch, self.dropout_gen, masks)
-            # the update changes every replica's params and moments; a
-            # preemption signal that lands meanwhile is saved after it
-            with self._signals_deferred():
-                self._mesh_step.apply(self._mesh_state, grads)
-            return totals
-        tc = self.cfg.train
-        params = self.state["params"]
-        pre, ssl, _ = self.model.train_losses(params, self.graphs, batch,
-                                              self.dropout_gen, masks)
-        reg = tc.reg * reg_loss(params) + tc.ssl_reg * ssl
-        loss = pre + reg
-        keys = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys],
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(params[k]) if g is None else g
-                 for k, g in zip(keys, grads)}
-        # the update changes the params, Adam's moments and the step count
-        # over several statements; a preemption signal that lands among
-        # them is saved once they are all done
-        with self._signals_deferred():
-            self.optimizer.step(params, grads, self.state["opt_state"])
-            self.state["step"] += 1
-        return {"loss": loss.detach(), "preLoss": pre.detach(),
-                "regLoss": reg.detach(), "sslLoss": ssl.detach()}
+        with span("sagnn.train.step"):
+            masks = None
+            if self.draws == "jax":
+                self.rng, key = jax_random.split(self.rng)
+                masks = draw_jax_step_masks(
+                    self.cfg.model, self.graphs if self.mesh is None
+                    else self._mesh_step.mask_graphs, self.bundle.num_users,
+                    self.bundle.num_items, key, self.device)
+            if self._mesh_state is not None:
+                totals, grads = self._mesh_step.loss_and_grads(
+                    self._mesh_state, batch, self.dropout_gen, masks)
+                # the update changes every replica's params and moments; a
+                # preemption signal that lands meanwhile is saved after it
+                with self._signals_deferred():
+                    self._mesh_step.apply(self._mesh_state, grads)
+                return totals
+            tc = self.cfg.train
+            params = self.state["params"]
+            pre, ssl, _ = self.model.train_losses(params, self.graphs, batch,
+                                                  self.dropout_gen, masks)
+            with span("sagnn.model.losses"):
+                reg = tc.reg * reg_loss(params) + tc.ssl_reg * ssl
+                loss = pre + reg
+            keys = list(params)
+            with span("sagnn.train.backward"):
+                grads = torch.autograd.grad(loss, [params[k] for k in keys],
+                                            allow_unused=True)
+                grads = {k: torch.zeros_like(params[k]) if g is None else g
+                         for k, g in zip(keys, grads)}
+            # the update changes the params, Adam's moments and the step
+            # count over several statements; a preemption signal that
+            # lands among them is saved once they are all done
+            with self._signals_deferred(), span("sagnn.train.optimizer"):
+                self.optimizer.step(params, grads, self.state["opt_state"])
+                self.state["step"] += 1
+            return {"loss": loss.detach(), "preLoss": pre.detach(),
+                    "regLoss": reg.detach(), "sslLoss": ssl.detach()}
 
     def _batch_rows(self) -> tuple:
         """(start, size): this process's rows of every batch (all of them
@@ -384,57 +383,59 @@ class Trainer:
         queues step i+1 before it waits for step i. Each StepTimer sample
         spans the queueing of step i and the fetch of step i-1's
         losses."""
-        tc = self.cfg.train
-        ids = self.sampler.epoch_user_ids(tc.trn_num)
-        steps = -(-len(ids) // tc.batch)
-        epoch_loss = epoch_pre = 0.0
-        start, size = self._batch_rows()
+        with span("sagnn.train.epoch"):
+            tc = self.cfg.train
+            ids = self.sampler.epoch_user_ids(tc.trn_num)
+            steps = -(-len(ids) // tc.batch)
+            epoch_loss = epoch_pre = 0.0
+            start, size = self._batch_rows()
 
-        def sample(i):
-            self.sample_timer.tic()
-            bat = ids[i * tc.batch:(i + 1) * tc.batch]
-            if self.mesh is None:
-                batch = self.sampler.train_batch(bat).to(self.device)
-            else:
-                batch = shard_inputs(
-                    self._mesh_step.rules,
-                    self.sampler.train_batch_slice(bat, start, size))
-            self.sample_timer.toc()
-            return batch
+            def sample(i):
+                self.sample_timer.tic()
+                bat = ids[i * tc.batch:(i + 1) * tc.batch]
+                if self.mesh is None:
+                    batch = self.sampler.train_batch(bat).to(self.device)
+                else:
+                    batch = shard_inputs(
+                        self._mesh_step.rules,
+                        self.sampler.train_batch_slice(bat, start, size))
+                self.sample_timer.toc()
+                return batch
 
-        def consume(i, pending):
-            nonlocal epoch_loss, epoch_pre
-            stats = {k: float(v) for k, v in pending.items()}
-            self.step_stats.append(stats)
-            epoch_loss += stats["loss"]
-            epoch_pre += stats["preLoss"]
-            if verbose:
-                log(f"Step {i}/{steps}: preloss = {stats['preLoss']:.2f}, "
-                    f"REGLoss = {stats['regLoss']:.2f}         ",
-                    oneline=True)
+            def consume(i, pending):
+                nonlocal epoch_loss, epoch_pre
+                stats = {k: float(v) for k, v in pending.items()}
+                self.step_stats.append(stats)
+                epoch_loss += stats["loss"]
+                epoch_pre += stats["preLoss"]
+                if verbose:
+                    log(f"Step {i}/{steps}: preloss = {stats['preLoss']:.2f}, "
+                        f"REGLoss = {stats['regLoss']:.2f}         ",
+                        oneline=True)
 
-        pending = None
-        self._steps_last_epoch = steps
-        self.step_stats = []
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            nxt = pool.submit(sample, 0)
-            for i in range(steps):
-                batch = nxt.result()
-                if i + 1 < steps:
-                    nxt = pool.submit(sample, i + 1)
-                self.step_timer.tic()
-                stats = self.train_step(batch)
-                # a sample with no pending fetch would time the queueing
-                # alone; the first step's toc is skipped
+            pending = None
+            self._steps_last_epoch = steps
+            self.step_stats = []
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                nxt = pool.submit(sample, 0)
+                for i in range(steps):
+                    with span("sagnn.train.wait_batch"):
+                        batch = nxt.result()
+                    if i + 1 < steps:
+                        nxt = pool.submit(sample, i + 1)
+                    self.step_timer.tic()
+                    stats = self.train_step(batch)
+                    # a sample with no pending fetch would time the queueing
+                    # alone; the first step's toc is skipped
+                    if pending is not None:
+                        consume(i - 1, pending)
+                        self.step_timer.toc()
+                    pending = stats
                 if pending is not None:
-                    consume(i - 1, pending)
+                    self.step_timer.tic()
+                    consume(steps - 1, pending)
                     self.step_timer.toc()
-                pending = stats
-            if pending is not None:
-                self.step_timer.tic()
-                consume(steps - 1, pending)
-                self.step_timer.toc()
-        return {"Loss": epoch_loss / steps, "preLoss": epoch_pre / steps}
+            return {"Loss": epoch_loss / steps, "preLoss": epoch_pre / steps}
 
     # -- trajectory-exact resume ----------------------------------------------
 
@@ -468,15 +469,12 @@ class Trainer:
         return int(rs["epoch"])
 
     def throughput_stats(self) -> Dict[str, float]:
-        """Step time and propagation edges/s over the last epoch's steps."""
+        """Step time over the last epoch's steps."""
         t = self.step_timer.windowed(self._steps_last_epoch)
-        mean = t.mean
         return {
-            "step_ms_mean": mean * 1e3,
+            "step_ms_mean": t.mean * 1e3,
             "step_ms_p50": t.percentile(50) * 1e3,
             "step_ms_p95": t.percentile(95) * 1e3,
-            "edges_per_sec": (self.edges_per_step / mean
-                              if t.times else 0.0),
         }
 
     def test_epoch(self, max_users: int | None = None,
@@ -755,10 +753,9 @@ class Trainer:
                     f"restore")
             log(self.history.format_line("Train", ep, cfg.train.epoch, tr))
             ts = self.throughput_stats()
-            if ts["edges_per_sec"] > 0:
+            if ts["step_ms_mean"] > 0:
                 log(f"  step {ts['step_ms_mean']:.1f} ms avg "
-                    f"(p95 {ts['step_ms_p95']:.1f}), propagation "
-                    f"{ts['edges_per_sec'] / 1e9:.4f} Gedges/s")
+                    f"(p95 {ts['step_ms_p95']:.1f})")
             t_test = time.monotonic()
             if test:
                 te = self.test_epoch()

@@ -228,7 +228,7 @@ def test_throughput_stats(bundle, tmp_path):
     tr.train_epoch(verbose=False)
     ts = tr.throughput_stats()
     assert len(tr.step_timer.times) == 2 and len(tr.sample_timer.times) == 2
-    assert ts["step_ms_mean"] > 0 and ts["edges_per_sec"] > 0
+    assert ts["step_ms_mean"] > 0
     assert ts["step_ms_p50"] <= ts["step_ms_p95"]
 
 
