@@ -4,13 +4,13 @@ and check them.
 
     python3 chip_smoke.py
 
-Phases, in this order: 1-5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 19, 21, 13,
+Phases, in this order: 1-4, 29, 5, 8, 9, 6, 10, 15, 16, 18, 7, 11, 19, 21, 13,
 22, 23, 24, 25 (gowalla), 26, 27, 12, 17, 25 (flagship), 20, 14
 (any failure raises and the script exits non-zero; it prints no result
 line then):
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile sagnn_tpu_torch/csrc/*.cu (segsum.cu, sddmm.cu,
-               probes.cu), one nvcc per source in parallel (timed).
+               probes.cu, interval_attention.cu), one nvcc per source in parallel (timed).
   3. set-up  — the synthetic gowalla-scale bundle (49,152 users x 40,960
                items, 3 intervals, sequences of 10-50 items), its graphs
                and CSR plans, and seeded random weights (timed).
@@ -285,6 +285,14 @@ line then):
                Trainers (12 + 12 K1 or K2 launches per data rank per model
                rank a mesh step, counted from 0), their losses at
                LOSS_RTOL.
+ 29. interval attention — the kernel pair of csrc/interval_attention.cu
+               (the fusion stack's MHSA core) at the benchmark cells'
+               shapes, [131,072 | 98,304, 12, 64] and [131,072, 3, 64], 16
+               heads: forward and backward, raw and stable, against the
+               plain small-T path and its autograd on the card, twice the
+               same bits; device times of both kernels, the plain path and
+               scaled_dot_product_attention (timed only) beside the byte
+               bound; an `interval_attention` JSON line.
 Every segment-sum mode (K1-K4, K6, P2; forward and backward), K5 (forward
 and dw) and every P1 mode is launched twice on the same inputs in its
 phase and must give the same bits (`check_repeatable`); before the kernels line each segment-sum record logs
@@ -401,6 +409,14 @@ FLAGSHIP_BF16_STEPS = 4     # timed bf16_b4096 Trainer steps
 # stream's rounding bound (`check_bf16_selection`)
 TOPK_RERANK_RTOL = 1e-6
 TF1_FIXTURE = "tests/fixtures/tf_reference_tiny.npz"
+# phase 29, the interval attention kernel pair at the benchmark cells'
+# shapes, 16 heads of 4: yelp's users and items (T = 12), gowalla's users
+# (T = 3); against the plain small-T path on the card at rtol 1e-4 and
+# atol 1e-5 x max|value| (both sum in f32, in other orders)
+MHSA_SOURCE = "sagnn_tpu_torch/csrc/interval_attention.cu"
+MHSA_SHAPES = ((131_072, 12, 64), (98_304, 12, 64), (131_072, 3, 64))
+MHSA_HEADS = 16
+MHSA_RTOL, MHSA_ATOL_SHARE = 1e-4, 1e-5
 
 
 def log(*a):
@@ -6067,6 +6083,116 @@ def jax_mesh_phase(cfg, bundle, device) -> dict:
     return out
 
 
+def interval_attention_phase(device) -> dict:
+    """Phase 29: the interval attention kernel pair (`MHSA_SOURCE`) at
+    `MHSA_SHAPES`. Each direction, raw and stable, against the plain
+    small-T path and its autograd on the card, and repeatable; then device
+    times (`kernel_ms`) with raw exp, the presets' normalisation: the
+    forward kernel, the backward kernel, both through
+    `IntervalAttentionFunction`; the plain path forward and forward with
+    backward; `scaled_dot_product_attention` (the library yardstick, a
+    stable softmax, timed only: the port never calls it) the same two ways.
+    Bound: q, k, v read and ctx written once forward (16 N T D bytes), q,
+    k, v, g read and dq, dk, dv written once backward (28 N T D bytes), at
+    HBM_BYTES_PER_S."""
+    import torch
+    import torch.nn.functional as F
+
+    from sagnn_tpu_torch.ops import attention as att
+
+    heads = MHSA_HEADS
+    records = {}
+    for n, t, d in MHSA_SHAPES:
+        shape = f"{n}x{t}x{d}"
+        gen = torch.Generator(device=device).manual_seed(n + t)
+        q, k, v, g = (torch.randn((n, t, d), generator=gen, device=device)
+                      for _ in range(4))
+        for stable in (False, True):
+            got = (att.interval_attention(q, k, v, heads, stable),
+                   *att.interval_attention_backward(q, k, v, g, heads,
+                                                    stable))
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = att.interval_attention_plain(*leaves, heads, stable)
+            want = (out.detach(), *torch.autograd.grad(out, leaves, g))
+            del out, leaves
+            for what, a, b in zip(("ctx", "dq", "dk", "dv"), got, want):
+                check_close(a, b, MHSA_RTOL, MHSA_ATOL_SHARE * amax(b),
+                            f"interval attention {shape} "
+                            f"{'stable' if stable else 'raw'} {what}")
+            del got, want
+        check_repeatable(lambda: att.interval_attention(q, k, v, heads),
+                         f"interval attention {shape} forward")
+        check_repeatable(
+            lambda: torch.cat(att.interval_attention_backward(q, k, v, g,
+                                                              heads)),
+            f"interval attention {shape} backward")
+
+        def through_function():
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = att.IntervalAttentionFunction.apply(*leaves, heads, False)
+            return torch.autograd.grad(out, leaves, g)
+
+        def plain_step():
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = att.interval_attention_plain(*leaves, heads)
+            return torch.autograd.grad(out, leaves, g)
+
+        def split(x):   # [N, T, D] -> [N, H, T, dk]
+            return x.view(n, t, heads, d // heads).transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(split(q), split(k),
+                                                  split(v))
+
+        def library_step():
+            leaves = [split(x).clone().requires_grad_() for x in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves)
+            return torch.autograd.grad(out, leaves, split(g))
+
+        def library_step_ms():
+            try:
+                library_step()
+            except RuntimeError as e:
+                log(f"  library[sdpa {shape} backward]: not run here "
+                    f"({str(e).splitlines()[0]})")
+                return None
+            return kernel_ms(library_step)
+
+        stable_ctx = split(att.interval_attention_plain(q, k, v, heads,
+                                                        True))
+        library_fwd_ms = _library_ms(
+            f"sdpa {shape}", library, stable_ctx, MHSA_RTOL,
+            MHSA_ATOL_SHARE * amax(stable_ctx))
+        del stable_ctx
+        fwd_bytes, bwd_bytes = 16 * n * t * d, 28 * n * t * d
+        rec = {
+            "fwd_ms": kernel_ms(lambda: att.interval_attention(q, k, v,
+                                                               heads)),
+            "bwd_ms": kernel_ms(lambda: att.interval_attention_backward(
+                q, k, v, g, heads)),
+            "fwd_bwd_ms": kernel_ms(through_function),
+            "plain_fwd_ms": kernel_ms(
+                lambda: att.interval_attention_plain(q, k, v, heads),
+                iters=5, warmup=1),
+            "plain_fwd_bwd_ms": kernel_ms(plain_step, iters=5, warmup=1),
+            "library_fwd_ms": library_fwd_ms,
+            "library_fwd_bwd_ms": library_step_ms(),
+            "fwd_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+        }
+        rec["fwd_share"] = rec["fwd_bound_ms"] / rec["fwd_ms"]
+        rec["bwd_share"] = rec["bwd_bound_ms"] / rec["bwd_ms"]
+        records[shape] = rec
+        log(f"  interval attention {shape}: " + ", ".join(
+            f"{key} {'not run' if val is None else f'{val:.4f}'}"
+            for key, val in rec.items()))
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    log(json.dumps({"interval_attention": {
+        "source": MHSA_SOURCE, "heads": heads, "shapes": records}}))
+    return records
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6134,6 +6260,13 @@ def drive(device) -> None:
     records.update(backward_phase(rec.graphs, device))
     phase_s["kernels"] = time.perf_counter() - t0
     log(f"phase kernels: {phase_s['kernels']:.1f} s")
+
+    # 29. the interval attention kernel pair at the cells' shapes
+    t0 = time.perf_counter()
+    interval_attention_phase(device)
+    phase_s["interval attention"] = time.perf_counter() - t0
+    log(f"phase interval attention: "
+        f"{phase_s['interval attention']:.1f} s")
 
     # 5. serving: encode through the kernel, counts read just after
     t0 = time.perf_counter()

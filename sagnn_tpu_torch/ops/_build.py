@@ -39,10 +39,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def _flags() -> tuple[str, ...]:
-    """NVCC_FLAGS and the kernels' schedules, each defined once in the
-    module that sizes its grid and scratch: the segment-sum kernel's and
-    the SDDMM's in `spmm_cuda`, P1's in `probes`."""
-    from sagnn_tpu_torch.ops import probes
+    """NVCC_FLAGS and the kernels' schedules and bounds, each defined once
+    in the module that sizes its grid and scratch or checks its inputs: the
+    segment-sum kernel's and the SDDMM's in `spmm_cuda`, P1's in `probes`,
+    the interval attention's in `attention`."""
+    from sagnn_tpu_torch.ops import attention, probes
     from sagnn_tpu_torch.ops import spmm_cuda as sc
     return NVCC_FLAGS + (
         f"-DSAGNN_PIECE_ITEMS={sc.PIECE_ITEMS}",
@@ -53,7 +54,8 @@ def _flags() -> tuple[str, ...]:
         f"-DSAGNN_SDDMM_WARPS_PER_BLOCK={sc.SDDMM_WARPS_PER_BLOCK}",
         f"-DSAGNN_SDDMM_BLOCKS_PER_SM={sc.SDDMM_BLOCKS_PER_SM}",
         f"-DSAGNN_P1_CHUNK_ROWS={probes.P1_CHUNK_ROWS}",
-        f"-DSAGNN_P1_WARPS_PER_BLOCK={probes.P1_WARPS_PER_BLOCK}")
+        f"-DSAGNN_P1_WARPS_PER_BLOCK={probes.P1_WARPS_PER_BLOCK}",
+        f"-DSAGNN_MHSA_MAX_NODE_FLOATS={attention.MAX_NODE_FLOATS}")
 
 
 @dataclass(frozen=True)
@@ -166,6 +168,11 @@ def load_library() -> ctypes.CDLL:
         # chunks, blocks, device, stream
         ("sagnn_sddmm_f32", "sagnn_sddmm_bf16"):
             [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
+        # q, k, v, ctx, n, t, d, head_dim, stable, device, stream
+        ("sagnn_interval_mhsa_f32",): [p, p, p, p, i, i, i, i, i, i, p],
+        # q, k, v, g, dq, dk, dv, n, t, d, head_dim, stable, device, stream
+        ("sagnn_interval_mhsa_bwd_f32",):
+            [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
     }
     for names, argtypes in signatures.items():
         for name in names:

@@ -16,7 +16,10 @@ the card against the CPU; the all-gather edge partition's hop (K1 per
 rank) forward and backward; the supervisor declaring a hung CUDA call
 (blocking sync) before and after the child's first log line; a 2 x 2
 one-card mesh step against the single-device step, and two processes
-sharing the card over gloo against one process on a 2 x 1 mesh.
+sharing the card over gloo against one process on a 2 x 1 mesh; the
+interval attention kernel pair (forward and its backward) against the
+plain small-T path, NaN for NaN where raw exp overflows, under a
+checkpoint, and its launches in a training step, an encode and a request.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. They import
 neither JAX nor the JAX package, so they run on a machine with PyTorch
@@ -1652,3 +1655,159 @@ def test_ag_hop_on_card_matches_plain(dev, exact, shards):
     bptr = torch.from_numpy(sc.csr_row_ptr(np.sort(src), n_src))
     torch.testing.assert_close(out, want, **_tol(ptr, torch.from_numpy(xp)))
     torch.testing.assert_close(dx, dwant, **_tol(bptr, cot))
+
+
+# -- the interval attention kernel pair -------------------------------------
+
+def _mhsa_inputs(n, t, d, seed, overflow):
+    """q, k, v and a cotangent [n, t, d] f32; with `overflow`, one node's
+    logits overflow exp in f32 (60 x 60 x dk / sqrt(dk) past 88.7)."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn((n, t, d), generator=gen) for _ in range(4))
+    if overflow:
+        q[n // 2, t // 2] = 60.0
+        k[n // 2, t - 1] = 60.0
+    return q, k, v, g
+
+
+def _check_mhsa(dev, q, k, v, g, heads, stable):
+    """The kernel pair through `IntervalAttentionFunction` against the
+    plain small-T path: NaN and inf exactly where the plain path on the
+    card (f32) gives them; elsewhere ctx, dq, dk, dv against the plain path
+    and its autograd in f64 on the CPU, within 4x the plain f32 path's own
+    error plus 1e-5 of the largest |value| (the sums run in another order).
+    One launch each way."""
+    from sagnn_tpu_torch.ops import attention as att
+
+    def run(fn, dtype, device):
+        leaves = [x.to(device, dtype).requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, heads, stable)
+        grads = torch.autograd.grad(out, leaves, g.to(device, dtype))
+        return [t.detach() for t in (out, *grads)]
+
+    att.reset_launches()
+    got = run(att.IntervalAttentionFunction.apply, torch.float32, dev)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES == {"interval_mhsa_f32": 1,
+                            "interval_mhsa_f32_bwd": 1}
+    plain = run(att.interval_attention_plain, torch.float32, dev)
+    want = run(att.interval_attention_plain, torch.float64, "cpu")
+    for name, a, p, w in zip(("ctx", "dq", "dk", "dv"), got, plain, want):
+        assert torch.equal(a.isnan(), p.isnan()), name
+        assert torch.equal(a.isinf(), p.isinf()), name
+        keep = torch.isfinite(p).cpu()
+        a, p = a.cpu().double()[keep], p.cpu().double()[keep]
+        w = w[keep]
+        plain_err = float((p - w).abs().max())
+        err = float((a - w).abs().max())
+        assert err <= 4 * plain_err + 1e-5 * float(w.abs().max()), \
+            (name, err, plain_err)
+    return got
+
+
+@pytest.mark.parametrize("stable", [False, True], ids=["raw", "stable"])
+@pytest.mark.parametrize("t", [1, 3, 12, 16])
+def test_interval_attention_matches_plain(dev, t, stable):
+    """1,031 nodes (no multiple of a block's nodes), 16 heads of 4, forward
+    and all three gradients; with raw exp one node's logits overflow."""
+    q, k, v, g = _mhsa_inputs(1031, t, 64, seed=t, overflow=not stable)
+    got = _check_mhsa(dev, q, k, v, g, 16, stable)
+    assert got[0].isnan().any() == (not stable)
+
+
+@pytest.mark.parametrize("head_dim", [1, 2, 8, 16])
+def test_interval_attention_other_head_sizes(dev, head_dim):
+    for stable in (False, True):
+        q, k, v, g = _mhsa_inputs(333, 5, 4 * head_dim, seed=head_dim,
+                                  overflow=False)
+        _check_mhsa(dev, q, k, v, g, 4, stable)
+
+
+def test_interval_attention_under_checkpoint(dev):
+    """`multi_head_self_attention` under `torch.utils.checkpoint`: the
+    forward kernel runs again in the recompute (2 + 1 launches) and the
+    gradients are the bits of the call without the checkpoint."""
+    from torch.utils.checkpoint import checkpoint
+
+    from sagnn_tpu_torch.ops import attention as att
+
+    gen = torch.Generator().manual_seed(5)
+    params = {n: (torch.randn(s, generator=gen) * 0.2).to(dev)
+              .requires_grad_()
+              for n, s in (("wq", (64, 64)), ("bq", (64,)), ("wk", (64, 64)),
+                           ("bk", (64,)), ("wv", (64, 64)), ("bv", (64,)))}
+    x = torch.randn((1031, 12, 64), generator=gen).to(dev).requires_grad_()
+    cot = torch.randn((1031, 12, 64), generator=gen).to(dev)
+    leaves = [x, *params.values()]
+
+    def layer(x_):
+        return att.multi_head_self_attention(params, x_, 16)
+
+    att.reset_launches()
+    want = torch.autograd.grad(layer(x), leaves, cot)
+    assert att.LAUNCHES == {"interval_mhsa_f32": 1,
+                            "interval_mhsa_f32_bwd": 1}
+    att.reset_launches()
+    got = torch.autograd.grad(
+        checkpoint(layer, x, use_reentrant=False), leaves, cot)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES == {"interval_mhsa_f32": 2,
+                            "interval_mhsa_f32_bwd": 1}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_interval_attention_rejects_what_it_does_not_take(dev):
+    from sagnn_tpu_torch.ops import attention as att
+    q = torch.zeros((8, 12, 64), device=dev)
+    with pytest.raises(ValueError):
+        att.interval_attention(q, q.transpose(0, 1).contiguous()
+                               .transpose(0, 1), q, 16)
+    with pytest.raises(ValueError):
+        att.interval_attention(q[:, :, 1:], q[:, :, 1:], q[:, :, 1:], 21)
+    assert att.interval_attention(q[:0], q[:0], q[:0], 16).shape == \
+        (0, 12, 64)
+
+
+@pytest.mark.parametrize("preset,launches", [("yelp", 4), ("gowalla", 3)])
+def test_interval_attention_launches_on_the_main_path(dev, tmp_path, preset,
+                                                      launches):
+    """Per training step: the two fusion streams and att_layer pooled
+    sequence layers, each one forward and one backward launch (yelp 4 + 4,
+    gowalla 3 + 3); an encode 2 + 0; a request att_layer + 0."""
+    import dataclasses
+
+    from sagnn_tpu_torch.config import PRESETS
+    from sagnn_tpu_torch.data.synthetic import synthetic_dataset
+    from sagnn_tpu_torch.models.selfgnn import reg_loss
+    from sagnn_tpu_torch.ops import attention as att
+    from sagnn_tpu_torch.serve import Recommender
+    from sagnn_tpu_torch.train.trainer import Trainer
+
+    base = PRESETS[preset]
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, spmm_backend="pallas"),
+        train=dataclasses.replace(base.train, test_size=30, batch=32,
+                                  trn_num=64, samp_num=8, ssl_num=6,
+                                  seed=1))
+    bundle = synthetic_dataset(num_users=70, num_items=90,
+                               graph_num=base.model.graph_num, test_size=30,
+                               seed=2)
+    tr = Trainer(cfg, bundle, ckpt_root=str(tmp_path), device=dev)
+    ids = tr.sampler.epoch_user_ids(cfg.train.trn_num)
+    batch = tr.sampler.train_batch(ids[:cfg.train.batch]).to(dev)
+    att.reset_launches()
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES == {"interval_mhsa_f32": launches,
+                            "interval_mhsa_f32_bwd": launches}
+    rec = Recommender(cfg, bundle, tr.state["params"], device=dev)
+    att.reset_launches()
+    rec.encode()
+    assert att.LAUNCHES == {"interval_mhsa_f32": 2,
+                            "interval_mhsa_f32_bwd": 0}
+    att.reset_launches()
+    rec.recommend(list(range(16)), k=10)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES == {"interval_mhsa_f32": base.model.att_layer,
+                            "interval_mhsa_f32_bwd": 0}
