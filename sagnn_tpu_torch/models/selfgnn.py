@@ -869,14 +869,15 @@ def _sequence_branch(params: Params, item_att_emb: torch.Tensor,
             for i in range(cfg.att_layer):
                 ln = free(f"free/seq_ln/{i}")
                 xn = layer_norm(x, ln["scale"], ln["shift"])
-                if ring:
-                    h = ring_multi_head_self_attention(
-                        mesh, free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
-                        seq_mask)
-                else:
-                    h = multi_head_self_attention(
-                        free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
-                        stable=True, mask=seq_mask)
+                with span("sagnn.model.seq_attention"):
+                    if ring:
+                        h = ring_multi_head_self_attention(
+                            mesh, free(f"free/seq_mhsa/{i}"), xn,
+                            cfg.num_heads, seq_mask)
+                    else:
+                        h = multi_head_self_attention(
+                            free(f"free/seq_mhsa/{i}"), xn, cfg.num_heads,
+                            stable=True, mask=seq_mask)
                 x = leaky_relu(h, cfg.leaky) + x
             att = torch.sum(x * seq_mask[:, :, None], dim=1)
         else:

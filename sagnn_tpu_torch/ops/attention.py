@@ -62,6 +62,18 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# Work of the masked einsum path (T > 16: the per-token sequence
+# attention), from shapes alone, no sync: "calls" the rows attended (B a
+# call), "slots" their B·T tokens, "pairs" their B·T² (query, key) pairs,
+# padding included.
+SEQ_ATTENTION = {"calls": 0, "slots": 0, "pairs": 0}
+
+
+def reset_seq_attention() -> None:
+    for name in SEQ_ATTENTION:
+        SEQ_ATTENTION[name] = 0
+
+
 def multi_head_self_attention(params: Dict[str, torch.Tensor],
                               x: torch.Tensor, num_heads: int,
                               stable: bool = False,
@@ -106,6 +118,10 @@ def multi_head_self_attention(params: Dict[str, torch.Tensor],
     def split_heads(y):  # [B, T, D] -> [B, H, T, dk]
         return y.reshape(B, T, num_heads, dk).transpose(1, 2)
 
+    if mask is not None:
+        SEQ_ATTENTION["calls"] += B
+        SEQ_ATTENTION["slots"] += B * T
+        SEQ_ATTENTION["pairs"] += B * T * T
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
     logits = torch.einsum("bhtd,bhsd->bhts", q, k) / math.sqrt(dk)
     if mask is not None:
